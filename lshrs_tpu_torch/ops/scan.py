@@ -1,0 +1,237 @@
+"""Collision-count top-k: group-max selection plus exact refinement.
+
+The store keeps its signatures transposed, ``sig_t: (num_bands * W, C)``,
+so the slot axis is minor for the scan. Exact ordering contract: the
+reference sorts candidates by ``(-collision_count, id)``. Selection keys
+embed each slot's *id-rank*, ``key = count * S + (S - 1 - rank)``, so all
+alive keys are globally distinct and plain top-k selection is exact:
+
+1. Kernel B1 (`lshrs_tpu_torch.ops.group_max.group_max_keys`) fuses count
+   + key + contiguous group max into ``(Q, C / group)``.
+2. Top-``k`` groups by max. Alive keys are distinct, so these groups
+   provably hold every true top-k slot; ties exist only among groups with
+   no alive slot of count > 0, whose slots can only yield id -1, so a
+   flat ``torch.topk`` returns exactly what the reference's blockwise
+   selector does.
+3. One gather of each selected group's wide row from the grouped refine
+   table, a recount of its slots against the query, and an exact top-k
+   over the ``k * group`` candidates.
+
+Not ported yet: the chunked fallback engine for stores whose key does
+not pack into int32, and the full-count paths (ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lshrs_tpu_torch.ops.bitpack import narrow_words_count, pack_words_narrow
+from lshrs_tpu_torch.ops.group_max import (
+    band_counts_t,
+    group_max_keys,
+    key_scale,
+    supports_fast_path,
+)
+
+__all__ = [
+    "band_counts_t",
+    "build_grouped_refine_rows",
+    "collision_topk_grouped_core",
+    "gather_refine_group_rows",
+    "global_tie_core",
+    "key_scale",
+    "merge_topk_pools",
+    "refine_counts_vs_query",
+    "supports_fast_path",
+]
+
+_INT32_MAX = 2**31 - 1
+
+
+def merge_topk_pools(
+    pool_counts: torch.Tensor, pool_ids: torch.Tensor, *, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge pooled (count, id) candidates to the exact global top-k.
+
+    Ascending lexicographic order by (-count, id); empty entries (count 0)
+    go to the end via id = INT32_MAX. Two stable sorts (minor key first)
+    give the lexicographic order.
+    """
+    tie_ids = torch.where(pool_counts > 0, pool_ids, _INT32_MAX)
+    order = torch.argsort(tie_ids, dim=1, stable=True)
+    order = order.gather(1, torch.argsort(-pool_counts.gather(1, order), dim=1, stable=True))
+    out_k = min(k, pool_counts.shape[1])
+    counts_out = pool_counts.gather(1, order[:, :out_k])
+    ids_out = torch.where(counts_out > 0, pool_ids.gather(1, order[:, :out_k]), -1)
+    if out_k < k:  # pool smaller than k: pad
+        counts_out = torch.nn.functional.pad(counts_out, (0, k - out_k))
+        ids_out = torch.nn.functional.pad(ids_out, (0, k - out_k), value=-1)
+    return counts_out, ids_out
+
+
+def build_grouped_refine_rows(sig_rows_ext: torch.Tensor, *, group: int) -> torch.Tensor:
+    """Per-slot refine table -> GROUP-ROW refine table.
+
+    Args:
+        sig_rows_ext: ``(C, nc)`` int32, ``nc = nw + 2`` (words | tie | id).
+        group: slots per group (contiguous grouping, as the kernels use).
+
+    Returns:
+        ``(C // group, nc * group)`` int32; row ``g`` holds group ``g``'s
+        slot rows WORD-MAJOR: ``nc`` blocks of ``group`` values (word 0 of
+        every slot, then word 1, ..., then tie, then id), so the refine
+        stage reads each word column of a gathered row contiguously.
+    """
+    c, nc = sig_rows_ext.shape
+    r3 = sig_rows_ext.reshape(c // group, group, nc)
+    return r3.transpose(1, 2).reshape(c // group, nc * group)
+
+
+def gather_refine_group_rows(
+    rows_g: torch.Tensor, top_groups: torch.Tensor, *, bw: int, group: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather whole candidate-group rows -> ``(words, tie, ids)``.
+
+    Args:
+        rows_g: ``(C // group, (bw + 2) * group)`` int32 grouped refine
+            table (see :func:`build_grouped_refine_rows`).
+        top_groups: ``(Q, m)`` int64 selected group indices.
+
+    Returns:
+        ``words (Q, m, bw, group)``, ``tie (Q, m, group)`` and
+        ``ids (Q, m, group)``, all int32 (tie and id are stored as int32
+        already, so no bit reinterpretation is needed).
+    """
+    q, m = top_groups.shape
+    rows = rows_g.index_select(0, top_groups.reshape(-1)).reshape(q, m, bw + 2, group)
+    return rows[:, :, :bw, :], rows[:, :, bw, :], rows[:, :, bw + 1, :]
+
+
+def refine_counts_vs_query(
+    cwords: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_bands: int,
+    words: int,
+    narrow_r: int,
+    probes: int = 1,
+) -> torch.Tensor:
+    """Per-candidate collision counts of gathered refine rows vs queries.
+
+    Args:
+        cwords: ``(Q, m, nw, group)`` int32 gathered signature words —
+            word-aligned (``nw = num_bands * words``) when ``narrow_r == 0``,
+            else NARROW-packed (``32 // narrow_r`` bands per word, see
+            `lshrs_tpu_torch.ops.bitpack.pack_words_narrow`).
+        qwords: ``(Q, probes * num_bands * words)`` int32 probe-major,
+            always word-aligned (packed narrow here when needed).
+
+    Returns:
+        ``(Q, m, group)`` int32 matching-band counts (any-probe semantics
+        when ``probes > 1``).
+    """
+    bw = num_bands * words
+    counts = None
+    if narrow_r:
+        q = qwords.shape[0]
+        qn = pack_words_narrow(
+            qwords.reshape(q * probes, bw), num_bands=num_bands, rows_per_band=narrow_r
+        ).reshape(q, probes, -1)
+        bpw = 32 // narrow_r
+        mask = (1 << narrow_r) - 1
+        for t in range(probes):
+            for wi in range(cwords.shape[2]):
+                cw = cwords[:, :, wi, :]
+                qv = qn[:, t, wi][:, None, None]
+                for j in range(min(bpw, num_bands - wi * bpw)):
+                    sh = j * narrow_r
+                    # Arithmetic shifts on int32 bit-views: the mask drops
+                    # the sign extension, leaving band j's bits.
+                    eq = ((cw >> sh) & mask) == ((qv >> sh) & mask)
+                    counts = eq.to(torch.int32) if counts is None else counts + eq
+        return counts
+    for t in range(probes):
+        for b in range(num_bands):
+            col = t * bw + b * words
+            eq = cwords[:, :, b * words, :] == qwords[:, col][:, None, None]
+            for j in range(1, words):
+                eq &= cwords[:, :, b * words + j, :] == qwords[:, col + j][:, None, None]
+            counts = eq.to(torch.int32) if counts is None else counts + eq
+    return counts
+
+
+def collision_topk_grouped_core(
+    sig_t: torch.Tensor,
+    tie: torch.Tensor,
+    qwords: torch.Tensor,
+    sig_rows: torch.Tensor,
+    *,
+    num_bands: int,
+    k: int,
+    group: int,
+    narrow_r: int = 0,
+    probes: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (count desc, id asc) via group-max keys + refinement.
+
+    Args:
+        sig_t: ``(BW, C)`` int32 transposed signatures; C % group == 0.
+        tie: ``(C,)`` int32 — ``S - 1 - global_id_rank`` for alive slots,
+            -1 for dead (see :func:`global_tie_core`).
+        qwords: ``(Q, probes * BW)`` int32 probe-major query words.
+        sig_rows: ``(C // group, group * (nw + 2))`` grouped refine table
+            (:func:`build_grouped_refine_rows`); ``nw = BW`` when
+            ``narrow_r == 0``, else ``narrow_words_count(num_bands,
+            narrow_r)`` narrow-packed words.
+        probes: multi-probe variants per query; the count is the number of
+            bands matching ANY variant.
+
+    Returns:
+        ``(counts, ids)``, each ``(Q, k)`` int32; zero-count tail entries
+        carry id -1.
+    """
+    bw, c = sig_t.shape
+    q = qwords.shape[0]
+    w = bw // num_bands
+    scale = key_scale(c)
+    ng = c // group
+    gmax = group_max_keys(
+        sig_t, tie, qwords, num_bands=num_bands, words=w, group=group,
+        scale=scale, probes=probes,
+    )
+    m = min(k, ng)
+    top_groups = torch.topk(gmax, m, dim=1).indices
+    mg = m * group
+    nw = narrow_words_count(num_bands, narrow_r) if narrow_r else bw
+    cwords, cand_tie, cand_ids = gather_refine_group_rows(
+        sig_rows, top_groups, bw=nw, group=group
+    )
+    counts = refine_counts_vs_query(
+        cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
+    ).reshape(q, mg)
+    cand_tie = cand_tie.reshape(q, mg)
+    key = counts * (cand_tie >= 0) * scale + cand_tie.clamp(min=0)
+
+    k_eff = min(k, mg)
+    top_key, top_pos = torch.topk(key, k_eff, dim=1)
+    sel_counts = top_key // scale
+    picked = cand_ids.reshape(q, mg).gather(1, top_pos)
+    sel_ids = torch.where(sel_counts > 0, picked, -1)
+    if k_eff < k:
+        sel_counts = torch.nn.functional.pad(sel_counts, (0, k - k_eff))
+        sel_ids = torch.nn.functional.pad(sel_ids, (0, k - k_eff), value=-1)
+    return sel_counts, sel_ids
+
+
+def global_tie_core(ids: torch.Tensor) -> torch.Tensor:
+    """Global tie-break keys: ``S - 1 - rank(id)`` for alive slots, -1 dead.
+
+    Ranks are over all slots (dead ids sort as -1, ahead of alive ones).
+    The sort is stable, like the reference's ``jnp.argsort``, so duplicate
+    alive ids (``dedupe=False``) rank by slot order in both packages.
+    """
+    c = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(c, device=ids.device)
+    return torch.where(ids >= 0, key_scale(c) - 1 - rank, -1).to(torch.int32)

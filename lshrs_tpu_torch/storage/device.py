@@ -1,0 +1,655 @@
+"""Device-resident signature store — the index engine, on PyTorch tensors.
+
+Every indexed vector's packed banded signature lives in device memory and
+queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
+`lshrs_tpu_torch.ops.hamming`):
+
+    layout (device tensors, power-of-two capacity):
+        sig_t    (num_bands * W, capacity)  int32  transposed signatures
+                                                   (slot axis minor)
+        sig_rows (capacity, num_bands * W)  int32  row-major twin
+        ids      (capacity,)                int32  vector id, -1 = dead
+        tie      (capacity,)                int32  global id-rank key
+        planes   (capacity, num_perm)       int8   +-1 bitplanes (Hamming,
+                                                   built lazily)
+
+Words are int32 bit-views of the uint32 signature words (see
+`lshrs_tpu_torch.ops.bitpack`).
+
+Query engines: grouped collision counting (kernel B1) and grouped
+Hamming ranking (kernel B2), both exact against the reference ordering.
+Stores those engines cannot take — a selection key past int32, more than
+64 bands — raise ``NotImplementedError`` (ROADMAP: the chunked fallback or
+int64 keys).
+
+Mutation model: appends write the tail in place; re-ingesting an id
+overwrites its slot (upsert). Capacity grows exactly as the reference's
+does — each batch reserves ``next_pow2(n)`` slots and capacity at least
+doubles when they do not fit — because capacity sets the key scale and
+the engine switch of `LSHRS(engine="auto")`.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections.abc import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from lshrs_tpu_torch.hash.hasher import hash_words
+from lshrs_tpu_torch.ops.bitpack import (
+    as_words,
+    bytes_per_band,
+    dense_to_words,
+    narrow_refine_r,
+    pack_words_narrow,
+    words_per_band,
+    words_to_numpy,
+)
+from lshrs_tpu_torch.ops.hamming import (
+    hamming_topk_core,
+    supports_hamming_grouped,
+    unpack_bitplanes,
+)
+from lshrs_tpu_torch.ops.scan import (
+    build_grouped_refine_rows,
+    collision_topk_grouped_core,
+    global_tie_core,
+    supports_fast_path,
+)
+from lshrs_tpu_torch.storage.base import BaseStorage, BucketOperation
+from lshrs_tpu_torch.storage.filter import as_filter
+
+__all__ = ["DeviceStore"]
+
+_MAX_ID = 2**31 - 1
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A)")
+
+
+class DeviceStore(BaseStorage):
+    """Device-resident LSH signature store with fused query kernels.
+
+    Args:
+        num_bands / rows_per_band: banding scheme (must match the hasher).
+        dim: vector dimensionality.
+        initial_capacity: starting slot count (rounded up to a power of
+            two, at least ``chunk_size``).
+        chunk_size: capacity floor, kept so capacities match the reference
+            package's store for the same arguments.
+        group_size: group width of the group-max selection (a power of two).
+        dedupe: track id -> slot on the host so re-ingesting an id
+            overwrites its slot (upsert).
+        enable_hamming: make `query_hamming` (full-signature ranking on
+            int8 bitplanes, kernel B2) available.
+        device: where the store's tensors live (``"cuda"`` by default; the
+            CPU runs the kernels' plain PyTorch versions).
+
+    ``store_vectors``, ``query_mode="bucket"``, ``hamming_storage="packed"``
+    and ``hamming_cascade`` are accepted only at their defaults: they
+    belong to slices not ported yet (ROADMAP Queue A).
+    """
+
+    supports_signature_batches = True
+
+    def __init__(
+        self,
+        *,
+        num_bands: int,
+        rows_per_band: int,
+        dim: int | None = None,
+        store_vectors: bool = False,
+        initial_capacity: int = 1 << 14,
+        chunk_size: int = 2048,
+        group_size: int = 64,
+        dedupe: bool = True,
+        query_mode: str = "scan",
+        enable_hamming: bool = False,
+        hamming_storage: str = "planes",
+        hamming_cascade: int = 0,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        if chunk_size <= 0 or chunk_size > 1 << 14:
+            raise ValueError("chunk_size must be in (0, 16384]")
+        if group_size <= 0 or group_size & (group_size - 1):
+            raise ValueError("group_size must be a power of two")
+        if store_vectors:
+            raise _not_ported("store_vectors (the resident payload of the rerank slice)")
+        if query_mode != "scan":
+            raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)")
+        if hamming_storage != "planes":
+            raise _not_ported(f"hamming_storage={hamming_storage!r} (kernel B3)")
+        if hamming_cascade:
+            raise _not_ported("hamming_cascade (the refinement cascade)")
+
+        self.num_bands = num_bands
+        self.rows_per_band = rows_per_band
+        self.words = num_bands * words_per_band(rows_per_band)
+        # Narrow refine-table packing (bands share words when they divide
+        # 32 evenly): half the refine-gather bytes at r=16. 0 = word-aligned.
+        self._refine_narrow_r = narrow_refine_r(rows_per_band)
+        self.dim = dim
+        self.chunk = chunk_size
+        self.group = group_size
+        self.dedupe = dedupe
+        self.enable_hamming = enable_hamming
+        self.device = torch.device(device)
+
+        self._capacity = _next_pow2(max(chunk_size, initial_capacity))
+        self._alloc(self._capacity)
+        self._size = 0  # high-water mark of used slots
+        self._slot_of: dict[int, int] | None = {} if dedupe else None
+        # Bumped on every mutation; snapshot_query_fn closures check it
+        # (writes land in place, so a stale closure would see new data).
+        self._generation = 0
+        self._lock = threading.RLock()
+
+    def _alloc(self, cap: int) -> None:
+        dev = self.device
+        self._sig_t = torch.zeros((self.words, cap), dtype=torch.int32, device=dev)
+        # Row-major twin of sig_t: the refine table and the bitplanes are
+        # built from whole contiguous rows.
+        self._sig_rows = torch.zeros((cap, self.words), dtype=torch.int32, device=dev)
+        self._ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        self._refine: torch.Tensor | None = None  # grouped refine table, lazy
+        # Bitplanes are LAZY: built from the packed words on the first
+        # Hamming use, then kept current by appends and overwrites.
+        self._planes: torch.Tensor | None = None
+        self._ranks_dirty = False  # fresh tensors are self-consistent
+
+    # -- query path selection ------------------------------------------------
+
+    def _group(self) -> int:
+        return min(self.group, self._capacity)
+
+    def _use_grouped(self) -> bool:
+        return (
+            supports_fast_path(self.num_bands, self._capacity)
+            and self.num_bands <= 64
+            and self._capacity % self.group == 0
+        )
+
+    def _refresh_ranks(self) -> None:
+        """Mark selection keys stale after a mutation (recomputed lazily)."""
+        self._ranks_dirty = True
+        self._refine = None
+        self._generation += 1
+
+    def _ensure_ranks(self) -> None:
+        """Recompute the tie keys if stale (call under the lock)."""
+        if self._ranks_dirty:
+            self._tie = global_tie_core(self._ids)
+            self._ranks_dirty = False
+
+    def _ensure_planes(self) -> None:
+        """Build the int8 bitplanes on first Hamming use (call under the
+        lock). Bit-identical to the stored words by construction."""
+        if not self.enable_hamming or self._planes is not None:
+            return
+        self._planes = self._materialize_planes()
+
+    # Bound the unpack intermediates to ~1 GB per step.
+    _PLANES_MATERIALIZE_STEP = 1 << 17
+
+    def _planes_rows(self, words: torch.Tensor) -> torch.Tensor:
+        return unpack_bitplanes(
+            words, num_bands=self.num_bands, rows_per_band=self.rows_per_band
+        )
+
+    def _materialize_planes(self) -> torch.Tensor:
+        p = self.num_bands * self.rows_per_band
+        planes = torch.empty((self._capacity, p), dtype=torch.int8, device=self.device)
+        step = min(self._PLANES_MATERIALIZE_STEP, self._capacity)
+        for off in range(0, self._capacity, step):
+            planes[off : off + step] = self._planes_rows(self._sig_rows[off : off + step])
+        return planes
+
+    def _refine_rows(self) -> torch.Tensor:
+        """Lazily built GROUPED refine table, ``(C // group, group * (nw + 2))``.
+
+        Each row concatenates one selection group's per-slot (words | tie |
+        id) rows, word-major; refinement gathers one wide row per
+        candidate group. Invalidated on any mutation.
+        """
+        if self._refine is None:
+            self._ensure_ranks()  # the tie column must be fresh
+            words = self._sig_rows
+            if self._refine_narrow_r:
+                words = pack_words_narrow(
+                    words, num_bands=self.num_bands, rows_per_band=self._refine_narrow_r
+                )
+            ext = torch.cat([words, self._tie[:, None], self._ids[:, None]], dim=1)
+            self._refine = build_grouped_refine_rows(ext, group=self._group())
+        return self._refine
+
+    # ------------------------------------------------------------------
+    # signature-batch ingestion
+    # ------------------------------------------------------------------
+
+    def _decode_words(self, words, n: int) -> torch.Tensor:
+        """Word or dense-wire signatures -> ``(n, BW)`` int32 on the device."""
+        dense = (
+            words.dtype == torch.uint8
+            if isinstance(words, torch.Tensor)
+            else np.asarray(words).dtype == np.uint8
+        )
+        if dense:
+            nb = self.num_bands * bytes_per_band(self.rows_per_band)
+            if tuple(words.shape) != (n, nb):
+                raise ValueError(
+                    f"dense signatures must have shape ({n}, {nb}); "
+                    f"received {tuple(words.shape)}"
+                )
+            if not isinstance(words, torch.Tensor):
+                words = torch.from_numpy(np.ascontiguousarray(words))
+            return dense_to_words(
+                words.to(self.device),
+                num_bands=self.num_bands,
+                rows_per_band=self.rows_per_band,
+            )
+        w = as_words(words, self.device)
+        if tuple(w.shape) != (n, self.words):
+            raise ValueError(
+                f"signature words must have shape ({n}, {self.words}); "
+                f"received {tuple(w.shape)}"
+            )
+        return w
+
+    @staticmethod
+    def _check_ids(indices) -> np.ndarray:
+        ids_np = np.asarray(indices, dtype=np.int64).reshape(-1)
+        if ids_np.size and (ids_np.min() < 0 or ids_np.max() > _MAX_ID):
+            raise ValueError("indices must be in [0, 2**31) for the device store")
+        return ids_np
+
+    def add_signature_batch(
+        self,
+        indices: Sequence[int] | np.ndarray,
+        words,
+    ) -> None:
+        """Insert/overwrite a batch of ``(id, packed-signature)`` rows.
+
+        Args:
+            indices: integer ids, each in ``[0, 2**31)``.
+            words: ``(n, num_bands * W)`` uint32 words (NumPy) or int32 /
+                uint32 tensor (device tensors stay on the device), or the
+                dense uint8 wire ``(n, num_bands * ceil(r/8))`` from
+                `LSHHasher.hash_batch_dense_host`, decoded on the device.
+        """
+        ids_np = self._check_ids(indices)
+        if ids_np.size == 0:
+            return
+        words = self._decode_words(words, ids_np.size)
+        ids32 = ids_np.astype(np.int32)
+        with self._lock:
+            if self._slot_of is not None and self._needs_upsert(ids32):
+                # Duplicate or already-present ids: resolve the upserts on
+                # the host. Within a batch the last occurrence wins, in the
+                # order of last occurrences.
+                _, last_pos = np.unique(ids32[::-1], return_index=True)
+                keep = np.sort(ids32.size - 1 - last_pos)
+                if keep.size != ids32.size:
+                    ids32 = ids32[keep]
+                    words = words[torch.as_tensor(keep, device=self.device)]
+                existing = np.fromiter(
+                    (i in self._slot_of for i in ids32.tolist()), dtype=bool,
+                    count=ids32.size,
+                )
+                if existing.any():
+                    slots = np.fromiter(
+                        (self._slot_of[i] for i in ids32[existing].tolist()),
+                        dtype=np.int64, count=int(existing.sum()),
+                    )
+                    self._overwrite(slots, words[torch.as_tensor(existing, device=self.device)])
+                    ids32 = ids32[~existing]
+                    words = words[torch.as_tensor(~existing, device=self.device)]
+            if ids32.size:
+                self._append(ids32, words)
+
+    def add_vectors_batch(
+        self,
+        indices: Sequence[int] | np.ndarray,
+        vectors,
+        proj_t: torch.Tensor,
+        hash_family: str = "gaussian",
+    ) -> None:
+        """Device build: hash a raw-vector batch with the device projection
+        (`LSHHasher.device_projection`) and append it.
+
+        The hash is the same full-float32 matmul the query path uses, so
+        stored and query signatures come from one formulation. Batches with
+        duplicate or already-present ids take the upsert path.
+        """
+        if hash_family != "gaussian":
+            raise _not_ported(f"hash_family={hash_family!r}")
+        ids_np = self._check_ids(indices)
+        if ids_np.size == 0:
+            return
+        x = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+        if x.ndim != 2 or x.shape[0] != ids_np.size or (
+            self.dim is not None and x.shape[1] != self.dim
+        ):
+            raise ValueError(
+                f"vectors must have shape ({ids_np.size}, {self.dim}); "
+                f"received {tuple(x.shape)}"
+            )
+        words = hash_words(
+            x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band
+        )
+        self.add_signature_batch(ids_np, words)
+
+    def _needs_upsert(self, ids32: np.ndarray) -> bool:
+        """True when the batch holds duplicate or already-present ids."""
+        if np.unique(ids32).size != ids32.size:
+            return True
+        slot_of = self._slot_of
+        return any(i in slot_of for i in ids32.tolist())
+
+    def _overwrite(self, slots: np.ndarray, words: torch.Tensor) -> None:
+        idx = torch.as_tensor(slots, device=self.device)
+        self._sig_t[:, idx] = words.T
+        self._sig_rows[idx] = words
+        if self._planes is not None:
+            self._planes[idx] = self._planes_rows(words)
+        self._refine = None
+        self._generation += 1
+        # ids unchanged -> tie keys unchanged.
+
+    def _append(self, ids32: np.ndarray, words: torch.Tensor) -> None:
+        n = ids32.size
+        # Reserve next_pow2(n) slots, as the reference pads each batch.
+        pad = _next_pow2(n)
+        if self._size + pad > self._capacity:
+            self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
+        off = self._size
+        # Slice assignment in place, where the reference donated its buffers
+        # to a jitted update (lshrs_tpu/storage/device.py::_append_jit).
+        self._sig_t[:, off : off + n] = words.T
+        self._sig_rows[off : off + n] = words
+        self._ids[off : off + n] = torch.from_numpy(ids32).to(self.device)
+        if self._planes is not None:
+            self._planes[off : off + n] = self._planes_rows(words)
+        if self._slot_of is not None:
+            self._slot_of.update(zip(ids32.tolist(), range(off, off + n)))
+        self._size += n
+        self._refresh_ranks()
+
+    def _grow(self, new_cap: int) -> None:
+        new_cap = _next_pow2(new_cap)
+        cap = self._capacity
+        old = (self._sig_t, self._sig_rows, self._ids, self._planes)
+        self._alloc(new_cap)
+        self._sig_t[:, :cap] = old[0]
+        self._sig_rows[:cap] = old[1]
+        self._ids[:cap] = old[2]
+        if old[3] is not None:
+            self._planes = torch.zeros(
+                (new_cap, old[3].shape[1]), dtype=torch.int8, device=self.device
+            )
+            self._planes[:cap] = old[3]
+        self._capacity = new_cap
+        self._refresh_ranks()
+
+    # ------------------------------------------------------------------
+    # queries
+    # ------------------------------------------------------------------
+
+    def _query_words(self, qwords) -> torch.Tensor:
+        """Query words -> ``(Q, BW)`` int32 on the device."""
+        qw = as_words(qwords, self.device)
+        if qw.ndim != 2 or qw.shape[1] != self.words:
+            if qw.ndim == 3:
+                raise _not_ported("multi-probe query words")
+            raise ValueError(
+                f"query words must have shape (Q, {self.words}); received {tuple(qw.shape)}"
+            )
+        return qw
+
+    def _query_topk_dev(self, qw: torch.Tensor, k: int):
+        """Device-resident collision top-k (call under the lock)."""
+        if not self._use_grouped():
+            raise _not_ported(
+                f"collision ranking at {self.num_bands} bands x "
+                f"{self._capacity} slots (the chunked fallback or int64 keys)"
+            )
+        self._ensure_ranks()
+        return collision_topk_grouped_core(
+            self._sig_t, self._tie, qw, self._refine_rows(),
+            num_bands=self.num_bands,
+            k=max(1, min(k, self._capacity)),
+            group=self._group(),
+            narrow_r=self._refine_narrow_r,
+        )
+
+    def query_topk(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
+        """Exact (count desc, id asc) top-k for a query batch.
+
+        Args:
+            qwords: ``(Q, num_bands * W)`` signature words.
+        Returns:
+            ``(counts, ids)`` NumPy int32 arrays of shape ``(Q, k)``;
+            zero-count padding carries id -1.
+        """
+        as_filter(where)
+        qw = self._query_words(qwords)
+        q = qw.shape[0]
+        with self._lock:
+            if self._size == 0:
+                return np.zeros((q, k), np.int32), np.full((q, k), -1, np.int32)
+            counts, ids = self._query_topk_dev(qw, k)
+        counts, ids = counts.cpu().numpy(), ids.cpu().numpy()
+        if counts.shape[1] < k:
+            pad = k - counts.shape[1]
+            counts = np.pad(counts, ((0, 0), (0, pad)))
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        return counts, ids
+
+    def query_topk_ids(self, qwords, k: int, *, where=None) -> torch.Tensor:
+        """Device-resident id-only top-k, ``(Q, k_eff)`` int32 tensor."""
+        as_filter(where)
+        qw = self._query_words(qwords)
+        with self._lock:
+            if self._size == 0:
+                return torch.full((qw.shape[0], k), -1, dtype=torch.int32, device=self.device)
+            return self._query_topk_dev(qw, k)[1]
+
+    def _require_hamming(self) -> None:
+        if not self.enable_hamming:
+            raise RuntimeError(
+                "enable_hamming=False: construct the store with "
+                "enable_hamming=True for Hamming-mode queries"
+            )
+
+    def _query_hamming_dev(self, qw: torch.Tensor, k: int):
+        """Device-resident Hamming top-k (call under the lock)."""
+        p = self.num_bands * self.rows_per_band
+        if not (
+            supports_hamming_grouped(p, self._capacity)
+            and self._capacity % self.group == 0
+        ):
+            raise _not_ported(
+                f"Hamming ranking at {p} bits x {self._capacity} slots (the "
+                "chunked fallback or int64 keys)"
+            )
+        self._ensure_ranks()
+        self._ensure_planes()
+        qbits = unpack_bitplanes(
+            qw, num_bands=self.num_bands, rows_per_band=self.rows_per_band
+        )
+        return hamming_topk_core(
+            self._planes, self._tie, qbits, qw, self._refine_rows(),
+            k=max(1, min(k, self._capacity)),
+            group=self._group(),
+            narrow_r=self._refine_narrow_r,
+        )
+
+    def query_hamming(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
+        """Top-k by full-signature Hamming distance (kernel B2).
+
+        Requires ``enable_hamming=True``. Returns ``(hamming (Q, k),
+        ids (Q, k))`` ordered by (hamming asc, id asc); empty tail entries
+        carry id -1 and hamming ``num_perm + 1``.
+        """
+        self._require_hamming()
+        as_filter(where)
+        qw = self._query_words(qwords)
+        p = self.num_bands * self.rows_per_band
+        with self._lock:
+            if self._size == 0:
+                q = qw.shape[0]
+                return np.full((q, k), p + 1, np.int32), np.full((q, k), -1, np.int32)
+            hamming, ids = self._query_hamming_dev(qw, k)
+        hamming, ids = hamming.cpu().numpy(), ids.cpu().numpy()
+        if hamming.shape[1] < k:
+            pad = k - hamming.shape[1]
+            hamming = np.pad(hamming, ((0, 0), (0, pad)), constant_values=p + 1)
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        return hamming, ids
+
+    def query_hamming_ids(self, qwords, k: int, *, where=None) -> torch.Tensor:
+        """Device-resident id-only Hamming top-k."""
+        self._require_hamming()
+        as_filter(where)
+        qw = self._query_words(qwords)
+        with self._lock:
+            if self._size == 0:
+                return torch.full((qw.shape[0], k), -1, dtype=torch.int32, device=self.device)
+            return self._query_hamming_dev(qw, k)[1]
+
+    def snapshot_query_fn(
+        self,
+        k: int,
+        *,
+        wire: str = "words",
+        mode: str = "collision",
+        where=None,
+    ):
+        """Serving closure over the CURRENT contents.
+
+        Mutating the store invalidates the snapshot: a stale closure raises
+        ``RuntimeError`` (take a new snapshot after ingesting).
+
+        Args:
+            k: result depth.
+            wire: ``"words"`` (signature words) or ``"dense"`` (minimal-byte
+                signatures from `LSHHasher.hash_batch_dense_host`, decoded
+                on the device).
+            mode: ``"collision"`` (band-collision counting, kernel B1) or
+                ``"hamming"`` (full-signature ranking, kernel B2; requires
+                ``enable_hamming=True``).
+
+        Returns:
+            callable ``(signatures) -> (Q, k) int32 device tensor of ids``.
+        """
+        if mode == "asymmetric":
+            raise _not_ported("mode='asymmetric' (asymmetric ranking)")
+        if mode not in ("collision", "hamming"):
+            raise ValueError("mode must be 'collision' or 'hamming'")
+        if wire == "coords4":
+            raise _not_ported("wire='coords4' (asymmetric ranking)")
+        if wire not in ("words", "dense"):
+            raise ValueError("wire must be 'words' or 'dense'")
+        if mode == "hamming":
+            self._require_hamming()
+        as_filter(where)
+        num_bands, rows_per_band = self.num_bands, self.rows_per_band
+        with self._lock:
+            if self._size == 0:
+                raise RuntimeError("snapshot_query_fn requires a non-empty store")
+            snapshot_gen = self._generation
+
+        def serve(q) -> torch.Tensor:
+            with self._lock:
+                if self._generation != snapshot_gen:
+                    raise RuntimeError(
+                        "snapshot_query_fn is stale: the store was mutated "
+                        "after the snapshot was taken; call snapshot_query_fn "
+                        "again"
+                    )
+                if wire == "dense":
+                    qw = dense_to_words(
+                        torch.as_tensor(q).to(self.device),
+                        num_bands=num_bands, rows_per_band=rows_per_band,
+                    )
+                else:
+                    qw = self._query_words(q)
+                if mode == "hamming":
+                    return self._query_hamming_dev(qw, k)[1]
+                return self._query_topk_dev(qw, k)[1]
+
+        return serve
+
+    # ------------------------------------------------------------------
+    # bucket-level API and maintenance
+    # ------------------------------------------------------------------
+
+    def batch_add(self, operations: Sequence[BucketOperation]) -> None:
+        raise _not_ported("bucket-level ingestion on the device store")
+
+    def add_to_bucket(self, band_id: int, hash_val: bytes, index: int) -> None:
+        raise _not_ported("bucket-level ingestion on the device store")
+
+    def get_bucket(self, band_id: int, hash_val: bytes) -> set[int]:
+        raise _not_ported("bucket reads on the device store")
+
+    def remove_indices(self, indices: Iterable[int]) -> None:
+        raise _not_ported("delete/compact")
+
+    def clear(self) -> None:
+        with self._lock:
+            self._alloc(self._capacity)
+            self._size = 0
+            self._generation += 1
+            if self._slot_of is not None:
+                self._slot_of.clear()
+
+    # ------------------------------------------------------------------
+    # introspection / persistence
+    # ------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return self._size
+
+    def stats(self) -> dict:
+        return {
+            "backend": "device",
+            "device": str(self.device),
+            "size": self._size,
+            "alive": self._size,
+            "capacity": self._capacity,
+            "chunk_size": self.chunk,
+            "hamming_storage": "planes" if self.enable_hamming else None,
+            "hamming_plane_bytes": (
+                self._capacity * self.num_bands * self.rows_per_band
+                if self._planes is not None
+                else 0
+            ),
+            "fast_path": self._use_grouped(),
+            "signature_bytes": self._capacity * self.words * 4,
+        }
+
+    def state_arrays(self) -> dict[str, np.ndarray]:
+        """Dense host snapshot of the used slots: ``ids`` (n,) int32 and
+        ``sig`` (n, BW) uint32 — the reference package's format."""
+        with self._lock:
+            n = self._size
+            return {
+                "ids": self._ids[:n].cpu().numpy(),
+                "sig": words_to_numpy(self._sig_rows[:n]),
+            }
+
+    def load_state_arrays(self, state: dict[str, np.ndarray]) -> None:
+        """Restore from a :meth:`state_arrays` snapshot (replaces contents);
+        snapshots from the reference package load too."""
+        self.clear()
+        ids = np.asarray(state["ids"], dtype=np.int32)
+        alive = ids >= 0
+        self.add_signature_batch(ids[alive], np.asarray(state["sig"], dtype=np.uint32)[alive])

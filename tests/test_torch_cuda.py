@@ -1,0 +1,120 @@
+"""The hand-written CUDA kernels and the port's main path on a GPU.
+
+Every test here needs an NVIDIA GPU and skips elsewhere (marker ``cuda``;
+the check is made in a fixture). The file imports torch, NumPy and the
+port only, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which sets up JAX for the
+reference package's tests.) The kernels are held to their plain PyTorch
+versions bit for bit, and the GPU store to a CPU store on the same words.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from lshrs_tpu_torch import LSHRS
+from lshrs_tpu_torch.ops import group_max as gm
+from lshrs_tpu_torch.ops.scan import global_tie_core
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (kernels B1/B2 have no CPU build)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng() -> np.random.Generator:
+    return np.random.default_rng(0)
+
+
+def _tie(rng, c, dev):
+    ids = rng.permutation(c).astype(np.int32)
+    ids[rng.random(c) < 0.1] = -1
+    return global_tie_core(torch.from_numpy(ids).to(dev))
+
+
+@pytest.mark.parametrize(
+    "num_bands,words,c,q,probes",
+    [
+        (16, 1, 4096, 256, 1),
+        (16, 1, 4096, 256, 2),
+        (16, 1, 4096, 100, 1),  # ragged Q
+        (4, 3, 2048, 70, 1),    # generic (non-register) instantiation
+        (8, 1, 256, 9, 1),      # store smaller than one block's slot range
+    ],
+)
+def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
+    bw = num_bands * words
+    sig = rng.integers(0, 4, (bw, c), dtype=np.int32)
+    q0 = rng.integers(0, 4, (q, bw), dtype=np.int32)
+    q0[: q // 2] = sig[:, rng.integers(0, c, q // 2)].T  # planted full matches
+    qw = np.concatenate([q0 ^ (np.int32(1) << t) if t else q0 for t in range(probes)], 1)
+    sig_t = torch.from_numpy(sig).to(dev)
+    qwords = torch.from_numpy(np.ascontiguousarray(qw)).to(dev)
+    tie = _tie(rng, c, dev)
+    kw = dict(num_bands=num_bands, words=words, group=64, scale=gm.key_scale(c), probes=probes)
+    before = gm.group_max_keys.launches
+    got = gm.group_max_keys(sig_t, tie, qwords, **kw)
+    assert gm.group_max_keys.launches == before + 1
+    assert got.device == sig_t.device and got.shape == (q, c // 64)
+    assert torch.equal(got, gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize("q", [128, 77])
+def test_b2_kernel_matches_plain(asymmetric, q, dev, rng):
+    c, p = 8192, 256
+    planes = (2 * rng.integers(0, 2, (c, p), dtype=np.int8) - 1).astype(np.int8)
+    if asymmetric:
+        qb = rng.integers(-127, 128, (q, p), dtype=np.int16).astype(np.int8)
+        kw = dict(offset=p * 127, shift=gm.asymmetric_shift(p, c))
+    else:
+        qb = planes[rng.integers(0, c, q)].copy()
+        kw = {}
+    planes_d = torch.from_numpy(planes).to(dev)
+    qb_d = torch.from_numpy(qb).to(dev)
+    tie = _tie(rng, c, dev)
+    kw.update(group=64, scale=gm.key_scale(c))
+    before = gm.hamming_group_max_keys.launches
+    got = gm.hamming_group_max_keys(planes_d, tie, qb_d, **kw)
+    assert gm.hamming_group_max_keys.launches == before + 1
+    assert torch.equal(got, gm.hamming_group_max_keys_ref(planes_d, tie, qb_d, **kw))
+
+
+def test_cuda_wrappers_reject_what_the_kernels_cannot_take(dev):
+    sig_t = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    tie = torch.full((512,), -1, dtype=torch.int32, device=dev)
+    qw = torch.zeros((8, 8), dtype=torch.int32, device=dev)[:, ::2]  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.group_max_keys(sig_t, tie, qw, num_bands=4, words=1, group=64, scale=512)
+    planes = torch.ones((512, 6), dtype=torch.int8, device=dev)  # P % 4 != 0
+    with pytest.raises(ValueError, match="P % 4"):
+        gm.hamming_group_max_keys(planes, tie, planes[:3], group=64, scale=512)
+
+
+@pytest.mark.parametrize("engine", ["collision", "hamming"])
+def test_lshrs_on_the_gpu_matches_the_cpu(engine, dev, rng):
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host",
+              seed=5, engine=engine)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    for lo in range(0, 5000, 2000):
+        gpu.index(np.arange(lo, min(lo + 2000, 5000)), X[lo : lo + 2000])
+        cpu.index(np.arange(lo, min(lo + 2000, 5000)), X[lo : lo + 2000])
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    b1, b2 = gm.group_max_keys.launches, gm.hamming_group_max_keys.launches
+    out = gpu.serving_fn(top_k=10)(Q)
+    launched = (gm.group_max_keys.launches - b1, gm.hamming_group_max_keys.launches - b2)
+    assert launched == ((1, 0) if engine == "collision" else (0, 1))
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    np.testing.assert_array_equal(gpu.serving_fn(top_k=1)(X[:300])[:, 0], np.arange(300))
+    assert gpu.query_batch(Q, top_k=5) == cpu.query_batch(Q, top_k=5)
