@@ -5,12 +5,14 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--seed N]
 
 It builds the hand-written kernels from ``lshrs_tpu_torch/csrc`` with nvcc
-(at first use, into ``build/lshrs_tpu_torch/``), then runs five phases and
-prints one JSON line per phase:
+(at first use, into ``build/lshrs_tpu_torch/``, one compiler per source),
+then runs these phases and prints JSON lines as it goes:
 
 1. the card (nvidia-smi name and power limit) and the kernel build time;
-2. each kernel against its plain PyTorch version on the card, bit-exact
-   (``torch.equal``; tolerance 0: every output is an integer key);
+2. each kernel (B1, B2, B3) against its plain PyTorch version on the card,
+   bit-exact (``torch.equal``; tolerance 0: every output is an integer
+   key), at the main path's shapes, ragged query counts, dead slots and
+   every template instantiation;
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -19,25 +21,37 @@ prints one JSON line per phase:
 4. the 1M slice: the same constructor over 2**20 clustered vectors, where
    ``engine="auto"`` switches to Hamming ranking (kernel B2), with the
    same checks;
-5. times: each kernel against its plain version (median CUDA-event ms),
-   serving QPS at 100k and 1M, a torch.profiler breakdown of the serving
-   batches (device time by kernel, device-busy share), and the 100k build
-   rate.
+5. the packed_4m slice: ``hamming_storage="packed"`` over 2**22 clustered
+   vectors (the largest capacity whose packed key fits int32 at 256
+   bits), ranked by kernel B3 with no bitplanes allocated: self-match
+   1.0, ids and distances equal to the bitplane path (kernel B2) and to
+   the plain versions on the same store words; then 1% of the ids are
+   deleted and none may come back;
+6. times: each kernel against its plain version (median CUDA-event ms),
+   serving QPS at 100k, 1M and 4M (packed, and planes on the same
+   words), a torch.profiler breakdown of the serving batches (device time
+   by kernel, device-busy share), and the 100k build rate;
+7. the lifecycle at 100k: ``save_to_disk`` then
+   ``load_from_disk(device="cuda")`` returns the same ids, and
+   ``delete`` then ``compact`` keeps self-match of the survivors at 1.0.
 
-Every launch counter is reset just before phases 3-4 (the main path) and
-read just after them. Then it prints the nvidia-smi line, one JSON line
-with the kernels, and last ``{"ok": true, "device": {...}}``. Any failed
-check raises, so the script exits non-zero without that last line; it
-also exits non-zero when no CUDA device is available.
+Every launch counter is reset just before each path of phases 3-5 and 7
+and read just after it; each path must launch its kernel. Then it prints
+the nvidia-smi line, one JSON line with the kernels, and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits non-zero without that last line; it also exits non-zero when no
+CUDA device is available.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,11 +60,14 @@ DIM, NUM_PERM, NUM_BANDS, ROWS = 768, 256, 16, 16
 TOP_K = 10
 N_100K = 100_000
 N_1M = 1 << 20
+N_4M = 1 << 22
 INGEST_BATCH = 1 << 16
 QPS_BATCH_100K = 16384
 QPS_BATCH_1M = 8192
 CARRY_QUERIES = 256
 DEVICE = "cuda"
+# The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
+KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
 
 
 def emit(phase: str, **fields) -> None:
@@ -116,6 +133,24 @@ def b2_inputs(rng, *, c, p, q, asymmetric, dev):
     )
 
 
+def b3_inputs(rng, *, bw, c, q, dev):
+    """Full 32-bit store words (so num_perm = 32 * BW), ~10% dead slots;
+    half the queries are stored slots with ~10% of their bits flipped."""
+    from lshrs_tpu_torch.ops.scan import global_tie_core
+
+    sig = rng.integers(-(2**31), 2**31, (bw, c), dtype=np.int64).astype(np.int32)
+    ids = rng.permutation(c).astype(np.int32)
+    ids[rng.random(c) < 0.1] = -1
+    qw = rng.integers(-(2**31), 2**31, (q, bw), dtype=np.int64).astype(np.int32)
+    flips = (rng.random((q // 2, bw, 32)) < 0.1).astype(np.int64) << np.arange(32)
+    qw[: q // 2] = sig[:, rng.integers(0, c, q // 2)].T ^ flips.sum(-1).astype(np.uint32).view(np.int32)
+    return (
+        torch.from_numpy(sig).to(dev),
+        global_tie_core(torch.from_numpy(ids).to(dev)),
+        torch.from_numpy(qw).to(dev),
+    )
+
+
 def phase_kernels(rng, dev) -> dict:
     """Phase 2: every kernel against its plain version, bit-exact; returns
     the worst |kernel - plain| per kernel and the timed cases."""
@@ -125,10 +160,12 @@ def phase_kernels(rng, dev) -> dict:
         group_max_keys_ref,
         hamming_group_max_keys,
         hamming_group_max_keys_ref,
+        hamming_packed_group_max_keys,
+        hamming_packed_group_max_keys_ref,
         key_scale,
     )
 
-    err = {"group_max_keys": 0, "hamming_group_max_keys": 0}
+    err = {name: 0 for name in KERNELS}
     timed = {}
     b1_cases = [  # (num_bands, words, C, Q, probes)
         (16, 1, 131072, 1024, 1),
@@ -185,6 +222,33 @@ def phase_kernels(rng, dev) -> dict:
                 lambda planes=planes, tie=tie, qb=qb, kw=kw: hamming_group_max_keys_ref(planes, tie, qb, **kw),
                 dict(C=c, Q=q, P=p),
             )
+
+    b3_cases = [  # (BW, C, Q, group)
+        (16, 1 << 20, 512, 64),
+        (16, 1 << 20, 300, 64),  # ragged Q
+        (8, 1 << 18, 512, 32),   # the BW=8 instantiation
+        (12, 1 << 16, 200, 128), # generic (non-register) instantiation
+        (16, 1 << 16, 100, 16),
+    ]
+    for bw, c, q, group in b3_cases:
+        sig_t, tie, qw = b3_inputs(rng, bw=bw, c=c, q=q, dev=dev)
+        kw = dict(num_perm=32 * bw, group=group, scale=key_scale(c))
+        got = hamming_packed_group_max_keys(sig_t, tie, qw, **kw)
+        want = hamming_packed_group_max_keys_ref(sig_t, tie, qw, **kw)
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max())
+        err["hamming_packed_group_max_keys"] = max(err["hamming_packed_group_max_keys"], diff)
+        ok = torch.equal(got, want)
+        emit("kernel_check", kernel="hamming_packed_group_max_keys", BW=bw, C=c, Q=q,
+             group=group, equal=ok, max_abs_err=diff)
+        if not ok:
+            raise AssertionError(f"B3 kernel != plain at {(bw, c, q, group)}")
+        if (bw, c, q) == (16, 1 << 20, 512):
+            timed["hamming_packed_group_max_keys"] = (
+                lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys(*a, **kw),
+                lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys_ref(*a, **kw),
+                dict(C=c, Q=q, BW=bw),
+            )
     return {"max_abs_err": err, "timed": timed}
 
 
@@ -196,7 +260,8 @@ def carry_to_cpu(store):
         num_bands=store.num_bands, rows_per_band=store.rows_per_band, dim=store.dim,
         initial_capacity=store._capacity, chunk_size=store.chunk,
         group_size=store.group, dedupe=store.dedupe,
-        enable_hamming=store.enable_hamming, device="cpu",
+        enable_hamming=store.enable_hamming, hamming_storage=store.hamming_storage,
+        device="cpu",
     )
     cpu.load_state_arrays(store.state_arrays())
     assert cpu._capacity == store._capacity, (cpu._capacity, store._capacity)
@@ -305,7 +370,7 @@ def phase_100k(seed: int) -> dict:
     assert equal, "100k: card and CPU ids differ on the same words"
 
     queries = [rng.standard_normal((QPS_BATCH_100K, DIM), dtype=np.float32) for _ in range(6)]
-    return {"lsh": lsh, "serve": serve, "queries": queries,
+    return {"lsh": lsh, "serve": serve, "queries": queries, "X": X,
             "build_vectors_per_s": N_100K / build_s, "build_s": build_s}
 
 
@@ -349,6 +414,168 @@ def phase_1m(seed: int) -> dict:
     return {"lsh": lsh, "serve": serve, "queries": queries}
 
 
+def _assert_same_topk(name, got, want) -> None:
+    """``(hamming, ids)`` pairs of two paths, equal element for element."""
+    equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    emit("packed_vs", other=name, queries=int(got[1].shape[0]), equal=equal)
+    assert equal, f"4M: packed path != {name} on the same words"
+
+
+def phase_packed_4m(seed: int) -> dict:
+    """The packed-Hamming slice at 2**22 slots (kernel B3, no bitplanes)."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import (
+        hamming_group_max_keys,
+        hamming_group_max_keys_ref,
+        hamming_packed_group_max_keys,
+        hamming_packed_group_max_keys_ref,
+        key_scale,
+    )
+    from lshrs_tpu_torch.ops.hamming import _select_refine, hamming_topk_core, unpack_bitplanes
+
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                hamming_storage="packed", device=DEVICE)
+    # Clustered data as in the 1M slice (4096 centres, 0.35 noise), drawn
+    # on the card: 12 GB of float32 would take minutes on the host.
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    centers = torch.randn((4096, DIM), generator=gen, device=DEVICE)
+    keep = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, N_4M, INGEST_BATCH):
+        pick = torch.randint(0, 4096, (INGEST_BATCH,), generator=gen, device=DEVICE)
+        xb = centers[pick] + 0.35 * torch.randn((INGEST_BATCH, DIM), generator=gen, device=DEVICE)
+        xb = xb.cpu().numpy()
+        if keep is None:
+            keep = xb[:QPS_BATCH_1M].copy()
+        lsh.index(np.arange(off, off + INGEST_BATCH), xb)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del centers
+
+    store = lsh._storage
+    serve = lsh.serving_fn(top_k=TOP_K)
+    b2_0, b3_0 = hamming_group_max_keys.launches, hamming_packed_group_max_keys.launches
+    sm = self_match(serve, [(np.arange(QPS_BATCH_1M), keep)], N_4M)
+    b2 = hamming_group_max_keys.launches - b2_0
+    b3 = hamming_packed_group_max_keys.launches - b3_0
+    stats = lsh.stats()
+    emit("slice_packed_4m", capacity=stats["index"]["capacity"], alive=stats["index"]["alive"],
+         ranking=stats["ranking"], engine_resolved=stats["engine_resolved"],
+         hamming_storage=stats["index"]["hamming_storage"],
+         hamming_plane_bytes=stats["index"]["hamming_plane_bytes"],
+         self_match=sm, b3_launches=b3, b2_launches=b2, build_s=build_s)
+    assert stats["index"]["capacity"] == N_4M and stats["index"]["alive"] == N_4M
+    assert stats["engine_resolved"] == "hamming", stats["engine_resolved"]
+    assert stats["index"]["hamming_plane_bytes"] == 0 and store._planes is None
+    assert b3 > 0 and b2 == 0 and sm == 1.0, (b3, b2, sm)
+
+    # The bitplane path (kernel B2) and the plain versions on the same words.
+    planes = store._materialize_planes()
+    p, group, narrow_r = NUM_PERM, store._group(), store._refine_narrow_r
+
+    def packed_topk(qw):
+        with store._lock:
+            return store._query_hamming_dev(qw, TOP_K)
+
+    def planes_topk(qw):
+        with store._lock:
+            store._ensure_ranks()
+            return hamming_topk_core(
+                planes, store._tie, unpack_bitplanes(qw, num_bands=NUM_BANDS, rows_per_band=ROWS),
+                qw, store._refine_rows(), k=TOP_K, group=group, narrow_r=narrow_r,
+            )
+
+    def plain_topk(qw, *, packed):
+        with store._lock:
+            store._ensure_ranks()
+            scale = key_scale(store._capacity)
+            if packed:
+                gmax = hamming_packed_group_max_keys_ref(
+                    store._sig_t, store._tie, qw, num_perm=p, group=group, scale=scale)
+            else:
+                qbits = unpack_bitplanes(qw, num_bands=NUM_BANDS, rows_per_band=ROWS)
+                gmax = hamming_group_max_keys_ref(planes, store._tie, qbits, group=group, scale=scale)
+            return _select_refine(gmax, qw, store._refine_rows(), p=p, k=TOP_K, group=group,
+                                  narrow_r=narrow_r)
+
+    rng = np.random.default_rng(seed + 3)
+    qx = keep[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    qwords = lsh._hasher.hash_batch_words(qx)
+
+    def check_paths():
+        got = packed_topk(qwords)
+        _assert_same_topk("planes (B2)", got, planes_topk(qwords))
+        _assert_same_topk("plain B3", packed_topk(qwords[:64]), plain_topk(qwords[:64], packed=True))
+        _assert_same_topk("plain B2", packed_topk(qwords[:64]), plain_topk(qwords[:64], packed=False))
+
+    check_paths()
+
+    deleted = rng.choice(N_4M, N_4M // 100, replace=False)
+    lsh.delete(deleted.tolist())
+    serve = lsh.serving_fn(top_k=TOP_K)
+    out = serve(keep)
+    kept = ~np.isin(np.arange(QPS_BATCH_1M), deleted)
+    leaked = int(np.isin(out, deleted).sum())
+    sm_after = float((out[kept, 0] == np.arange(QPS_BATCH_1M)[kept]).mean())
+    stats = lsh.stats()
+    emit("delete_packed_4m", deleted=int(deleted.size), deleted_queried=int((~kept).sum()),
+         tombstones=stats["index"]["tombstones"], alive=stats["index"]["alive"],
+         deleted_ids_returned=leaked, survivor_self_match=sm_after)
+    assert leaked == 0 and sm_after == 1.0 and stats["index"]["tombstones"] == deleted.size
+    check_paths()
+
+    def serve_planes(x):
+        qw = lsh._hasher.hash_batch_words(np.asarray(x, dtype=np.float32))
+        return planes_topk(qw)[1].cpu().numpy()
+
+    queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
+    return {"lsh": lsh, "serve": serve, "serve_planes": serve_planes, "queries": queries,
+            "build_s": build_s}
+
+
+def phase_lifecycle(s100: dict, seed: int) -> None:
+    """Save/load and delete/compact on the 100k collision index."""
+    from lshrs_tpu_torch import LSHRS
+
+    lsh, X = s100["lsh"], s100["X"]
+    rng = np.random.default_rng(seed + 4)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        lsh.save_to_disk(ckpt)
+        back = LSHRS.load_from_disk(ckpt, device=DEVICE)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    want = lsh.query_batch(qx, top_k=TOP_K)
+    equal = back.query_batch(qx, top_k=TOP_K) == want
+    emit("save_load_100k", queries=CARRY_QUERIES, equal=equal,
+         capacity=back.stats()["index"]["capacity"], device=back.stats()["device"])
+    assert equal, "100k: the loaded index returns other ids"
+    assert back.stats()["index"]["capacity"] == lsh.stats()["index"]["capacity"]
+    del back
+
+    deleted = rng.choice(N_100K, 1000, replace=False)
+    lsh.delete(deleted.tolist())
+    reclaimed = lsh.compact()
+    serve = lsh.serving_fn(top_k=TOP_K)
+    survivors = np.setdiff1d(np.arange(N_100K), deleted)
+    hits = leaked = 0
+    for i in range(0, survivors.size, QPS_BATCH_100K):
+        ids = survivors[i : i + QPS_BATCH_100K]
+        out = serve(X[ids])
+        hits += int((out[:, 0] == ids).sum())
+        leaked += int(np.isin(out, deleted).sum())
+    sm = hits / survivors.size
+    stats = lsh.stats()["index"]
+    emit("delete_compact_100k", deleted=int(deleted.size), reclaimed=reclaimed,
+         alive=stats["alive"], tombstones=stats["tombstones"], survivor_self_match=sm,
+         deleted_ids_returned=leaked)
+    assert reclaimed == deleted.size and stats["tombstones"] == 0
+    assert stats["alive"] == survivors.size and sm == 1.0 and leaked == 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -361,7 +588,6 @@ def main() -> int:
         return 1
 
     from lshrs_tpu_torch.ops import _build
-    from lshrs_tpu_torch.ops.group_max import group_max_keys, hamming_group_max_keys
 
     dev = torch.device("cuda", 0)
     label = card_label()
@@ -374,18 +600,27 @@ def main() -> int:
 
     kern = phase_kernels(np.random.default_rng(args.seed), dev)
 
-    # The main path: counters from zero, read right after.
-    group_max_keys.launches = 0
-    hamming_group_max_keys.launches = 0
-    s100 = phase_100k(args.seed)
-    s1m = phase_1m(args.seed)
-    launches = {
-        "group_max_keys": group_max_keys.launches,
-        "hamming_group_max_keys": hamming_group_max_keys.launches,
-    }
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    # Each path of the main path: counters from zero, read right after.
+    from lshrs_tpu_torch.ops import group_max
+
+    wrappers = {name: getattr(group_max, name) for name in KERNELS}
+    launches = {name: 0 for name in KERNELS}
+
+    def drive(path: str, kernel: str, run):
+        for w in wrappers.values():
+            w.launches = 0
+        out = run()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        emit("launches", path=path, **counts)
+        if counts[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched on the {path} path")
+        for name, n in counts.items():
+            launches[name] += n
+        return out
+
+    s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
+    s1m = drive("1m", "hamming_group_max_keys", lambda: phase_1m(args.seed))
+    s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed))
 
     times = {}
     for name, (run, plain, shape) in kern["timed"].items():
@@ -397,19 +632,36 @@ def main() -> int:
     qps_1m = serving_qps(s1m["serve"], s1m["queries"])
     emit("serving", card=label, rows=N_1M, batch=QPS_BATCH_1M, engine="hamming",
          qps=qps_1m)
+    # Packed (B3) and planes (B2) on the same 4M store words, in turns.
+    for name in ("packed", "planes", "planes", "packed"):
+        serve = s4m["serve"] if name == "packed" else s4m["serve_planes"]
+        emit("serving", card=label, rows=N_4M, batch=QPS_BATCH_1M, engine="hamming",
+             hamming_storage=name, qps=serving_qps(serve, s4m["queries"], trials=2))
     emit("profile", card=label, rows=N_100K, batch=QPS_BATCH_100K, engine="collision",
          **serving_profile(s100["serve"], s100["queries"][:3]))
     emit("profile", card=label, rows=N_1M, batch=QPS_BATCH_1M, engine="hamming",
          **serving_profile(s1m["serve"], s1m["queries"][:3]))
+    for name in ("packed", "planes"):
+        serve = s4m["serve"] if name == "packed" else s4m["serve_planes"]
+        emit("profile", card=label, rows=N_4M, batch=QPS_BATCH_1M, engine="hamming",
+             hamming_storage=name, **serving_profile(serve, s4m["queries"]))
     emit("build", card=label, rows=N_100K, batch=INGEST_BATCH,
          vectors_per_s=s100["build_vectors_per_s"], seconds=s100["build_s"],
          note="after one warm-up batch; includes host-to-device copies")
+    emit("build", card=label, rows=N_4M, batch=INGEST_BATCH, vectors_per_s=N_4M / s4m["build_s"],
+         seconds=s4m["build_s"], note="packed store; includes drawing the data on the card "
+         "and its round trip through the host")
+    del s4m, s1m
+
+    drive("lifecycle_100k", "group_max_keys", lambda: phase_lifecycle(s100, args.seed))
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
                            "lshrs_tpu/ops/pallas_scan.py:378"),
         "hamming_group_max_keys": ("lshrs_tpu_torch/csrc/hamming_group_max.cu",
                                    "lshrs_tpu/ops/pallas_scan.py:314"),
+        "hamming_packed_group_max_keys": ("lshrs_tpu_torch/csrc/hamming_packed_group_max.cu",
+                                          "lshrs_tpu/ops/pallas_scan.py:267"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,31 +1,39 @@
 """LSHRS orchestrator: hashing + device store + buffered ingestion + top-k.
 
-The PyTorch port of `lshrs_tpu.core.main.LSHRS`, first slice: the device
-backend's build and top-k serving path.
+The PyTorch port of `lshrs_tpu.core.main.LSHRS` for the device backend:
+build, exact top-k serving, delete and compact, and persistence.
 
     ingest/index -> batch hash (one matmul + bitpack; or host sgemm +
                     dense wire with hash_mode="host")
                  -> store append (device tensors, in place)
-    query        -> hash -> kernel B1 (collision) or B2 (Hamming) group
-                    max -> exact top-k groups -> refine -> ids
+    query        -> hash -> kernel B1 (collision), B2 (Hamming on
+                    bitplanes) or B3 (Hamming on packed words) group max
+                 -> exact top-k groups -> refine -> ids
+    delete       -> tombstones (id -1); compact rebuilds the dense prefix
+    save/load    -> metadata.json + projections.npz + index.npz, the
+                    reference package's format (checkpoints load across
+                    the two packages)
 
-Same public contract as the reference for this slice: validation
+Same public contract as the reference for these paths: validation
 messages, ``(-collision_count, id)`` ordering, the ``engine="auto"``
-switch to Hamming ranking at ``_AUTO_HAMMING_CAPACITY`` slots, and
-buffer-restore-on-failed-flush semantics.
+switch to Hamming ranking at ``_AUTO_HAMMING_CAPACITY`` slots (pinned and
+persisted), and buffer-restore-on-failed-flush semantics.
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP Queue A):
 top-p rerank and the resident payload, candidate enumeration
 (``top_k=None``), id filters, multi-probe, MIPS, the non-gaussian hash
-families, bucket backends, sharding, delete, persistence and retuning.
+families, bucket backends, sharding, the cascade and retuning.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import math
 from collections.abc import Callable, Sequence
+from pathlib import Path
 from threading import Lock
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -40,6 +48,23 @@ logger = logging.getLogger(__name__)
 VectorFetchFn = Callable[[Sequence[int]], np.ndarray]
 
 __all__ = ["LSHRS", "VectorFetchFn"]
+
+CandidateScores = list[tuple[int, float]]
+
+# The reference package's checkpoint format version (metadata.json).
+_METADATA_VERSION = "0.1.0"
+# The reference's bucket-backend connection block. The port serves the
+# device backend only, but writes the block so that the reference package
+# can read the port's checkpoints.
+_REDIS_CONFIG_DEFAULTS = {
+    "host": "localhost",
+    "port": 6379,
+    "db": 0,
+    "password": "<REDACTED>",
+    "prefix": "lsh",
+    "decode_responses": False,
+    "max_connections": 50,
+}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -66,7 +91,12 @@ class LSHRS:
         seed: projection seed (the reference package's seeded draw).
         initial_capacity / chunk_size / group_size / dedupe: device store
             sizing and engine knobs, see `DeviceStore`.
-        enable_hamming: maintain int8 bitplanes for Hamming ranking.
+        enable_hamming: make full-signature Hamming ranking available.
+        hamming_storage: ``"planes"`` (int8 bitplanes, kernel B2,
+            ``num_perm`` bytes per slot) or ``"packed"`` (XOR + popcount
+            over the stored words, kernel B3, zero extra bytes); ``None``
+            (default) means ``"planes"``. An explicit ``"packed"`` is kept
+            when the auto/hamming engine turns Hamming ranking on.
         hash_mode: ``"device"`` (one float32 matmul per batch on the
             device) or ``"host"`` (NumPy sgemm, ships the dense signature
             wire). One path per instance, so stored and query signatures
@@ -106,6 +136,7 @@ class LSHRS:
         enable_hamming: bool = False,
         group_size: int = 64,
         dedupe: bool = True,
+        hamming_storage: Optional[str] = None,
         hash_mode: str = "device",
         hash_family: str = "gaussian",
         engine: str = "auto",
@@ -133,8 +164,13 @@ class LSHRS:
             raise _not_ported("multiprobe")
         if similarity != "cosine":
             raise _not_ported(f"similarity={similarity!r} (MIPS)")
+        # None means "planes"; an explicit "packed" (zero extra memory)
+        # stays when the auto/hamming engine turns Hamming ranking on.
+        if hamming_storage is None:
+            hamming_storage = "planes"
+        if hamming_storage not in ("planes", "packed"):
+            raise ValueError("hamming_storage must be 'planes' or 'packed'")
         if engine != "collision":
-            # The auto/hamming engines rank on int8 bitplanes (kernel B2).
             enable_hamming = True
 
         if num_bands is None or rows_per_band is None:
@@ -146,7 +182,6 @@ class LSHRS:
             )
 
         self._engine = engine
-        self._engine_resolved: Optional[str] = None
         self._dim = dim
         self._buffer_size = buffer_size
         self._vector_fetch_fn = vector_fetch_fn
@@ -166,6 +201,7 @@ class LSHRS:
             initial_capacity=initial_capacity,
             chunk_size=chunk_size,
             enable_hamming=enable_hamming,
+            hamming_storage=hamming_storage,
             group_size=group_size,
             dedupe=dedupe,
             device=device,
@@ -174,14 +210,47 @@ class LSHRS:
         # Write buffer of (ids, words) batch records.
         self._buffer: list = []
         self._buffer_lock = Lock()
-        self._counters = {"vectors_ingested": 0, "queries_served": 0, "flushes": 0}
+        self._counters = {
+            "vectors_ingested": 0,
+            "queries_served": 0,
+            "flushes": 0,
+            "deletes": 0,
+        }
         self._counter_lock = Lock()
+        # The reference's config blocks, key for key: they are what
+        # save_to_disk writes and load_from_disk reads in both packages.
         self._config: dict[str, Any] = {
+            "dim": dim,
             "num_perm": num_perm,
             "num_bands": num_bands,
             "rows_per_band": rows_per_band,
             "similarity_threshold": similarity_threshold,
-            "device": str(self._storage.device),
+            "buffer_size": buffer_size,
+            "seed": seed,
+            "similarity": similarity,
+            "max_norm": None,
+        }
+        self._tpu_config: dict[str, Any] = {
+            "backend": backend,
+            "store_vectors": store_vectors,
+            "initial_capacity": initial_capacity,
+            "chunk_size": chunk_size,
+            "shards": shards,
+            "enable_hamming": enable_hamming,
+            "group_size": group_size,
+            "dedupe": dedupe,
+            "query_mode": "scan",
+            "bucket_cap": 128,
+            "hash_mode": hash_mode,
+            "hash_family": hash_family,
+            "hamming_storage": hamming_storage,
+            "hamming_cascade": 0,
+            "hamming_cascade_refine": 2048,
+            "payload_dtype": "float32",
+            "rerank_engine": "auto",
+            "rerank_candidates": 1024,
+            "engine": engine,
+            "multiprobe": multiprobe,
         }
 
     # ------------------------------------------------------------------
@@ -315,8 +384,9 @@ class LSHRS:
         ``engine="collision"`` never does; ``engine="hamming"`` always
         does; ``engine="auto"`` switches once the store's capacity reaches
         `_AUTO_HAMMING_CAPACITY`, and the switch is pinned at first
-        resolution (``stats()["engine_resolved"]``): capacity only grows,
-        and result ordering never changes back.
+        resolution (``stats()["engine_resolved"]``) and persisted with the
+        index: result ordering never changes back, across a save/load or
+        pickle round trip too.
         """
         if not self._storage.enable_hamming:
             return False
@@ -324,11 +394,11 @@ class LSHRS:
             return True
         if self._engine != "auto":
             return False
-        if self._engine_resolved == "hamming":
+        if self._tpu_config.get("engine_resolved") == "hamming":
             return True
         switched = self._storage._capacity >= self._AUTO_HAMMING_CAPACITY
         if switched:
-            self._engine_resolved = "hamming"
+            self._tpu_config["engine_resolved"] = "hamming"
             logger.info(
                 "engine='auto': index capacity reached %d slots; top-k "
                 "ranking switched from band-collision counting to "
@@ -386,6 +456,46 @@ class LSHRS:
             for row_ids, row_counts in zip(ids, counts)
         ]
 
+    def query_hamming(
+        self, vector: np.ndarray, *, top_k: int = 10, where=None
+    ) -> CandidateScores:
+        """Rank by full-signature Hamming distance, whatever the engine.
+
+        Requires ``enable_hamming=True`` (or an auto/hamming engine).
+        Returns ``(id, estimated_cosine)`` tuples ordered by (hamming, id),
+        where ``estimated_cosine = cos(pi * hamming / num_perm)``.
+        """
+        if top_k is None or top_k <= 0:
+            raise ValueError("top_k must be greater than zero when provided")
+        as_filter(where)
+        query_vector = self._prepare_vector(vector)[None, :]
+        self._count("queries_served")
+        hamming, ids = self._storage.query_hamming(self._hash_words(query_vector), top_k)
+        return self._hamming_scores(hamming, ids)[0]
+
+    def query_hamming_batch(
+        self, vectors: np.ndarray, *, top_k: int = 10, where=None
+    ) -> list[CandidateScores]:
+        """Batched :meth:`query_hamming` (one hash, one fused scan)."""
+        if top_k is None or top_k <= 0:
+            raise ValueError("top_k must be greater than zero when provided")
+        as_filter(where)
+        arr = self._validate_batch(vectors)
+        self._count("queries_served", arr.shape[0])
+        hamming, ids = self._storage.query_hamming(self._hash_words(arr), top_k)
+        return self._hamming_scores(hamming, ids)
+
+    def _hamming_scores(self, hamming: np.ndarray, ids: np.ndarray) -> list[CandidateScores]:
+        num_perm = self._config["num_perm"]
+        return [
+            [
+                (int(i), float(math.cos(math.pi * int(h) / num_perm)))
+                for i, h in zip(row_ids, row_h)
+                if i >= 0
+            ]
+            for row_ids, row_h in zip(ids, hamming)
+        ]
+
     def get_top_k(self, vector: np.ndarray, topk: int = 10) -> list[int]:
         """Top ``topk`` candidate ids (see :meth:`query`)."""
         return self.query(vector, top_k=topk)
@@ -438,6 +548,17 @@ class LSHRS:
     # maintenance / introspection
     # ------------------------------------------------------------------
 
+    def delete(self, indices: Union[int, Sequence[int]]) -> None:
+        """Delete ids from the index (their slots are tombstoned until
+        :meth:`compact`)."""
+        to_remove = [indices] if isinstance(indices, int) else [int(i) for i in indices]
+        self._count("deletes", len(to_remove))
+        self._storage.remove_indices(to_remove)
+
+    def compact(self) -> int:
+        """Reclaim tombstoned slots; returns how many were reclaimed."""
+        return self._storage.compact()
+
     def clear(self) -> None:
         """Flush, then drop every indexed entry (projections are kept)."""
         self.flush()
@@ -457,14 +578,142 @@ class LSHRS:
             "buffer_size": self._buffer_size,
             "similarity_threshold": self._config["similarity_threshold"],
             "backend": "device",
-            "device": self._config["device"],
+            "device": str(self._storage.device),
             "engine": self._engine,
-            "engine_resolved": self._engine_resolved,
+            "engine_resolved": self._tpu_config.get("engine_resolved"),
             "ranking": "hamming" if self._use_hamming_ranking() else "collision",
             "buffered_operations": buffered,
             "counters": counters,
             "index": self._storage.stats(),
         }
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+
+    def save_to_disk(self, path: Union[str, Path]) -> None:
+        """Persist config, projections and the index to a directory.
+
+        Writes the reference package's format: ``metadata.json`` (version
+        ``"0.1.0"``, ``config`` / ``redis_config`` / ``tpu_config``),
+        ``projections.npz`` (one ``(rows_per_band, dim)`` matrix per band)
+        and, when the index holds live entries, ``index.npz``
+        (`DeviceStore.state_arrays`). Either package loads it.
+        """
+        self.flush()
+        output_dir = Path(path)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        metadata = {
+            "version": _METADATA_VERSION,
+            "config": self._config,
+            "redis_config": _REDIS_CONFIG_DEFAULTS,
+            "tpu_config": self._tpu_config,
+        }
+        with open(output_dir / "metadata.json", "w") as f:
+            json.dump(metadata, f, indent=2)
+        np.savez_compressed(output_dir / "projections.npz", *self._hasher.projections)
+        if len(self._storage):
+            np.savez_compressed(output_dir / "index.npz", **self._storage.state_arrays())
+
+    @classmethod
+    def load_from_disk(
+        cls,
+        path: Union[str, Path],
+        *,
+        vector_fetch_fn: Optional[VectorFetchFn] = None,
+        device: str | torch.device = "cuda",
+    ) -> "LSHRS":
+        """Restore an index saved by :meth:`save_to_disk` of either package
+        onto ``device``. A checkpoint asking for a capability the port
+        lacks raises ``NotImplementedError``."""
+        input_dir = Path(path)
+        if not input_dir.exists():
+            raise FileNotFoundError(f"Directory not found: {input_dir}")
+        with open(input_dir / "metadata.json") as f:
+            metadata = json.load(f)
+        config = metadata["config"]
+        tpu_config = metadata.get("tpu_config", {})
+        instance = cls(
+            **cls._restore_tpu_kwargs(config, tpu_config),
+            vector_fetch_fn=vector_fetch_fn,
+            device=device,
+        )
+        with np.load(input_dir / "projections.npz") as data:
+            instance._hasher.projections = [
+                data[f"arr_{i}"].astype(np.float32) for i in range(len(data.files))
+            ]
+        index_path = input_dir / "index.npz"
+        if index_path.exists():
+            with np.load(index_path) as data:
+                instance._storage.load_state_arrays({k: data[k] for k in data.files})
+        instance._restore_engine_resolved(tpu_config)
+        return instance
+
+    @staticmethod
+    def _restore_tpu_kwargs(config: dict[str, Any], tpu_config: dict[str, Any]) -> dict[str, Any]:
+        """Constructor kwargs reproducing a saved instance (the reference's
+        defaults for absent keys). Capabilities the port lacks raise here
+        or in the constructor, never silently dropped."""
+        if tpu_config.get("query_mode", "scan") != "scan":
+            raise _not_ported(f"query_mode={tpu_config['query_mode']!r} (the bucketed engine)")
+        if tpu_config.get("hamming_cascade", 0):
+            raise _not_ported("hamming_cascade (the refinement cascade)")
+        return {
+            "dim": config["dim"],
+            "num_perm": config["num_perm"],
+            "num_bands": config["num_bands"],
+            "rows_per_band": config["rows_per_band"],
+            "similarity_threshold": config["similarity_threshold"],
+            "buffer_size": config["buffer_size"],
+            "seed": config["seed"],
+            "similarity": config.get("similarity", "cosine"),
+            "backend": tpu_config.get("backend", "device"),
+            "store_vectors": tpu_config.get("store_vectors", False),
+            "initial_capacity": tpu_config.get("initial_capacity", 1 << 14),
+            "chunk_size": tpu_config.get("chunk_size", 2048),
+            "shards": tpu_config.get("shards"),
+            "enable_hamming": tpu_config.get("enable_hamming", False),
+            "group_size": tpu_config.get("group_size", 32),
+            "dedupe": tpu_config.get("dedupe", True),
+            "hash_mode": tpu_config.get("hash_mode", "device"),
+            "hash_family": tpu_config.get("hash_family", "gaussian"),
+            "hamming_storage": tpu_config.get("hamming_storage", "planes"),
+            # Saved instances predating the engine knob behaved as
+            # "collision"; restore them unchanged.
+            "engine": tpu_config.get("engine", "collision"),
+            "multiprobe": tpu_config.get("multiprobe", 1),
+        }
+
+    def _restore_engine_resolved(self, tpu_config: dict[str, Any]) -> None:
+        # A pinned auto-engine resolution survives the checkpoint: result
+        # ordering never changes across a restore boundary.
+        if tpu_config.get("engine_resolved"):
+            self._tpu_config["engine_resolved"] = tpu_config["engine_resolved"]
+
+    def __getstate__(self) -> dict[str, Any]:
+        self.flush()
+        state: dict[str, Any] = {
+            "config": self._config.copy(),
+            "redis_config": dict(_REDIS_CONFIG_DEFAULTS),
+            "tpu_config": self._tpu_config.copy(),
+            "projections": [np.asarray(m, dtype=np.float32) for m in self._hasher.projections],
+            "device": str(self._storage.device),
+        }
+        if len(self._storage):
+            state["index_state"] = self._storage.state_arrays()
+        return state
+
+    def __setstate__(self, state: dict[str, Any]) -> None:
+        tpu_config = state.get("tpu_config", {})
+        restored = self.__class__(
+            **self._restore_tpu_kwargs(state["config"], tpu_config),
+            device=state.get("device", "cuda"),
+        )
+        self.__dict__ = restored.__dict__
+        self._restore_engine_resolved(tpu_config)
+        self._hasher.projections = state["projections"]
+        if "index_state" in state:
+            self._storage.load_state_arrays(state["index_state"])
 
     # ------------------------------------------------------------------
     # helpers

@@ -92,6 +92,26 @@ class LSHHasher:
         self._proj_dev: torch.Tensor | None = None  # device operand, lazy
 
     @property
+    def projections(self) -> list[np.ndarray]:
+        """Per-band ``(rows_per_band, dim)`` projection matrices, the
+        reference's layout (what checkpoints store)."""
+        r = self.rows_per_band
+        return [self._proj[b * r : (b + 1) * r] for b in range(self.num_bands)]
+
+    @projections.setter
+    def projections(self, matrices) -> None:
+        mats = [np.asarray(m, dtype=np.float32) for m in matrices]
+        if len(mats) != self.num_bands or any(
+            m.shape != (self.rows_per_band, self.dim) for m in mats
+        ):
+            raise ValueError(
+                "projections must be a sequence of "
+                f"{self.num_bands} matrices of shape ({self.rows_per_band}, {self.dim})"
+            )
+        self._proj = np.concatenate(mats, axis=0)
+        self._proj_dev = None  # re-uploaded at the next device hash
+
+    @property
     def projection_matrix(self) -> np.ndarray:
         """The fused ``(num_perm, dim)`` float32 projection matrix."""
         return self._proj

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``lshrs_tpu_torch/csrc``).
 
-The ``.cu`` sources compile with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with :mod:`ctypes`. The
+The ``.cu`` sources compile with ``nvcc`` for Hopper (``sm_90a``), one
+compiler process per source, all at once, and link into one shared
+library with a plain C interface, loaded with :mod:`ctypes`. The
 build runs at first use, never at import, into ``build/lshrs_tpu_torch/``
 beside the package (listed in ``.gitignore``). The library file is named
 by a hash of the sources and flags, so an edited source rebuilds, and it
@@ -26,10 +27,14 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("collision_group_max.cu", "hamming_group_max.cu")
+_SOURCES = (
+    "collision_group_max.cu",
+    "hamming_group_max.cu",
+    "hamming_packed_group_max.cu",
+)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lshrs_tpu_torch"
 
@@ -43,6 +48,8 @@ _SIGNATURES = {
     # planes, tie, qbits, out, q, c, p, group, scale, offset, shift,
     # dead_bias, stream
     "lshrs_hamming_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    # sig_t, tie, qwords, out, q, c, bw, group, scale, num_perm, stream
+    "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -63,24 +70,43 @@ def _nvcc() -> str:
     )
 
 
+def _check(cmd: list[str], proc: subprocess.Popen) -> None:
+    stdout, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{stderr}{stdout}"
+        )
+
+
 def _compile(so_path: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.NamedTemporaryFile(
-        dir=BUILD_DIR, suffix=".so.tmp", delete=False
-    ) as tmp:
-        tmp_path = Path(tmp.name)
-    try:
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp_path)]
-        cmd += [str(_CSRC / s) for s in _SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-            )
-        tmp_path.replace(so_path)
-    finally:
-        tmp_path.unlink(missing_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        try:
+            for name in _SOURCES:
+                obj = Path(tmp) / f"{Path(name).stem}.o"
+                cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)]
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+                )
+                jobs.append((cmd, proc, obj))
+            for cmd, proc, _ in jobs:
+                _check(cmd, proc)
+        finally:
+            for _, proc, _ in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp_so = Path(tmp) / "kernels.so"
+        cmd = [nvcc, "-shared", *_FLAGS[:2], "-o", str(tmp_so)]
+        cmd += [str(obj) for _, _, obj in jobs]
+        _check(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        ))
+        tmp_so.replace(so_path)
 
 
 def library() -> ctypes.CDLL:

@@ -40,6 +40,7 @@ __all__ = [
     "narrow_refine_r",
     "narrow_words_count",
     "pack_words_narrow",
+    "popcount32",
 ]
 
 
@@ -68,6 +69,19 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in ``[0, 2**32)`` -> int32 with the same low 32 bits."""
     return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 bit-view word (SWAR; torch has no popcount).
+
+    Widened to int64 first so every SWAR step is plain non-negative
+    arithmetic on the 32-bit pattern.
+    """
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
 
 
 def words_per_band(rows_per_band: int) -> int:

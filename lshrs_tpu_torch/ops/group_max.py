@@ -1,6 +1,6 @@
-"""Fused group-max key kernels: the query hot loop (kernels B1 and B2).
+"""Fused group-max key kernels: the query hot loop (kernels B1, B2, B3).
 
-Both kernels score every (query, slot) pair, pack the score and the
+The kernels score every (query, slot) pair, pack the score and the
 slot's id-rank tie into one int32 selection key, and write only the max
 key of each group of ``group`` CONTIGUOUS slots — ``(Q, C / group)``
 instead of ``(Q, C)``. Because alive keys are globally distinct (the tie
@@ -14,14 +14,19 @@ exactly (`lshrs_tpu_torch.ops.scan`, `lshrs_tpu_torch.ops.hamming`).
 - **B2** :func:`hamming_group_max_keys` — int8 bitplane dot:
   ``key = ((dot + offset) >> shift) * S + bias``, bias ``tie + S`` alive
   / ``-maxscaled * S`` dead. CUDA source ``csrc/hamming_group_max.cu``.
+- **B3** :func:`hamming_packed_group_max_keys` — XOR + popcount Hamming
+  over the packed words: ``key = bias - ham * S``, bias
+  ``(P + 1) * S + tie`` alive / ``0`` dead. CUDA source
+  ``csrc/hamming_packed_group_max.cu``.
 
 Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
 kernel launches it makes in its ``launches`` attribute.
 
-Key packing requires ``(num_bands + 1) * S < 2**31`` (B1) and
-``(maxscaled + 2) * S < 2**31`` (B2) with ``S = key_scale(C)``; larger
+Key packing requires ``(num_bands + 1) * S < 2**31`` (B1),
+``(maxscaled + 2) * S < 2**31`` (B2) and ``(P + 2) * S < 2**31`` (B3)
+with ``S = key_scale(C)``; larger
 stores are not served by these kernels (ROADMAP: int64 keys or the
 chunked fallback).
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from lshrs_tpu_torch.ops import _build
+from lshrs_tpu_torch.ops.bitpack import popcount32
 
 __all__ = [
     "asymmetric_shift",
@@ -39,11 +45,13 @@ __all__ = [
     "group_max_keys_ref",
     "hamming_group_max_keys",
     "hamming_group_max_keys_ref",
+    "hamming_packed_group_max_keys",
+    "hamming_packed_group_max_keys_ref",
     "key_scale",
     "supports_fast_path",
 ]
 
-# Slots per float32 matmul in the plain B2 version: bounds its (Q, slots)
+# Slots per step of the plain B2 and B3 versions: bounds their (Q, slots)
 # temporaries without changing the result.
 _REF_SLOTS = 1 << 16
 
@@ -91,6 +99,15 @@ def _hamming_key_bias(
     scaled-dot term — ``(2 * offset) >> shift`` — so dead keys land at or
     below zero, under every alive key (``>= scale``)."""
     return torch.where(tie >= 0, tie + scale, -maxscaled * scale)
+
+
+def _hamming_packed_key_bias(
+    tie: torch.Tensor, *, scale: int, num_perm: int
+) -> torch.Tensor:
+    """Per-slot key bias of B3: ``(P + 1) * scale + tie`` alive (the key
+    ``(P + 1 - ham) * scale + tie`` then equals B2's), ``0`` dead (a dead
+    key ``-ham * scale <= 0`` is under every alive key, ``>= scale``)."""
+    return torch.where(tie >= 0, (num_perm + 1) * scale + tie, 0)
 
 
 def band_counts_t(
@@ -318,3 +335,94 @@ def hamming_group_max_keys(
 
 
 hamming_group_max_keys.launches = 0
+
+
+def hamming_packed_group_max_keys_ref(
+    sig_t: torch.Tensor,
+    tie: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_perm: int,
+    group: int,
+    scale: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3 (see
+    :func:`hamming_packed_group_max_keys`); slots go through in blocks of
+    ``_REF_SLOTS`` to bound the ``(Q, slots)`` temporaries."""
+    bw, c = sig_t.shape
+    q = qwords.shape[0]
+    bias = _hamming_packed_key_bias(tie, scale=scale, num_perm=num_perm)
+    out = torch.empty((q, c // group), dtype=torch.int32, device=sig_t.device)
+    step = group * max(1, _REF_SLOTS // group)
+    for s in range(0, c, step):
+        e = min(c, s + step)
+        ham = popcount32(sig_t[0, s:e][None, :] ^ qwords[:, 0][:, None])
+        for w in range(1, bw):
+            ham += popcount32(sig_t[w, s:e][None, :] ^ qwords[:, w][:, None])
+        key = bias[None, s:e] - ham * scale
+        out[:, s // group : e // group] = key.reshape(q, (e - s) // group, group).amax(-1)
+    return out
+
+
+def hamming_packed_group_max_keys(
+    sig_t: torch.Tensor,
+    tie: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_perm: int,
+    group: int,
+    scale: int,
+) -> torch.Tensor:
+    """Per-group maxima of packed (P + 1 - hamming, tie) keys — kernel B3.
+
+    Args:
+        sig_t: ``(BW, C)`` int32 transposed packed signatures (the
+            collision store's own words; no bitplanes).
+        tie: ``(C,)`` int32 tie keys (-1 dead).
+        qwords: ``(Q, BW)`` int32 query words.
+        num_perm: signature bits P (the words hold at most P set bits).
+        group: slots per group, a power of two dividing C (16, 32, 64 or
+            128 for the CUDA kernel, which also needs BW <= 64).
+        scale: ``key_scale(C)``; ``(P + 2) * scale`` must fit int32.
+
+    Returns:
+        ``(Q, C // group)`` int32 group-max keys, contiguous groups.
+    """
+    bw, c = sig_t.shape
+    q = qwords.shape[0]
+    _check("sig_t", sig_t, torch.int32, (bw, c))
+    _check("tie", tie, torch.int32, (c,))
+    _check("qwords", qwords, torch.int32, (q, bw))
+    if group <= 0 or group & (group - 1) or c % group:
+        raise ValueError(f"group must be a power of two dividing C={c}; got {group}")
+    if (num_perm + 2) * scale >= 2**31:
+        raise ValueError(
+            f"(num_perm + 2) * scale = {(num_perm + 2) * scale} does not fit int32"
+        )
+    dev = _device(sig_t, tie, qwords)
+    if dev.type == "cpu":
+        return hamming_packed_group_max_keys_ref(
+            sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale
+        )
+    if not (sig_t.is_contiguous() and tie.is_contiguous() and qwords.is_contiguous()):
+        raise ValueError("hamming_packed_group_max_keys: CUDA inputs must be contiguous")
+    if sig_t.data_ptr() % 16 or tie.data_ptr() % 16:
+        raise ValueError("hamming_packed_group_max_keys: sig_t and tie must be 16-byte aligned")
+    if group not in (16, 32, 64, 128) or bw > 64:
+        raise ValueError(
+            f"the CUDA kernel needs group in (16, 32, 64, 128) and BW <= 64; "
+            f"got group={group}, BW={bw}"
+        )
+    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out
+    _launch(
+        "lshrs_hamming_packed_group_max", dev,
+        sig_t.data_ptr(), tie.data_ptr(), qwords.data_ptr(), out.data_ptr(),
+        q, c, bw, group, scale, num_perm,
+    )
+    hamming_packed_group_max_keys.launches += 1
+    return out
+
+
+hamming_packed_group_max_keys.launches = 0

@@ -2,11 +2,15 @@
 
 Band-collision counting quantises each band to hit/miss; this mode ranks
 candidates by the Hamming distance between whole ``num_perm``-bit
-signatures, the SimHash angular estimator:
+signatures, the SimHash angular estimator. Two storages give the same
+results bit for bit:
 
-    signatures as +-1 int8 bitplanes:  (C, num_perm)
-    dots = qbits . planes              kernel B2, dot = P - 2 * hamming
-    select by (dot desc, id asc)       packed keys + contiguous group max,
+    "planes": signatures as +-1 int8 bitplanes (C, num_perm), num_perm
+              bytes per slot; dots = qbits . planes, kernel B2,
+              dot = P - 2 * hamming
+    "packed": XOR + popcount over the packed words the collision scan
+              already stores, zero extra bytes; kernel B3
+    select by (hamming asc, id asc)    packed keys + contiguous group max,
                                        top-k groups, popcount-exact refine
 
 Selection reuses the group-max exactness argument of the collision scan
@@ -15,21 +19,25 @@ alive keys are distinct, and the top-k groups by max hold every true
 top-k slot. The refine stage recomputes those candidates' distances from
 the packed words (XOR + popcount), gathered from the grouped refine table.
 
-Not ported yet: the packed-words variant (kernel B3), the refinement
-cascade, the chunked fallback and the two-key selection past the int32
-key ceiling (ROADMAP Queue A / B).
+Not ported yet: the refinement cascade, the chunked fallbacks and the
+two-key selection past the int32 key ceiling (ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
 import torch
 
-from lshrs_tpu_torch.ops.bitpack import narrow_words_count, pack_words_narrow
-from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, key_scale
+from lshrs_tpu_torch.ops.bitpack import narrow_words_count, pack_words_narrow, popcount32
+from lshrs_tpu_torch.ops.group_max import (
+    hamming_group_max_keys,
+    hamming_packed_group_max_keys,
+    key_scale,
+)
 from lshrs_tpu_torch.ops.scan import gather_refine_group_rows
 
 __all__ = [
     "hamming_topk_core",
+    "hamming_topk_packed_core",
     "popcount32",
     "supports_hamming_grouped",
     "unpack_bitplanes",
@@ -39,19 +47,6 @@ __all__ = [
 def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
     """True when the (scaled-dot, tie) key packs into a positive int32."""
     return (num_perm + 2) * key_scale(capacity) < 2**31
-
-
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 bit-view word (SWAR; torch has no popcount).
-
-    Widened to int64 first so every SWAR step is plain non-negative
-    arithmetic on the 32-bit pattern.
-    """
-    v = x.to(torch.int64) & 0xFFFFFFFF
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
 
 
 def unpack_bitplanes(
@@ -105,6 +100,43 @@ def hamming_topk_core(
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r
+    )
+
+
+def hamming_topk_packed_core(
+    sig_t: torch.Tensor,
+    tie: torch.Tensor,
+    qwords: torch.Tensor,
+    sig_rows: torch.Tensor,
+    *,
+    num_perm: int,
+    k: int,
+    group: int,
+    narrow_r: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (hamming asc, id asc) from the PACKED words only.
+
+    No bitplane array: kernel B3 scores every slot by XOR + popcount over
+    the same ``(BW, C)`` store the collision scan uses. Results equal
+    :func:`hamming_topk_core`'s bit for bit.
+
+    Args:
+        sig_t: ``(BW, C)`` int32 transposed signatures (dead slots
+            arbitrary).
+        tie: ``(C,)`` int32 global tie keys (-1 dead).
+        qwords: ``(Q, BW)`` int32 query words.
+        sig_rows: grouped refine table, as for :func:`hamming_topk_core`.
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
+        id -1 and hamming P+1.
+    """
+    gmax = hamming_packed_group_max_keys(
+        sig_t, tie, qwords, num_perm=num_perm, group=group,
+        scale=key_scale(sig_t.shape[1]),
+    )
+    return _select_refine(
+        gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r
     )
 
 

@@ -10,23 +10,27 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         sig_rows (capacity, num_bands * W)  int32  row-major twin
         ids      (capacity,)                int32  vector id, -1 = dead
         tie      (capacity,)                int32  global id-rank key
-        planes   (capacity, num_perm)       int8   +-1 bitplanes (Hamming,
+        planes   (capacity, num_perm)       int8   +-1 bitplanes (Hamming with
+                                                   hamming_storage="planes",
                                                    built lazily)
 
 Words are int32 bit-views of the uint32 signature words (see
 `lshrs_tpu_torch.ops.bitpack`).
 
 Query engines: grouped collision counting (kernel B1) and grouped
-Hamming ranking (kernel B2), both exact against the reference ordering.
-Stores those engines cannot take — a selection key past int32, more than
-64 bands — raise ``NotImplementedError`` (ROADMAP: the chunked fallback or
+Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
+themselves (kernel B3), all exact against the reference ordering. Stores
+those engines cannot take — a selection key past int32, more than 64
+bands — raise ``NotImplementedError`` (ROADMAP: the chunked fallback or
 int64 keys).
 
 Mutation model: appends write the tail in place; re-ingesting an id
-overwrites its slot (upsert). Capacity grows exactly as the reference's
-does — each batch reserves ``next_pow2(n)`` slots and capacity at least
-doubles when they do not fit — because capacity sets the key scale and
-the engine switch of `LSHRS(engine="auto")`.
+overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
+until `DeviceStore.compact` rebuilds the dense prefix. Capacity grows
+exactly as the reference's does — each batch reserves ``next_pow2(n)``
+slots and capacity at least doubles when they do not fit — because
+capacity sets the key scale and the engine switch of
+`LSHRS(engine="auto")`.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from lshrs_tpu_torch.ops.bitpack import (
 )
 from lshrs_tpu_torch.ops.hamming import (
     hamming_topk_core,
+    hamming_topk_packed_core,
     supports_hamming_grouped,
     unpack_bitplanes,
 )
@@ -87,14 +92,19 @@ class DeviceStore(BaseStorage):
         group_size: group width of the group-max selection (a power of two).
         dedupe: track id -> slot on the host so re-ingesting an id
             overwrites its slot (upsert).
-        enable_hamming: make `query_hamming` (full-signature ranking on
-            int8 bitplanes, kernel B2) available.
+        enable_hamming: make `query_hamming` (full-signature Hamming
+            ranking) available.
+        hamming_storage: ``"planes"`` (default) ranks on +-1 int8
+            bitplanes (kernel B2), ``num_perm`` bytes per slot, built
+            lazily on the first Hamming use; ``"packed"`` ranks by XOR +
+            popcount over the packed words the store already holds
+            (kernel B3), zero extra bytes. Results are identical.
         device: where the store's tensors live (``"cuda"`` by default; the
             CPU runs the kernels' plain PyTorch versions).
 
-    ``store_vectors``, ``query_mode="bucket"``, ``hamming_storage="packed"``
-    and ``hamming_cascade`` are accepted only at their defaults: they
-    belong to slices not ported yet (ROADMAP Queue A).
+    ``store_vectors``, ``query_mode="bucket"`` and ``hamming_cascade`` are
+    accepted only at their defaults: they belong to slices not ported yet
+    (ROADMAP Queue A).
     """
 
     supports_signature_batches = True
@@ -124,8 +134,8 @@ class DeviceStore(BaseStorage):
             raise _not_ported("store_vectors (the resident payload of the rerank slice)")
         if query_mode != "scan":
             raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)")
-        if hamming_storage != "planes":
-            raise _not_ported(f"hamming_storage={hamming_storage!r} (kernel B3)")
+        if hamming_storage not in ("planes", "packed"):
+            raise ValueError("hamming_storage must be 'planes' or 'packed'")
         if hamming_cascade:
             raise _not_ported("hamming_cascade (the refinement cascade)")
 
@@ -140,11 +150,13 @@ class DeviceStore(BaseStorage):
         self.group = group_size
         self.dedupe = dedupe
         self.enable_hamming = enable_hamming
+        self.hamming_storage = hamming_storage
         self.device = torch.device(device)
 
         self._capacity = _next_pow2(max(chunk_size, initial_capacity))
         self._alloc(self._capacity)
-        self._size = 0  # high-water mark of used slots
+        self._size = 0  # high-water mark of used slots (tombstones included)
+        self._tombstones = 0
         self._slot_of: dict[int, int] | None = {} if dedupe else None
         # Bumped on every mutation; snapshot_query_fn closures check it
         # (writes land in place, so a stale closure would see new data).
@@ -161,7 +173,8 @@ class DeviceStore(BaseStorage):
         self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
         # Bitplanes are LAZY: built from the packed words on the first
-        # Hamming use, then kept current by appends and overwrites.
+        # Hamming use, then kept current by appends and overwrites. A
+        # packed store never builds them.
         self._planes: torch.Tensor | None = None
         self._ranks_dirty = False  # fresh tensors are self-consistent
 
@@ -192,7 +205,11 @@ class DeviceStore(BaseStorage):
     def _ensure_planes(self) -> None:
         """Build the int8 bitplanes on first Hamming use (call under the
         lock). Bit-identical to the stored words by construction."""
-        if not self.enable_hamming or self._planes is not None:
+        if (
+            not self.enable_hamming
+            or self.hamming_storage != "planes"
+            or self._planes is not None
+        ):
             return
         self._planes = self._materialize_planes()
 
@@ -480,19 +497,26 @@ class DeviceStore(BaseStorage):
                 "chunked fallback or int64 keys)"
             )
         self._ensure_ranks()
+        kw = dict(
+            k=max(1, min(k, self._capacity)),
+            group=self._group(),
+            narrow_r=self._refine_narrow_r,
+        )
+        if self.hamming_storage == "packed":
+            return hamming_topk_packed_core(
+                self._sig_t, self._tie, qw, self._refine_rows(), num_perm=p, **kw
+            )
         self._ensure_planes()
         qbits = unpack_bitplanes(
             qw, num_bands=self.num_bands, rows_per_band=self.rows_per_band
         )
         return hamming_topk_core(
-            self._planes, self._tie, qbits, qw, self._refine_rows(),
-            k=max(1, min(k, self._capacity)),
-            group=self._group(),
-            narrow_r=self._refine_narrow_r,
+            self._planes, self._tie, qbits, qw, self._refine_rows(), **kw
         )
 
     def query_hamming(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
-        """Top-k by full-signature Hamming distance (kernel B2).
+        """Top-k by full-signature Hamming distance (kernel B2 on
+        bitplanes, B3 on packed words).
 
         Requires ``enable_hamming=True``. Returns ``(hamming (Q, k),
         ids (Q, k))`` ordered by (hamming asc, id asc); empty tail entries
@@ -543,8 +567,8 @@ class DeviceStore(BaseStorage):
                 signatures from `LSHHasher.hash_batch_dense_host`, decoded
                 on the device).
             mode: ``"collision"`` (band-collision counting, kernel B1) or
-                ``"hamming"`` (full-signature ranking, kernel B2; requires
-                ``enable_hamming=True``).
+                ``"hamming"`` (full-signature ranking, kernel B2 or B3 by
+                ``hamming_storage``; requires ``enable_hamming=True``).
 
         Returns:
             callable ``(signatures) -> (Q, k) int32 device tensor of ids``.
@@ -601,12 +625,48 @@ class DeviceStore(BaseStorage):
         raise _not_ported("bucket reads on the device store")
 
     def remove_indices(self, indices: Iterable[int]) -> None:
-        raise _not_ported("delete/compact")
+        """Tombstone the slots holding ``indices`` (their id becomes -1).
+
+        With ``dedupe`` the host id -> slot map finds each slot; without
+        it every slot whose id is listed is tombstoned (an id stored twice
+        goes twice). Ids not present are ignored. The tie keys are marked
+        stale, so every engine's key bias sees the dead slots.
+        """
+        to_remove = [int(i) for i in indices]
+        if not to_remove:
+            return
+        with self._lock:
+            if self._slot_of is not None:
+                slots = [self._slot_of.pop(i) for i in to_remove if i in self._slot_of]
+                if not slots:
+                    return
+                self._ids[torch.as_tensor(slots, device=self.device)] = -1
+                self._tombstones += len(slots)
+            else:
+                dels = torch.as_tensor(
+                    np.unique(np.asarray(to_remove, dtype=np.int64)), device=self.device
+                )
+                hit = torch.isin(self._ids, dels) & (self._ids >= 0)
+                self._ids[hit] = -1
+                self._tombstones += int(hit.sum())
+            self._refresh_ranks()
+
+    def compact(self) -> int:
+        """Reclaim tombstoned slots by rebuilding the dense prefix (one
+        snapshot, one append; capacity is kept). Returns the number of
+        slots reclaimed."""
+        with self._lock:
+            reclaimed = self._tombstones
+            if reclaimed == 0:
+                return 0
+            self.load_state_arrays(self.state_arrays())
+        return reclaimed
 
     def clear(self) -> None:
         with self._lock:
             self._alloc(self._capacity)
             self._size = 0
+            self._tombstones = 0
             self._generation += 1
             if self._slot_of is not None:
                 self._slot_of.clear()
@@ -616,17 +676,18 @@ class DeviceStore(BaseStorage):
     # ------------------------------------------------------------------
 
     def __len__(self) -> int:
-        return self._size
+        return self._size - self._tombstones
 
     def stats(self) -> dict:
         return {
             "backend": "device",
             "device": str(self.device),
             "size": self._size,
-            "alive": self._size,
+            "alive": self._size - self._tombstones,
+            "tombstones": self._tombstones,
             "capacity": self._capacity,
             "chunk_size": self.chunk,
-            "hamming_storage": "planes" if self.enable_hamming else None,
+            "hamming_storage": self.hamming_storage if self.enable_hamming else None,
             "hamming_plane_bytes": (
                 self._capacity * self.num_bands * self.rows_per_band
                 if self._planes is not None
@@ -638,18 +699,24 @@ class DeviceStore(BaseStorage):
 
     def state_arrays(self) -> dict[str, np.ndarray]:
         """Dense host snapshot of the used slots: ``ids`` (n,) int32 and
-        ``sig`` (n, BW) uint32 — the reference package's format."""
+        ``sig`` (n, BW) uint32 — the reference package's format. The arrays
+        are copies: later in-place writes (upserts, deletes) leave a
+        snapshot unchanged, on the CPU too."""
         with self._lock:
             n = self._size
             return {
-                "ids": self._ids[:n].cpu().numpy(),
-                "sig": words_to_numpy(self._sig_rows[:n]),
+                "ids": self._ids[:n].to("cpu", copy=True).numpy(),
+                "sig": words_to_numpy(self._sig_rows[:n].to("cpu", copy=True)),
             }
 
     def load_state_arrays(self, state: dict[str, np.ndarray]) -> None:
-        """Restore from a :meth:`state_arrays` snapshot (replaces contents);
-        snapshots from the reference package load too."""
-        self.clear()
-        ids = np.asarray(state["ids"], dtype=np.int32)
-        alive = ids >= 0
-        self.add_signature_batch(ids[alive], np.asarray(state["sig"], dtype=np.uint32)[alive])
+        """Restore from a :meth:`state_arrays` snapshot (replaces contents;
+        tombstoned slots are dropped); snapshots from the reference package
+        load too."""
+        with self._lock:
+            self.clear()
+            ids = np.asarray(state["ids"], dtype=np.int32)
+            alive = ids >= 0
+            self.add_signature_batch(
+                ids[alive], np.asarray(state["sig"], dtype=np.uint32)[alive]
+            )

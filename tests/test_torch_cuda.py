@@ -27,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev() -> torch.device:
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA (kernels B1/B2 have no CPU build)")
+        pytest.skip("needs an NVIDIA GPU with CUDA (kernels B1/B2/B3 have no CPU build)")
     return torch.device("cuda")
 
 
@@ -90,6 +90,35 @@ def test_b2_kernel_matches_plain(asymmetric, q, dev, rng):
     assert torch.equal(got, gm.hamming_group_max_keys_ref(planes_d, tie, qb_d, **kw))
 
 
+@pytest.mark.parametrize(
+    "bw,c,q,group",
+    [
+        (16, 8192, 256, 64),
+        (16, 8192, 100, 16),  # ragged Q
+        (16, 4096, 300, 128),  # Q past one block's 256 queries
+        (8, 4096, 77, 32),
+        (12, 4096, 70, 64),   # generic (non-register) instantiation
+        (16, 256, 9, 64),     # store smaller than one block's 1024 slots
+    ],
+)
+def test_b3_kernel_matches_plain(bw, c, q, group, dev, rng):
+    # Full 32-bit words, so num_perm = 32 * BW; half the queries are
+    # stored slots with ~10% of their bits flipped.
+    sig = rng.integers(-(2**31), 2**31, (bw, c), dtype=np.int64).astype(np.int32)
+    qw = rng.integers(-(2**31), 2**31, (q, bw), dtype=np.int64).astype(np.int32)
+    flips = np.where(rng.random((q // 2, bw, 32)) < 0.1, 1, 0) << np.arange(32)
+    qw[: q // 2] = sig[:, rng.integers(0, c, q // 2)].T ^ flips.sum(-1).astype(np.uint32).view(np.int32)
+    sig_t = torch.from_numpy(sig).to(dev)
+    qwords = torch.from_numpy(qw).to(dev)
+    tie = _tie(rng, c, dev)
+    kw = dict(num_perm=32 * bw, group=group, scale=gm.key_scale(c))
+    before = gm.hamming_packed_group_max_keys.launches
+    got = gm.hamming_packed_group_max_keys(sig_t, tie, qwords, **kw)
+    assert gm.hamming_packed_group_max_keys.launches == before + 1
+    assert got.device == sig_t.device and got.shape == (q, c // group)
+    assert torch.equal(got, gm.hamming_packed_group_max_keys_ref(sig_t, tie, qwords, **kw))
+
+
 def test_cuda_wrappers_reject_what_the_kernels_cannot_take(dev):
     sig_t = torch.zeros((4, 512), dtype=torch.int32, device=dev)
     tie = torch.full((512,), -1, dtype=torch.int32, device=dev)
@@ -99,6 +128,17 @@ def test_cuda_wrappers_reject_what_the_kernels_cannot_take(dev):
     planes = torch.ones((512, 6), dtype=torch.int8, device=dev)  # P % 4 != 0
     with pytest.raises(ValueError, match="P % 4"):
         gm.hamming_group_max_keys(planes, tie, planes[:3], group=64, scale=512)
+    kw = dict(num_perm=128, group=64, scale=512)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.hamming_packed_group_max_keys(sig_t, tie, qw, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        gm.hamming_packed_group_max_keys(
+            torch.zeros(4 * 512 + 1, dtype=torch.int32, device=dev)[1:].view(4, 512),
+            tie, qw.contiguous()[:, :4].contiguous(), **kw,
+        )
+    with pytest.raises(ValueError, match="group in"):
+        gm.hamming_packed_group_max_keys(sig_t, tie, qw.contiguous()[:, :4].contiguous(),
+                                         **{**kw, "group": 8})
 
 
 @pytest.mark.parametrize("engine", ["collision", "hamming"])
@@ -118,3 +158,24 @@ def test_lshrs_on_the_gpu_matches_the_cpu(engine, dev, rng):
     np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
     np.testing.assert_array_equal(gpu.serving_fn(top_k=1)(X[:300])[:, 0], np.arange(300))
     assert gpu.query_batch(Q, top_k=5) == cpu.query_batch(Q, top_k=5)
+
+
+def test_packed_lshrs_on_the_gpu_matches_the_cpu_after_delete(dev, rng):
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host",
+              seed=6, engine="hamming", hamming_storage="packed")
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(5000), X)
+        lsh.delete(list(range(0, 5000, 50)))
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    b2, b3 = gm.hamming_group_max_keys.launches, gm.hamming_packed_group_max_keys.launches
+    out = gpu.serving_fn(top_k=10)(Q)
+    assert gm.hamming_group_max_keys.launches == b2
+    assert gm.hamming_packed_group_max_keys.launches == b3 + 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    assert not np.isin(out, np.arange(0, 5000, 50)).any()
+    assert gpu.query_hamming_batch(Q, top_k=5) == cpu.query_hamming_batch(Q, top_k=5)
+    assert gpu._storage._planes is None
+    assert gpu.compact() == cpu.compact() == 100
+    np.testing.assert_array_equal(gpu.serving_fn(top_k=10)(Q), cpu.serving_fn(top_k=10)(Q))

@@ -162,7 +162,7 @@ def test_empty_store_and_unported_options(hasher, rng):
         ts.snapshot_query_fn(3, mode="asymmetric")
     with pytest.raises(NotImplementedError):
         TorchStore(store_vectors=True, device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        TorchStore(hamming_storage="packed", device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        ts.remove_indices([1])
+    with pytest.raises(ValueError, match="hamming_storage"):
+        TorchStore(hamming_storage="sparse", device="cpu", **KW)
+    ts.remove_indices([1])  # an absent id: nothing to tombstone
+    assert len(ts) == 0 and ts.stats()["tombstones"] == 0 and ts.compact() == 0

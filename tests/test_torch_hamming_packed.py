@@ -1,0 +1,306 @@
+"""Packed-words Hamming (kernel B3): the port against the JAX package.
+
+Kernel B3's plain version is held to the JAX Pallas kernel in interpret
+mode, the packed top-k core to the JAX core, and the port's packed store
+to its planes store and to the JAX packed store, on the same signature
+words. Every comparison is exact: outputs are integer keys, distances and
+ids. The Pallas kernel groups slots strided within a chunk; its inputs
+are permuted so that its group ``g`` holds the port's contiguous group
+``g`` (as in ``tests/test_torch_group_max.py``).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lshrs_tpu import LSHRS as JaxLSHRS
+from lshrs_tpu.hash.hasher import LSHHasher
+from lshrs_tpu.ops import hamming as jham
+from lshrs_tpu.ops import pallas_scan as jps
+from lshrs_tpu.ops import scan as jscan
+from lshrs_tpu.ops.bitpack import narrow_refine_r
+from lshrs_tpu.ops.bitpack import pack_words_narrow as j_pack_narrow
+from lshrs_tpu.storage.device import DeviceStore as JaxStore
+from lshrs_tpu_torch import LSHRS as TorchLSHRS
+from lshrs_tpu_torch.ops import _build
+from lshrs_tpu_torch.ops import group_max as gm
+from lshrs_tpu_torch.ops import hamming as tham
+from lshrs_tpu_torch.ops import scan as tscan
+from lshrs_tpu_torch.ops.bitpack import pack_words_narrow as t_pack_narrow
+from lshrs_tpu_torch.storage.device import DeviceStore as TorchStore
+
+C, CHUNK, Q_TILE = 1024, 256, 8
+
+
+def _strided(a: np.ndarray, axis: int, group: int) -> np.ndarray:
+    """Permute the slot axis so Pallas group g holds contiguous group g."""
+    s = np.arange(a.shape[axis])
+    g, i = s // group, s % group
+    ngc = CHUNK // group
+    pos = (g // ngc) * CHUNK + (g % ngc) + i * ngc
+    out = np.empty_like(a)
+    idx = [slice(None)] * a.ndim
+    idx[axis] = pos
+    out[tuple(idx)] = a
+    return out
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _case(rng, num_bands, rows, q, dim=16, n=700):
+    """Host-hashed store (10% of the live rows tombstoned) and
+    near-duplicate queries."""
+    h = LSHHasher(num_bands=num_bands, rows_per_band=rows, dim=dim, seed=7)
+    X = rng.standard_normal((n, dim)).astype(np.float32)
+    sig_rows = np.zeros((C, h.words_per_band * num_bands), np.uint32)
+    sig_rows[:n] = h.hash_batch_words_host(X)
+    ids = np.full(C, -1, np.int32)
+    ids[:n] = rng.permutation(50_000)[:n]
+    ids[:n][rng.random(n) < 0.1] = -1
+    qx = X[rng.integers(0, n, q)] + 0.3 * rng.standard_normal((q, dim)).astype(np.float32)
+    return sig_rows, ids, h.hash_batch_words_host(qx)
+
+
+# (num_bands, rows): BW 8 at one word per band, BW 8 at two words per band
+# (r=40), BW 16 (the 16 x 16 main path).
+@pytest.mark.parametrize("group", [16, 64])
+@pytest.mark.parametrize("q", [16, 13])  # 13: ragged, padded for Pallas
+@pytest.mark.parametrize("num_bands,rows", [(8, 8), (4, 40), (16, 16)])
+def test_packed_group_max_ref_matches_pallas(num_bands, rows, q, group, rng):
+    sig_rows, ids, qwords = _case(rng, num_bands, rows, q)
+    p = num_bands * rows
+    tie = np.asarray(jscan.compute_global_tie(jnp.asarray(ids)))
+    scale = gm.key_scale(C)
+    sig_t = np.ascontiguousarray(sig_rows.T)
+
+    got = gm.hamming_packed_group_max_keys_ref(
+        _t(sig_t), _t(tie), _t(qwords), num_perm=p, group=group, scale=scale
+    ).numpy()
+
+    q_pad = -(-q // Q_TILE) * Q_TILE
+    qw_pad = np.zeros((q_pad, qwords.shape[1]), np.uint32)
+    qw_pad[:q] = qwords
+    pallas = np.asarray(
+        jps.hamming_packed_group_max_keys(
+            jnp.asarray(_strided(sig_t, 1, group)), jnp.asarray(_strided(tie, 0, group)),
+            jnp.asarray(qw_pad), num_perm=p, group=group, chunk=CHUNK,
+            q_tile=Q_TILE, scale=scale, interpret=True,
+        )
+    )[:q]
+    np.testing.assert_array_equal(got, pallas)
+    alive = (tie.reshape(-1, group) >= 0).any(-1)
+    assert (got[:, ~alive] <= 0).all() and (got[:, alive] >= scale).all()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("num_bands,rows,k,narrow", [
+    (4, 16, 10, False), (4, 16, 10, True), (16, 16, 7, True), (2, 40, 10, False),
+    (4, 16, 1100, True),  # k past the candidate pool: padded
+])
+def test_packed_core_matches_jax(num_bands, rows, k, narrow, use_pallas, rng):
+    group = 64
+    narrow_r = narrow_refine_r(rows) if narrow else 0
+    sig_rows, ids, qwords = _case(rng, num_bands, rows, 12)
+    p = num_bands * rows
+
+    tie_j = jscan.compute_global_tie(jnp.asarray(ids))
+    words_j = jnp.asarray(sig_rows)
+    if narrow_r:
+        words_j = j_pack_narrow(words_j, num_bands=num_bands, rows_per_band=narrow_r)
+    ext_j = jnp.concatenate([
+        words_j,
+        jax.lax.bitcast_convert_type(tie_j, jnp.uint32)[:, None],
+        jax.lax.bitcast_convert_type(jnp.asarray(ids), jnp.uint32)[:, None],
+    ], axis=1)
+    j_ham, j_ids = jham.hamming_topk_packed(
+        jnp.asarray(np.ascontiguousarray(sig_rows.T)), jnp.asarray(ids), tie_j,
+        jnp.asarray(qwords),
+        num_perm=p, k=k, chunk=CHUNK, group=group, use_pallas=use_pallas,
+        q_tile=Q_TILE, interpret=use_pallas,
+        sig_rows=jscan.build_grouped_refine_rows(
+            ext_j, group=group, strided_chunk=CHUNK if use_pallas else None
+        ),
+        narrow_r=narrow_r,
+    )
+
+    words_t = _t(sig_rows)
+    tie_t = tscan.global_tie_core(torch.from_numpy(ids))
+    refine = words_t
+    if narrow_r:
+        refine = t_pack_narrow(words_t, num_bands=num_bands, rows_per_band=narrow_r)
+    ext_t = torch.cat([refine, tie_t[:, None], torch.from_numpy(ids)[:, None]], dim=1)
+    t_ham, t_ids = tham.hamming_topk_packed_core(
+        words_t.T.contiguous(), tie_t, _t(qwords),
+        tscan.build_grouped_refine_rows(ext_t, group=group),
+        num_perm=p, k=k, group=group, narrow_r=narrow_r,
+    )
+    np.testing.assert_array_equal(t_ham.numpy(), np.asarray(j_ham))
+    np.testing.assert_array_equal(t_ids.numpy(), np.asarray(j_ids))
+    assert (t_ids.numpy()[:, 0] >= 0).all()
+
+    # The same top-k through the bitplane core (kernel B2's plain version).
+    kw = dict(num_bands=num_bands, rows_per_band=rows)
+    b_ham, b_ids = tham.hamming_topk_core(
+        tham.unpack_bitplanes(words_t, **kw), tie_t,
+        tham.unpack_bitplanes(_t(qwords), **kw), _t(qwords),
+        tscan.build_grouped_refine_rows(ext_t, group=group),
+        k=k, group=group, narrow_r=narrow_r,
+    )
+    assert torch.equal(b_ham, t_ham) and torch.equal(b_ids, t_ids)
+
+
+NB, R, DIM = 4, 8, 32
+STORE_KW = dict(num_bands=NB, rows_per_band=R, dim=DIM, chunk_size=128,
+                initial_capacity=512, enable_hamming=True)
+
+
+@pytest.mark.parametrize("wire", ["words", "dense"])
+def test_packed_store_matches_planes_and_jax(wire, rng):
+    """Port packed == port planes == JAX packed (cf. tests/test_hamming.py
+    test_packed_hamming_matches_planes)."""
+    h = LSHHasher(num_bands=NB, rows_per_band=R, dim=DIM, seed=3)
+    stores = {
+        "jax": JaxStore(hamming_storage="packed", **STORE_KW),
+        "planes": TorchStore(hamming_storage="planes", device="cpu", **STORE_KW),
+        "packed": TorchStore(hamming_storage="packed", device="cpu", **STORE_KW),
+    }
+    X = rng.standard_normal((300, DIM)).astype(np.float32)
+    ids = rng.permutation(10_000)[:300]
+    words = h.hash_batch_words_host(X)
+    for s in stores.values():
+        s.add_signature_batch(ids, words)
+
+    qx = np.concatenate([X[:5], rng.standard_normal((6, DIM)).astype(np.float32)])
+    qw = h.hash_batch_words_host(qx)
+    want_h, want_i = stores["jax"].query_hamming(qw, 9)
+    for name in ("planes", "packed"):
+        got_h, got_i = stores[name].query_hamming(qw, 9)
+        np.testing.assert_array_equal(got_h, want_h, err_msg=name)
+        np.testing.assert_array_equal(got_i, want_i, err_msg=name)
+    np.testing.assert_array_equal(want_i[:5, 0], ids[:5])
+
+    q = qw if wire == "words" else h.hash_batch_dense_host(qx)
+    want = np.asarray(stores["jax"].snapshot_query_fn(5, wire=wire, mode="hamming")(q))
+    for name in ("planes", "packed"):
+        got = stores[name].snapshot_query_fn(5, wire=wire, mode="hamming")(q)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+    assert stores["planes"].stats()["hamming_plane_bytes"] > 0
+    assert stores["packed"].stats()["hamming_plane_bytes"] == 0
+    assert stores["packed"].stats()["hamming_storage"] == "packed"
+
+
+def test_packed_store_never_allocates_planes(rng):
+    h = LSHHasher(num_bands=NB, rows_per_band=R, dim=DIM, seed=5)
+    ts = TorchStore(hamming_storage="packed", device="cpu", **{**STORE_KW, "initial_capacity": 128})
+    X = rng.standard_normal((400, DIM)).astype(np.float32)
+    words = h.hash_batch_words_host(X)
+    ts.add_signature_batch(np.arange(100), words[:100])
+    ts.query_hamming(words[:3], 4)  # query
+    ts.add_signature_batch(np.arange(100, 400), words[100:])  # append + growth
+    ts.add_signature_batch(np.arange(10), words[200:210])  # overwrite
+    ts.snapshot_query_fn(4, mode="hamming")(words[:3])
+    ts.remove_indices([5])
+    ts.compact()
+    ts.query_hamming(words[:3], 4)
+    assert ts._planes is None and ts._capacity == 1024
+    assert ts.stats()["hamming_plane_bytes"] == 0
+
+
+def test_invalid_hamming_storage_raises():
+    with pytest.raises(ValueError, match="hamming_storage"):
+        TorchStore(hamming_storage="sparse", device="cpu", **STORE_KW)
+    with pytest.raises(ValueError, match="hamming_storage"):
+        TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4,
+                   hamming_storage="bits", device="cpu")
+
+
+@pytest.mark.parametrize("engine,storage", [
+    ("collision", "packed"),  # with enable_hamming=True
+    ("auto", "packed"),       # explicit "packed" survives the engine override
+    ("hamming", None),        # None means planes
+])
+def test_lshrs_query_hamming_matches_reference(engine, storage, rng):
+    kw = dict(dim=24, num_perm=64, num_bands=8, rows_per_band=8, hash_mode="host",
+              seed=11, chunk_size=128, initial_capacity=128, engine=engine,
+              enable_hamming=True, hamming_storage=storage)
+    jl, tl = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
+    X = rng.standard_normal((600, 24)).astype(np.float32)
+    jl.index(list(range(600)), X)
+    tl.index(list(range(600)), X)
+    Q = X[:20] + 0.3 * rng.standard_normal((20, 24)).astype(np.float32)
+    for i in (0, 3, 11):
+        assert tl.query_hamming(Q[i], top_k=6) == jl.query_hamming(Q[i], top_k=6)
+    assert tl.query_hamming_batch(Q, top_k=5) == jl.query_hamming_batch(Q, top_k=5)
+    assert tl.query_hamming_batch(X[:8], top_k=1) == [[(i, 1.0)] for i in range(8)]
+    jl.query_hamming_batch(X[:8], top_k=1)
+    ts, js = tl.stats(), jl.stats()
+    assert ts["index"]["hamming_storage"] == js["index"]["hamming_storage"]
+    assert ts["index"]["hamming_storage"] == (storage or "planes")
+    assert ts["ranking"] == js["ranking"]
+    assert ts["counters"] == js["counters"]
+    with pytest.raises(ValueError, match="top_k"):
+        tl.query_hamming_batch(Q, top_k=0)
+
+
+def test_query_hamming_needs_hamming_enabled(rng):
+    tl = TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4,
+                    engine="collision", device="cpu")
+    x = rng.standard_normal((2, 8)).astype(np.float32)
+    tl.index([0, 1], x)
+    with pytest.raises(RuntimeError, match="enable_hamming"):
+        tl.query_hamming(x[0])
+
+
+def test_cpu_wrapper_takes_the_plain_version(rng, monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU call must not build or launch a kernel")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    sig_rows, ids, qwords = _case(rng, 16, 16, 9)
+    tie = tscan.global_tie_core(torch.from_numpy(ids))
+    args = (_t(np.ascontiguousarray(sig_rows.T)), tie, _t(qwords))
+    kw = dict(num_perm=256, group=64, scale=gm.key_scale(C))
+    before = gm.hamming_packed_group_max_keys.launches
+    got = gm.hamming_packed_group_max_keys(*args, **kw)
+    assert torch.equal(got, gm.hamming_packed_group_max_keys_ref(*args, **kw))
+    assert gm.hamming_packed_group_max_keys.launches == before
+
+
+def test_packed_wrapper_rejects_other_devices_and_bad_inputs():
+    sig = torch.zeros((4, 256), dtype=torch.int32)
+    tie = torch.zeros((256,), dtype=torch.int32)
+    qw = torch.zeros((3, 4), dtype=torch.int32)
+    kw = dict(num_perm=64, group=64, scale=256)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gm.hamming_packed_group_max_keys(sig.to("meta"), tie.to("meta"), qw.to("meta"), **kw)
+    with pytest.raises(TypeError):
+        gm.hamming_packed_group_max_keys(sig.float(), tie, qw, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        gm.hamming_packed_group_max_keys(sig, tie, qw[:, :3], **kw)
+    with pytest.raises(ValueError, match="group"):
+        gm.hamming_packed_group_max_keys(sig, tie, qw, **{**kw, "group": 48})
+    with pytest.raises(ValueError, match="int32"):
+        gm.hamming_packed_group_max_keys(sig, tie, qw, **{**kw, "scale": 1 << 25})
+
+
+def test_packed_store_past_the_int32_key_ceiling_raises(monkeypatch):
+    """Past (P + 2) * S >= 2**31 (more than 2**22 slots at 256 bits) both
+    storages raise; the chunked fallback is not ported."""
+    import lshrs_tpu_torch.storage.device as device_mod
+
+    ts = TorchStore(hamming_storage="packed", device="cpu", **STORE_KW)
+    ts.add_signature_batch([1, 2], np.zeros((2, NB), np.uint32))
+    monkeypatch.setattr(device_mod, "supports_hamming_grouped", lambda *a: False)
+    with pytest.raises(NotImplementedError, match="int64 keys"):
+        ts.query_hamming(np.zeros((1, NB), np.uint32), 3)
+    assert not tham.supports_hamming_grouped(256, 1 << 23)
+    assert tham.supports_hamming_grouped(256, 1 << 22)
