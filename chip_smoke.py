@@ -11,8 +11,9 @@ then runs these phases and prints JSON lines as it goes:
 1. the card (nvidia-smi name and power limit) and the kernel build time;
 2. each kernel (B1, B2, B3) against its plain PyTorch version on the card,
    bit-exact (``torch.equal``; tolerance 0: every output is an integer
-   key), at the main path's shapes, ragged query counts, dead slots and
-   every template instantiation;
+   key), at the main path's shapes (B1 also at the gather rerank's
+   C=2**20, Q=256), ragged query counts, dead slots and every template
+   instantiation;
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -33,10 +34,27 @@ then runs these phases and prints JSON lines as it goes:
    by kernel, device-busy share), and the 100k build rate;
 7. the lifecycle at 100k: ``save_to_disk`` then
    ``load_from_disk(device="cuda")`` returns the same ids, and
-   ``delete`` then ``compact`` keeps self-match of the survivors at 1.0.
+   ``delete`` then ``compact`` keeps self-match of the survivors at 1.0;
+8. top-p cosine rerank (``store_vectors=True``). At 100k with a float32
+   payload (``rerank_engine="auto"`` resolves to the full engine):
+   self-match through ``serving_fn(mode="topp")`` (top-1 is the vector,
+   its cosine within 1e-5 of 1), 256 queries against the store carried to
+   the CPU (ids equal but for swaps of neighbours whose cosines differ by
+   < 1e-5, cosines within 1e-5, candidate counts equal),
+   ``get_above_p_batch`` equal to serving, ``get_above_p`` /
+   ``query(top_k=None)`` one query at a time, and serving QPS of the full
+   and the gather engine in turns. At 2**20 clustered vectors
+   (the 1M slice's data) with an int8 payload: the full and the gather
+   engine (kernel B1) on 1,024 queries — gather equal to full on every
+   query it proves exact, both equal to the store carried to the CPU on
+   256 of them (as at 100k), recall@10 of each against exact float32
+   cosine at least 0.70 — then serving QPS of each engine at Q=1024 and 8192 in turns and a
+   profile of one 8192-query batch each; last, at 100k, delete 1,000 ids
+   and compact (no deleted id comes back) and save / load with the
+   payload (the same top-p ids).
 
-Every launch counter is reset just before each path of phases 3-5 and 7
-and read just after it; each path must launch its kernel. Then it prints
+Every launch counter is reset just before each path of phases 3-5, 7 and
+8 and read just after it; each path must launch its kernel. Then it prints
 the nvidia-smi line, one JSON line with the kernels, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
@@ -65,6 +83,12 @@ INGEST_BATCH = 1 << 16
 QPS_BATCH_100K = 16384
 QPS_BATCH_1M = 8192
 CARRY_QUERIES = 256
+TOPP_BATCH_100K = 1024
+TOPP_QUERIES = 1024
+TOPP_QPS_BATCHES_1M = (1024, 8192)
+# recall@10 of top-p against exact float32 cosine on the 1M clustered data
+# with an int8 payload: measured 0.7459 for both engines on an H100 (seed 0).
+RECALL_FLOOR_1M = 0.70
 DEVICE = "cuda"
 # The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
 KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
@@ -172,6 +196,8 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, 131072, 1024, 2),
         (16, 1, 131072, 1000, 1),  # ragged Q: not a multiple of 128
         (4, 3, 16384, 200, 1),     # generic (non-register) instantiation
+        (16, 1, N_1M, 256, 1),     # the gather rerank's slice at 1M slots
+        (16, 1, N_1M, 200, 1),     # ragged
     ]
     for nb, w, c, q, probes in b1_cases:
         sig_t, tie, qw = b1_inputs(rng, bw=nb * w, c=c, q=q, probes=probes, dev=dev)
@@ -186,7 +212,13 @@ def phase_kernels(rng, dev) -> dict:
              probes=probes, equal=ok, max_abs_err=diff)
         if not ok:
             raise AssertionError(f"B1 kernel != plain at {(nb, w, c, q, probes)}")
-        if (nb, w, q, probes) == (16, 1, 1024, 1):
+        if (nb, w, c, q, probes) == (16, 1, N_1M, 256, 1):
+            timed["group_max_keys@gather_1m"] = (
+                lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
+                lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
+                dict(C=c, Q=q, bands=nb, probes=probes),
+            )
+        if (nb, w, c, q, probes) == (16, 1, 131072, 1024, 1):
             timed["group_max_keys"] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
@@ -261,6 +293,8 @@ def carry_to_cpu(store):
         initial_capacity=store._capacity, chunk_size=store.chunk,
         group_size=store.group, dedupe=store.dedupe,
         enable_hamming=store.enable_hamming, hamming_storage=store.hamming_storage,
+        store_vectors=store.store_vectors, payload_dtype=store.payload_dtype,
+        rerank_engine=store.rerank_engine, rerank_candidates=store.rerank_candidates,
         device="cpu",
     )
     cpu.load_state_arrays(store.state_arrays())
@@ -374,19 +408,32 @@ def phase_100k(seed: int) -> dict:
             "build_vectors_per_s": N_100K / build_s, "build_s": build_s}
 
 
+def clustered_1m(seed: int):
+    """The 1M slice's data: 2**20 vectors around 4096 gaussian centres
+    (0.35 noise; a Gaussian mixture, as the reference's 1M bench row),
+    drawn on the host in index batches. Returns ``(rng, centers,
+    batches)``; the same seed gives the same vectors."""
+    rng = np.random.default_rng(seed + 1)
+    centers = rng.standard_normal((4096, DIM), dtype=np.float32)
+
+    def batches():
+        for off in range(0, N_1M, INGEST_BATCH):
+            xb = centers[rng.integers(0, 4096, INGEST_BATCH)]
+            xb += 0.35 * rng.standard_normal((INGEST_BATCH, DIM), dtype=np.float32)
+            yield off, xb
+
+    return rng, centers, batches()
+
+
 def phase_1m(seed: int) -> dict:
     from lshrs_tpu_torch import LSHRS
     from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys
 
-    rng = np.random.default_rng(seed + 1)
+    rng, _, batches = clustered_1m(seed)
     lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
                 device=DEVICE)
-    # Clustered data (a Gaussian mixture, as the reference's 1M bench row).
-    centers = rng.standard_normal((4096, DIM), dtype=np.float32)
     keep = None
-    for off in range(0, N_1M, INGEST_BATCH):
-        xb = centers[rng.integers(0, 4096, INGEST_BATCH)]
-        xb += 0.35 * rng.standard_normal((INGEST_BATCH, DIM), dtype=np.float32)
+    for off, xb in batches:
         if keep is None:
             keep = xb[:QPS_BATCH_1M].copy()
         lsh.index(np.arange(off, off + INGEST_BATCH), xb)
@@ -576,6 +623,224 @@ def phase_lifecycle(s100: dict, seed: int) -> None:
     assert stats["alive"] == survivors.size and sm == 1.0 and leaked == 0
 
 
+def compare_rankings(got, want, *, depth: int = TOP_K, tie: float = 1e-5) -> dict:
+    """Two ``(ids, cosines, n)`` top-p results of the same queries: ``n``
+    equal, and over each row's first ``min(n, depth)`` entries the ids
+    equal except where the two cosines at a position differ by < ``tie``
+    (a swap of near-tied neighbours); returns the counts and the largest
+    cosine difference."""
+    g_ids, g_sims, g_n = (np.asarray(x) for x in got)
+    w_ids, w_sims, w_n = (np.asarray(x) for x in want)
+    equal = swapped = bad = 0
+    max_err = 0.0
+    for r in range(len(w_n)):
+        k = min(int(w_n[r]), depth)
+        diff = np.abs(g_sims[r, :k].astype(np.float64) - w_sims[r, :k])
+        max_err = max(max_err, float(diff.max(initial=0.0)))
+        same = g_ids[r, :k] == w_ids[r, :k]
+        if g_n[r] != w_n[r] or not (same | (diff < tie)).all():
+            bad += 1
+        elif same.all():
+            equal += 1
+        else:
+            swapped += 1
+    return {"rows_equal": equal, "rows_near_tie_swaps": swapped, "rows_bad": bad,
+            "max_abs_cos_err": max_err}
+
+
+def topp_self_match(serve, X, batch: int) -> tuple[float, float]:
+    """Share of stored rows whose top-1 is themselves, and the worst
+    |cosine - 1| of those top-1s."""
+    hits, worst = 0, 0.0
+    for i in range(0, len(X), batch):
+        ids, sims, _ = serve(X[i : i + batch])
+        hits += int((ids[:, 0] == np.arange(i, i + len(ids))).sum())
+        worst = max(worst, float(np.abs(sims[:, 0].astype(np.float64) - 1.0).max()))
+    return hits / len(X), worst
+
+
+def phase_topp_100k(s100: dict, seed: int) -> dict:
+    """Top-p at 100k, float32 payload: auto resolves to the full engine."""
+    from lshrs_tpu_torch import LSHRS
+
+    X = s100["X"]
+    rng = np.random.default_rng(seed + 5)
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                store_vectors=True, payload_dtype="float32", device=DEVICE)
+    for i in range(0, N_100K, INGEST_BATCH):
+        lsh.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+    store = lsh._storage
+    engine = store.stats()["rerank_engine"]
+    serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)
+    sm, worst = topp_self_match(serve, X, TOPP_BATCH_100K)
+    emit("topp_100k_self_match", engine=engine, payload=store.stats()["payload_bytes"],
+         self_match=sm, max_abs_cos_minus_1=worst)
+    assert engine == "full", engine
+    assert sm == 1.0 and worst < 1e-5, (sm, worst)
+
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    got = serve(qx)
+    qwords = lsh._hasher.hash_batch_words(qx)
+    cpu = carry_to_cpu(store)
+    want = cpu.query_topp_batch(qwords.cpu(), qx, TOP_K)
+    agree = compare_rankings(got, want)
+    emit("topp_100k_card_vs_cpu", queries=CARRY_QUERIES, **agree)
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    del cpu
+
+    def as_arrays(rows, n):
+        ids = np.full((len(rows), TOP_K), -1, np.int32)
+        sims = np.zeros((len(rows), TOP_K), np.float32)
+        for r, row in enumerate(rows):
+            ids[r, : len(row[:TOP_K])] = [i for i, _ in row[:TOP_K]]
+            sims[r, : len(row[:TOP_K])] = [c for _, c in row[:TOP_K]]
+        return ids, sims, np.asarray(n)
+
+    # The batch entry point runs the same device rerank as serving.
+    batch = as_arrays(lsh.get_above_p_batch(qx, p=1.0, top_k=TOP_K), got[2])
+    agree = compare_rankings(batch, got, tie=0.0)
+    emit("topp_100k_batch_vs_serving", queries=CARRY_QUERIES, **agree)
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-6, agree
+
+    # One query at a time: get_above_p (device rerank of a single query)
+    # and candidate enumeration (top_k=None: the nnz probe, then kernel B1).
+    n_enum = [len(lsh.query(x, top_k=None)) for x in qx[:16]]
+    single = as_arrays([lsh.get_above_p(x, p=1.0) for x in qx[:16]], n_enum)
+    agree = compare_rankings(single, [x[:16] for x in got])
+    emit("topp_100k_single_and_enumeration", queries=16, **agree)
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    queries = [rng.standard_normal((TOPP_BATCH_100K, DIM), dtype=np.float32) for _ in range(8)]
+    return {"lsh": lsh, "serve": serve, "queries": queries, "X": X}
+
+
+def phase_topp_1m(seed: int) -> dict:
+    """Top-p at 2**20 clustered vectors, int8 payload: the full and the
+    gather engine in turn; gather == full on every exact query, recall@10
+    of each against exact float32 cosine."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    rng, centers, batches = clustered_1m(seed)
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                store_vectors=True, payload_dtype="int8", device=DEVICE)
+    exact_x = torch.empty((N_1M, DIM), dtype=torch.float32, device=DEVICE)
+    for off, xb in batches:
+        lsh.index(np.arange(off, off + INGEST_BATCH), xb)
+        exact_x[off : off + INGEST_BATCH] = torch.from_numpy(xb).to(DEVICE)
+    store = lsh._storage
+    qx = centers[rng.integers(0, 4096, TOPP_QUERIES)]
+    qx += 0.35 * rng.standard_normal((TOPP_QUERIES, DIM), dtype=np.float32)
+
+    # Exact float32 cosine top-10 over the 2**20 vectors (TF32 is off).
+    xn = exact_x / torch.linalg.vector_norm(exact_x, dim=1, keepdim=True)
+    qt = torch.from_numpy(qx).to(DEVICE)
+    qn = qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)
+    best = torch.full((TOPP_QUERIES, TOP_K), -2.0, device=DEVICE)
+    best_ids = torch.zeros((TOPP_QUERIES, TOP_K), dtype=torch.int64, device=DEVICE)
+    for s in range(0, N_1M, 1 << 18):
+        v, i = torch.topk(qn @ xn[s : s + (1 << 18)].T, TOP_K, dim=1)
+        v, j = torch.topk(torch.cat([best, v], 1), TOP_K, dim=1)
+        best_ids = torch.cat([best_ids, i + s], 1).gather(1, j)
+        best = v
+    truth = best_ids.cpu().numpy()
+    del exact_x, xn
+
+    # Each engine pinned through the store's batch entry point.
+    qw = lsh._hasher.hash_batch_words(qx)
+    mc = store.rerank_candidates
+    out, result, b1 = {}, {}, {}
+    truncations = store.stats()["rerank_truncations"]
+    for eng in ("full", "gather"):
+        before = group_max_keys.launches
+        out[eng] = store.query_topp_batch(qw, qx, TOP_K, engine=eng)
+        b1[eng] = group_max_keys.launches - before
+    truncations = store.stats()["rerank_truncations"] - truncations
+    full, gather = out["full"], out["gather"]
+    # A query the gather engine could not cover has n >= max_candidates,
+    # so n < max_candidates proves its ranking exact.
+    exact = gather[2] < mc
+    agree = compare_rankings([x[exact] for x in gather], [x[exact] for x in full], tie=1e-6)
+    for eng, res in (("full", full), ("gather", gather)):
+        hits = [len(set(res[0][r][res[0][r] >= 0]) & set(truth[r])) for r in range(TOPP_QUERIES)]
+        result[eng] = {"recall_at_10": float(np.mean(hits)) / TOP_K,
+                       "mean_candidates": float(res[2].mean())}
+
+    # The card against the same store carried to the CPU (full engine,
+    # plain torch) on the first CARRY_QUERIES queries.
+    t0 = time.perf_counter()
+    cpu = carry_to_cpu(store)
+    want = cpu.query_topp_batch(qw[:CARRY_QUERIES].cpu(), qx[:CARRY_QUERIES], TOP_K,
+                                engine="full")
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    sub = exact[:CARRY_QUERIES]
+    vs_cpu = {"full": compare_rankings([x[:CARRY_QUERIES] for x in full], want),
+              "gather_on_exact": compare_rankings([x[:CARRY_QUERIES][sub] for x in gather],
+                                                  [x[sub] for x in want])}
+
+    # The user's entry point on the gather engine: the same ids, through B1.
+    store.rerank_engine = "gather"
+    before = group_max_keys.launches
+    served = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES)(qx)
+    b1["serving_gather"] = group_max_keys.launches - before
+    served_equal = bool(np.array_equal(served[0], gather[0])
+                        and np.array_equal(served[2], gather[2]))
+    emit("topp_1m_int8", queries=TOPP_QUERIES, payload_bytes=store.stats()["payload_bytes"],
+         gather_exact=int(exact.sum()), gather_truncations=truncations,
+         gather_vs_full_on_exact=agree, card_vs_cpu=vs_cpu, cpu_queries=CARRY_QUERIES,
+         cpu_seconds=cpu_s, serving_equals_gather=served_equal, b1_launches=b1, **result)
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    for name, a in vs_cpu.items():
+        assert a["rows_bad"] == 0 and a["max_abs_cos_err"] < 1e-5, (name, a)
+    assert exact.sum() > 0 and truncations <= int((~exact).sum()) and served_equal
+    assert b1["full"] == 0 and b1["gather"] > 0 and b1["serving_gather"] > 0, b1
+    assert all(RECALL_FLOOR_1M <= r["recall_at_10"] <= 1.0 for r in result.values()), result
+    queries = {q: [centers[rng.integers(0, 4096, q)]
+                   + 0.35 * rng.standard_normal((q, DIM), dtype=np.float32) for _ in range(2)]
+               for q in TOPP_QPS_BATCHES_1M}
+    return {"lsh": lsh, "queries": queries, "recall": result}
+
+
+def phase_topp_lifecycle(t100: dict, seed: int) -> None:
+    """Delete 1,000 ids and compact, then save and load with the payload:
+    no deleted id comes back from top-p, and the loaded index returns the
+    same top-p ids."""
+    from lshrs_tpu_torch import LSHRS
+
+    lsh, X = t100["lsh"], t100["X"]
+    rng = np.random.default_rng(seed + 6)
+    deleted = rng.choice(N_100K, 1000, replace=False)
+    lsh.delete(deleted.tolist())
+    reclaimed = lsh.compact()
+    serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)
+    qx = X[deleted]  # the deleted vectors themselves, and noisy neighbours
+    qx = np.concatenate([qx, qx + 0.1 * rng.standard_normal(qx.shape, dtype=np.float32)])
+    leaked = 0
+    for i in range(0, len(qx), TOPP_BATCH_100K):
+        leaked += int(np.isin(serve(qx[i : i + TOPP_BATCH_100K])[0], deleted).sum())
+    enumerated = sum(int(np.isin(lsh.query(x, top_k=None), deleted).sum()) for x in qx[:16])
+    stats = lsh.stats()["index"]
+    emit("topp_delete_compact_100k", deleted=int(deleted.size), reclaimed=reclaimed,
+         tombstones=stats["tombstones"], alive=stats["alive"], queries=len(qx),
+         deleted_ids_returned=leaked, deleted_ids_enumerated=enumerated)
+    assert reclaimed == deleted.size and stats["tombstones"] == 0
+    assert leaked == 0 and enumerated == 0
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_topp_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        lsh.save_to_disk(ckpt)
+        back = LSHRS.load_from_disk(ckpt, device=DEVICE)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    want = serve(qx)
+    got = back.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)(qx)
+    equal = bool(np.array_equal(got[0], want[0]) and np.array_equal(got[2], want[2]))
+    emit("topp_save_load_100k", queries=CARRY_QUERIES, equal=equal,
+         payload_bytes=back.stats()["index"]["payload_bytes"], device=back.stats()["device"])
+    assert equal, "100k: the loaded index returns other top-p ids"
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -654,6 +919,35 @@ def main() -> int:
     del s4m, s1m
 
     drive("lifecycle_100k", "group_max_keys", lambda: phase_lifecycle(s100, args.seed))
+
+    # Phase 8: top-p rerank.
+    t100 = drive("topp_100k", "group_max_keys", lambda: phase_topp_100k(s100, args.seed))
+    del s100
+    t1m = drive("topp_1m", "group_max_keys", lambda: phase_topp_1m(args.seed))
+    # Both engines at 100k too (auto takes full there): with the 1M pair
+    # they bracket the full-vs-gather crossover on this card.
+    store100 = t100["lsh"]._storage
+    for eng in ("full", "gather", "gather", "full"):
+        store100.rerank_engine = eng
+        serve = t100["lsh"].serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)
+        emit("serving", card=label, rows=N_100K, batch=TOPP_BATCH_100K, mode="topp",
+             engine=eng, payload_dtype="float32", qps=serving_qps(serve, t100["queries"]))
+    store100.rerank_engine = "auto"
+    lsh1m, store1m = t1m["lsh"], t1m["lsh"]._storage
+    serves = {}
+    for q in TOPP_QPS_BATCHES_1M:
+        for eng in ("full", "gather", "gather", "full"):  # in turns
+            store1m.rerank_engine = eng
+            serves[eng, q] = lsh1m.serving_fn(top_k=TOP_K, mode="topp", batch_hint=q)
+            emit("serving", card=label, rows=N_1M, batch=q, mode="topp", engine=eng,
+                 payload_dtype="int8", qps=serving_qps(serves[eng, q], t1m["queries"][q], trials=2))
+    for eng in ("full", "gather"):
+        emit("profile", card=label, rows=N_1M, batch=TOPP_QPS_BATCHES_1M[-1], mode="topp",
+             engine=eng, payload_dtype="int8",
+             **serving_profile(serves[eng, TOPP_QPS_BATCHES_1M[-1]],
+                               t1m["queries"][TOPP_QPS_BATCHES_1M[-1]][:1]))
+    del t1m, lsh1m, store1m, serves
+    drive("topp_lifecycle_100k", "group_max_keys", lambda: phase_topp_lifecycle(t100, args.seed))
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",

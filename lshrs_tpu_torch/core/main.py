@@ -1,28 +1,35 @@
 """LSHRS orchestrator: hashing + device store + buffered ingestion + top-k.
 
 The PyTorch port of `lshrs_tpu.core.main.LSHRS` for the device backend:
-build, exact top-k serving, delete and compact, and persistence.
+build, exact top-k serving, top-p cosine rerank, delete and compact, and
+persistence.
 
     ingest/index -> batch hash (one matmul + bitpack; or host sgemm +
                     dense wire with hash_mode="host")
-                 -> store append (device tensors, in place)
+                 -> store append (device tensors, in place; with
+                    store_vectors the payload rows too)
     query        -> hash -> kernel B1 (collision), B2 (Hamming on
                     bitplanes) or B3 (Hamming on packed words) group max
                  -> exact top-k groups -> refine -> ids
+    top-p        -> hash -> collision counts (full engine) or kernel B1's
+                    candidate gather -> cosine rerank over the resident
+                    payload -> (id, cosine); or, without a payload, the
+                    enumerated candidates through vector_fetch_fn and a
+                    host rerank
     delete       -> tombstones (id -1); compact rebuilds the dense prefix
     save/load    -> metadata.json + projections.npz + index.npz, the
                     reference package's format (checkpoints load across
                     the two packages)
 
 Same public contract as the reference for these paths: validation
-messages, ``(-collision_count, id)`` ordering, the ``engine="auto"``
-switch to Hamming ranking at ``_AUTO_HAMMING_CAPACITY`` slots (pinned and
-persisted), and buffer-restore-on-failed-flush semantics.
+messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
+rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
+``_AUTO_HAMMING_CAPACITY`` slots (pinned and persisted), and
+buffer-restore-on-failed-flush semantics.
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP Queue A):
-top-p rerank and the resident payload, candidate enumeration
-(``top_k=None``), id filters, multi-probe, MIPS, the non-gaussian hash
-families, bucket backends, sharding, the cascade and retuning.
+id filters, multi-probe, MIPS, the non-gaussian hash families, the
+asymmetric and cascade modes, bucket backends, sharding and retuning.
 """
 
 from __future__ import annotations
@@ -38,10 +45,11 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from lshrs_tpu_torch.hash.hasher import LSHHasher
+from lshrs_tpu_torch.hash.hasher import LSHHasher, hash_words
 from lshrs_tpu_torch.storage.device import DeviceStore
 from lshrs_tpu_torch.storage.filter import as_filter
 from lshrs_tpu_torch.utils.br import get_optimal_config
+from lshrs_tpu_torch.utils.similarity import top_k_cosine
 
 logger = logging.getLogger(__name__)
 
@@ -87,7 +95,15 @@ class LSHRS:
         buffer_size: buffered operations (vector count x bands) that
             trigger an automatic flush.
         vector_fetch_fn: callable returning ``(n, dim)`` vectors for ids,
-            used by ``index(ids)`` without vectors.
+            used by ``index(ids)`` without vectors, and by top-p rerank
+            unless ``store_vectors=True``.
+        store_vectors: keep the vectors resident on the device (the
+            payload), so top-p reranks there without a fetch round trip.
+        payload_dtype / rerank_engine / rerank_candidates: the payload's
+            precision (``"float32"``, ``"bfloat16"`` or ``"int8"``), the
+            top-p formulation (``"full"``, ``"gather"`` or ``"auto"``) and
+            the gather engine's per-query candidate budget; see
+            `DeviceStore`.
         seed: projection seed (the reference package's seeded draw).
         initial_capacity / chunk_size / group_size / dedupe: device store
             sizing and engine knobs, see `DeviceStore`.
@@ -108,8 +124,8 @@ class LSHRS:
         device: where the store and the device hash live (``"cuda"`` by
             default; ``"cpu"`` runs the kernels' plain PyTorch versions).
 
-    ``backend``, ``store_vectors``, ``shards``, ``hash_family``,
-    ``multiprobe`` and ``similarity`` are accepted only at their defaults.
+    ``backend``, ``shards``, ``hash_family``, ``multiprobe`` and
+    ``similarity`` are accepted only at their defaults.
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -139,6 +155,9 @@ class LSHRS:
         hamming_storage: Optional[str] = None,
         hash_mode: str = "device",
         hash_family: str = "gaussian",
+        payload_dtype: str = "float32",
+        rerank_engine: str = "auto",
+        rerank_candidates: int = 1024,
         engine: str = "auto",
         multiprobe: int = 1,
         similarity: str = "cosine",
@@ -156,8 +175,6 @@ class LSHRS:
             raise ValueError("engine must be 'auto', 'collision' or 'hamming'")
         if backend != "device":
             raise _not_ported(f"backend={backend!r} (bucket backends: I/O and Redis)")
-        if store_vectors:
-            raise _not_ported("store_vectors (top-p rerank)")
         if shards is not None and shards > 1:
             raise _not_ported("shards (sharding)")
         if multiprobe != 1:
@@ -185,6 +202,7 @@ class LSHRS:
         self._dim = dim
         self._buffer_size = buffer_size
         self._vector_fetch_fn = vector_fetch_fn
+        self._store_vectors = store_vectors
         self._hash_on_device = hash_mode == "device"
         self._hasher = LSHHasher(
             num_bands=num_bands,
@@ -204,10 +222,14 @@ class LSHRS:
             hamming_storage=hamming_storage,
             group_size=group_size,
             dedupe=dedupe,
+            store_vectors=store_vectors,
+            payload_dtype=payload_dtype,
+            rerank_engine=rerank_engine,
+            rerank_candidates=rerank_candidates,
             device=device,
         )
 
-        # Write buffer of (ids, words) batch records.
+        # Write buffer of (ids, words, vectors or None) batch records.
         self._buffer: list = []
         self._buffer_lock = Lock()
         self._counters = {
@@ -246,9 +268,9 @@ class LSHRS:
             "hamming_storage": hamming_storage,
             "hamming_cascade": 0,
             "hamming_cascade_refine": 2048,
-            "payload_dtype": "float32",
-            "rerank_engine": "auto",
-            "rerank_candidates": 1024,
+            "payload_dtype": payload_dtype,
+            "rerank_engine": rerank_engine,
+            "rerank_candidates": rerank_candidates,
             "engine": engine,
             "multiprobe": multiprobe,
         }
@@ -262,8 +284,12 @@ class LSHRS:
         (explicit, at buffer capacity, or via ``index()``)."""
         if index < 0:
             raise ValueError("index must be non-negative")
-        vec = self._prepare_vector(vector)
-        record = (np.asarray([index], dtype=np.int64), self._hash_for_ingest(vec[None, :]))
+        vec = self._prepare_vector(vector)[None, :]
+        record = (
+            np.asarray([index], dtype=np.int64),
+            self._hash_for_ingest(vec),
+            vec if self._store_vectors else None,
+        )
         with self._buffer_lock:
             self._buffer.append(record)
         self._count("vectors_ingested")
@@ -281,11 +307,7 @@ class LSHRS:
     def _validate_index_batch(self, indices, vectors):
         """Shared `index()` validation -> ``(idx_arr, float32 arr)``."""
         if vectors is None:
-            if self._vector_fetch_fn is None:
-                raise RuntimeError(
-                    "vector_fetch_fn must be supplied for operations requiring reranking"
-                )
-            vectors = self._vector_fetch_fn(indices)
+            vectors = self._require_vector_fetch_fn()(indices)
         arr = np.asarray(vectors, dtype=np.float32)
         if arr.ndim != 2 or arr.shape[1] != self._dim:
             raise ValueError(
@@ -314,7 +336,11 @@ class LSHRS:
         idx_arr, arr = self._validate_index_batch(indices, vectors)
         if self._hash_on_device:
             return (idx_arr, None, arr)
-        return (idx_arr, self._hasher.hash_batch_dense_host(arr), None)
+        return (
+            idx_arr,
+            self._hasher.hash_batch_dense_host(arr),
+            arr if self._store_vectors else None,
+        )
 
     def _commit_index_batch(self, record) -> None:
         """`index()` stage 2: store the batch (flushing buffered singles
@@ -327,7 +353,7 @@ class LSHRS:
             self._count("flushes")
             return
         with self._buffer_lock:
-            self._buffer.append((idx_arr, words))
+            self._buffer.append(record)
         self._count("vectors_ingested", idx_arr.size)
         self.flush()
 
@@ -345,14 +371,17 @@ class LSHRS:
             self._buffer.clear()
         try:
             if len(pending) == 1:
-                ids, words = pending[0]
+                ids, words, vecs = pending[0]
             else:
                 ids = np.concatenate([rec[0] for rec in pending])
                 if isinstance(pending[0][1], torch.Tensor):
                     words = torch.cat([rec[1] for rec in pending])
                 else:
                     words = np.concatenate([rec[1] for rec in pending])
-            self._storage.add_signature_batch(ids, words)
+                vecs = (
+                    np.concatenate([rec[2] for rec in pending]) if self._store_vectors else None
+                )
+            self._storage.add_signature_batch(ids, words, vecs)
             self._count("flushes")
         except Exception as e:
             logger.error(f"Failed to flush buffer to storage: {e}")
@@ -414,28 +443,164 @@ class LSHRS:
         top_k: Optional[int] = 10,
         top_p: Optional[float] = None,
         where=None,
-    ) -> list[int]:
-        """Ids of the ``top_k`` best candidates for one query vector.
+    ) -> Union[list[int], CandidateScores]:
+        """Candidates for one query vector.
 
+        Top-k mode (``top_p=None``): ids of the ``top_k`` best candidates.
         Collision ranking orders by ``(-count, id)`` and returns only
         colliding ids; Hamming ranking (``engine="auto"`` past the switch,
-        or ``"hamming"``) orders by ``(hamming, id)``.
+        or ``"hamming"``) orders by ``(hamming, id)``. ``top_k=None``
+        returns every colliding candidate by ``(-count, id)``.
+
+        Top-p mode: the colliding candidates reranked by cosine (resident
+        payload, or ``vector_fetch_fn``), ordered by ``(cosine desc, id
+        asc)``; returns the top ``max(1, ceil(n_candidates * top_p))`` as
+        ``(id, cosine)`` tuples, capped by ``top_k`` when given.
         """
-        if top_p is not None:
-            raise _not_ported("top_p (top-p rerank)")
-        if top_k is None:
-            raise _not_ported("top_k=None (candidate enumeration)")
-        if top_k <= 0:
+        if top_k is not None and top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
+        if top_p is not None and not 0 < top_p <= 1:
+            raise ValueError("top_p must be within the range (0, 1]")
         as_filter(where)
         query_vector = self._prepare_vector(vector)
         self._count("queries_served")
+        if top_p is None and top_k is not None:
+            qwords = self._hash_words(query_vector[None, :])
+            if self._use_hamming_ranking():
+                _, ids = self._storage.query_hamming(qwords, top_k)
+                return [int(i) for i in ids[0] if i >= 0]
+            counts, ids = self._storage.query_topk(qwords, top_k)
+            return [int(i) for i, c in zip(ids[0], counts[0]) if c > 0]
+
+        # Resident payload and no fetch callback: counts, cosines and the
+        # cutoff on the device, only the (id, cosine) prefix reaches the host.
+        if top_p is not None and self._store_vectors and self._vector_fetch_fn is None:
+            return self._query_topp_device(query_vector, top_k, top_p)
+
+        ordered = self._ordered_candidates(query_vector)
+        if not ordered:
+            return []
+        if top_p is None:
+            return [idx for idx, _ in ordered]
+        candidate_indices = [idx for idx, _ in ordered]
+        arr = self._fetch_candidates(candidate_indices)
+        similarities = top_k_cosine(query_vector, arr, k=len(candidate_indices))
+        ordered_scores = [(candidate_indices[pos], score) for pos, score in similarities]
+        limit = max(1, math.ceil(len(ordered_scores) * top_p))
+        if top_k is not None:
+            limit = min(limit, top_k)
+        return ordered_scores[:limit]
+
+    # Prefix the single-query device rerank returns first (the reference's
+    # bound); a top-p cutoff past it is reranked again at its own depth.
+    _MAX_DEVICE_RERANK = 4096
+
+    def _query_topp_device(
+        self, query_vector: np.ndarray, top_k: Optional[int], top_p: float
+    ) -> CandidateScores:
+        """Top-p on the device store. A cutoff past the first prefix is
+        reranked on the device again with the prefix the candidate count
+        asks for: the payload never leaves the device (the reference
+        reranks such cutoffs on the host)."""
         qwords = self._hash_words(query_vector[None, :])
-        if self._use_hamming_ranking():
-            _, ids = self._storage.query_hamming(qwords, top_k)
-            return [int(i) for i in ids[0] if i >= 0]
-        counts, ids = self._storage.query_topk(qwords, top_k)
-        return [int(i) for i, c in zip(ids[0], counts[0]) if c > 0]
+        ids, sims, n = self._storage.query_topp(qwords, query_vector, self._MAX_DEVICE_RERANK)
+        if n == 0:
+            return []
+        limit = max(1, math.ceil(n * top_p))
+        if top_k is not None:
+            limit = min(limit, top_k)
+        if limit > len(ids):
+            ids, sims, _ = self._storage.query_topp(qwords, query_vector, limit)
+        return [(int(i), float(s)) for i, s in zip(ids[:limit], sims[:limit])]
+
+    # First guess of the bounded candidate enumeration; it grows to the
+    # next power of two of the device-counted candidate total.
+    _CANDIDATE_ENUM_START = 4096
+
+    def _ordered_candidates(self, query_vector: np.ndarray) -> list[tuple[int, int]]:
+        """Every colliding candidate as ``(id, count)``, by ``(-count, id)``.
+
+        Bounded: the device counts the query's candidates (``query_nnz``,
+        O(1) readback), then an exact collision top-M with M the next power
+        of two of that count (at least `_CANDIDATE_ENUM_START`) returns
+        them all; the ``(Q, C)`` count matrix never reaches the host.
+        """
+        qwords = self._hash_words(query_vector[None, :])
+        n = int(self._storage.query_nnz(qwords)[0])
+        if n == 0:
+            return []
+        m = max(self._CANDIDATE_ENUM_START, 1 << (n - 1).bit_length())
+        counts, ids = self._storage.query_topk(qwords, m)
+        return [(int(i), int(c)) for i, c in zip(ids[0, :n], counts[0, :n])]
+
+    def _fetch_candidates(self, candidate_indices: list[int]) -> np.ndarray:
+        """Candidate vectors from the user callback (a resident payload is
+        reranked on the device, never fetched)."""
+        arr = np.asarray(self._require_vector_fetch_fn()(candidate_indices), dtype=np.float32)
+        if arr.ndim != 2 or arr.shape[1] != self._dim:
+            raise ValueError(
+                f"Fetched vectors must have shape (n, {self._dim}); received {arr.shape}"
+            )
+        if arr.shape[0] != len(candidate_indices):
+            raise ValueError(
+                "vector_fetch_fn returned mismatched batch size "
+                f"(expected {len(candidate_indices)}, received {arr.shape[0]})"
+            )
+        return arr
+
+    def get_above_p(self, vector: np.ndarray, p: float = 0.95) -> CandidateScores:
+        """Cosine-reranked top ``ceil(p * n_candidates)`` scored results."""
+        return list(self.query(vector, top_k=None, top_p=p))
+
+    def get_above_p_batch(
+        self,
+        vectors: np.ndarray,
+        p: float = 0.95,
+        *,
+        top_k: Optional[int] = None,
+        max_candidates: int = 4096,
+        wire_dtype: str = "float32",
+        where=None,
+    ) -> list[CandidateScores]:
+        """Batched cosine-reranked top-p: one device rerank for the batch
+        against the resident payload (``store_vectors=True``, no
+        ``vector_fetch_fn``); otherwise a :meth:`query` per vector. Each
+        query returns its top ``max(1, ceil(p * n_candidates))`` results,
+        capped by ``top_k`` and ``max_candidates``.
+
+        ``wire_dtype="bfloat16"`` ships the query vectors at half the bytes
+        at ~1e-2 relative cosine error; ``"float32"`` is value-exact.
+        """
+        if not 0 < p <= 1:
+            raise ValueError("top_p must be within the range (0, 1]")
+        if top_k is not None and top_k <= 0:
+            raise ValueError("top_k must be greater than zero when provided")
+        if wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
+        arr = self._validate_batch(vectors)
+        as_filter(where)
+        if not self._store_vectors or self._vector_fetch_fn is not None:
+            return [self.query(v, top_k=top_k, top_p=p) for v in arr]
+        self._count("queries_served", arr.shape[0])
+        # The cutoff is min(ceil(p * n), top_k): top_k bounds the prefix.
+        max_out = min(max_candidates, top_k) if top_k is not None else max_candidates
+        ids, sims, n = self._storage.query_topp_batch(
+            self._hash_words(arr), arr, max_out, wire_dtype=wire_dtype
+        )
+        results: list[CandidateScores] = []
+        for qi in range(arr.shape[0]):
+            n_q = int(n[qi])
+            if n_q == 0:
+                results.append([])
+                continue
+            limit = max(1, math.ceil(n_q * p))
+            if top_k is not None:
+                limit = min(limit, top_k)
+            limit = min(limit, ids.shape[1])
+            results.append(
+                [(int(i), float(s)) for i, s in zip(ids[qi, :limit], sims[qi, :limit]) if i >= 0]
+            )
+        return results
 
     def query_batch(
         self, vectors: np.ndarray, *, top_k: int = 10, where=None
@@ -500,7 +665,15 @@ class LSHRS:
         """Top ``topk`` candidate ids (see :meth:`query`)."""
         return self.query(vector, top_k=topk)
 
-    def serving_fn(self, top_k: int = 10, *, mode: Optional[str] = None, where=None):
+    def serving_fn(
+        self,
+        top_k: int = 10,
+        *,
+        mode: Optional[str] = None,
+        wire_dtype: str = "float32",
+        batch_hint: int = 1024,
+        where=None,
+    ):
         """Serving closure over the *current* index.
 
         Each call hashes its batch through this instance's hash path and
@@ -512,21 +685,36 @@ class LSHRS:
         Args:
             top_k: result depth per query.
             mode: ``"collision"``, ``"hamming"`` (requires Hamming ranking
-                to be available) or ``None`` (default): the instance's
-                resolved ranking engine.
+                to be available), ``"topp"`` (cosine rerank against the
+                resident payload; requires ``store_vectors=True``) or
+                ``None`` (default): the instance's resolved ranking engine.
+            wire_dtype: ``"topp"`` only — ``"bfloat16"`` rounds the query
+                vectors to bf16 for the rerank (half the upload bytes in
+                host hash mode; ~1e-2 relative cosine rounding);
+                ``"float32"`` is value-exact.
+            batch_hint: ``"topp"`` only — the batch size the closure will
+                serve; the auto rerank engine sizes the full engine's
+                ``(Q, capacity)`` temporaries from it.
 
         Returns:
-            callable ``(vectors (Q, dim)) -> (Q, top_k) int32 ndarray`` of
-            ids, -1 padded.
+            ``"collision"`` / ``"hamming"``: callable ``(vectors (Q, dim))
+            -> (Q, top_k) int32 ndarray`` of ids, -1 padded. ``"topp"``:
+            callable returning ``(ids (Q, top_k) int32, cosines (Q, top_k)
+            float32, n_candidates (Q,) int32)`` ndarrays.
         """
-        if mode in ("asymmetric", "topp"):
+        if mode == "asymmetric":
             raise _not_ported(f"mode={mode!r}")
         if mode is None:
             mode = "hamming" if self._use_hamming_ranking() else "collision"
-        if mode not in ("collision", "hamming"):
-            raise ValueError("mode must be 'collision' or 'hamming'")
+        if mode not in ("collision", "hamming", "topp"):
+            raise ValueError("mode must be 'collision', 'hamming', 'asymmetric' or 'topp'")
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
+        if wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
+        if mode == "topp":
+            return self._serving_topp(top_k, wire_dtype=wire_dtype, batch_hint=batch_hint,
+                                      where=where)
         serve = self._storage.snapshot_query_fn(
             top_k,
             wire="words" if self._hash_on_device else "dense",
@@ -543,6 +731,41 @@ class LSHRS:
             return out
 
         return run
+
+    def _serving_topp(self, top_k: int, *, wire_dtype: str, batch_hint: int, where):
+        """``serving_fn(mode="topp")``: one upload of the batch. With the
+        device hash, the float32 vectors go to the device once and both the
+        hash and the rerank read that tensor (a bf16 wire is rounded there,
+        half to even as on the host); with the host hash, the dense wire
+        and the vectors (bf16 when asked: half the bytes) are uploaded."""
+        serve = self._storage.snapshot_topp_fn(
+            top_k,
+            wire="words" if self._hash_on_device else "dense",
+            batch_hint=batch_hint,
+            where=where,
+        )
+        dev = self._storage.device
+
+        def run_topp(vectors):
+            arr = self._validate_batch(vectors)
+            if self._hash_on_device:
+                qv = torch.from_numpy(arr).to(dev)
+                sig = hash_words(
+                    qv, self._hasher.device_projection(),
+                    num_bands=self._hasher.num_bands, rows_per_band=self._hasher.rows_per_band,
+                )
+            else:
+                sig = self._hasher.hash_batch_dense_host(arr)
+                qv = torch.from_numpy(arr)
+            if wire_dtype == "bfloat16":
+                qv = qv.to(torch.bfloat16)
+            ids, sims, n = serve(sig, qv)
+            # Count after the dispatch: stale-snapshot calls raise and must
+            # not inflate queries_served.
+            self._count("queries_served", arr.shape[0])
+            return ids.cpu().numpy(), sims.cpu().numpy(), n.cpu().numpy()
+
+        return run_topp
 
     # ------------------------------------------------------------------
     # maintenance / introspection
@@ -678,6 +901,9 @@ class LSHRS:
             "hash_mode": tpu_config.get("hash_mode", "device"),
             "hash_family": tpu_config.get("hash_family", "gaussian"),
             "hamming_storage": tpu_config.get("hamming_storage", "planes"),
+            "payload_dtype": tpu_config.get("payload_dtype", "float32"),
+            "rerank_engine": tpu_config.get("rerank_engine", "auto"),
+            "rerank_candidates": tpu_config.get("rerank_candidates", 1024),
             # Saved instances predating the engine knob behaved as
             # "collision"; restore them unchanged.
             "engine": tpu_config.get("engine", "collision"),
@@ -732,6 +958,13 @@ class LSHRS:
         if self._hash_on_device:
             return self._hasher.hash_batch_words(arr)
         return self._hasher.hash_batch_dense_host(arr)
+
+    def _require_vector_fetch_fn(self) -> VectorFetchFn:
+        if self._vector_fetch_fn is None:
+            raise RuntimeError(
+                "vector_fetch_fn must be supplied for operations requiring reranking"
+            )
+        return self._vector_fetch_fn
 
     def _validate_batch(self, vectors) -> np.ndarray:
         arr = np.asarray(vectors, dtype=np.float32)

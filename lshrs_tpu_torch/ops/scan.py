@@ -17,8 +17,14 @@ alive keys are globally distinct and plain top-k selection is exact:
    table, a recount of its slots against the query, and an exact top-k
    over the ``k * group`` candidates.
 
+The full-count paths of the top-p slice live here too:
+:func:`collision_counts_core` (every slot's count, for the full rerank
+engine) and :func:`collision_nnz_core` (each query's number of colliding
+candidates, without the ``(Q, C)`` matrix), both plain PyTorch stepped
+over the slot axis.
+
 Not ported yet: the chunked fallback engine for stores whose key does
-not pack into int32, and the full-count paths (ROADMAP Queue A).
+not pack into int32 (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -36,7 +42,10 @@ from lshrs_tpu_torch.ops.group_max import (
 __all__ = [
     "band_counts_t",
     "build_grouped_refine_rows",
+    "collision_counts_core",
+    "collision_nnz_core",
     "collision_topk_grouped_core",
+    "count_step",
     "gather_refine_group_rows",
     "global_tie_core",
     "key_scale",
@@ -46,6 +55,17 @@ __all__ = [
 ]
 
 _INT32_MAX = 2**31 - 1
+
+# (query, slot) pairs per step of the full-count scans: ~1 GB of int32
+# counts per step (one step at Q=256, C=2**20), where the reference's
+# 2,048-slot scan steps would mean 512 launches per call at 1M slots.
+_COUNT_STEP_PAIRS = 1 << 28
+
+
+def count_step(q: int, floor: int) -> int:
+    """Slots per step of :func:`collision_counts_core` /
+    :func:`collision_nnz_core` for a ``q``-query batch (at least ``floor``)."""
+    return max(floor, _COUNT_STEP_PAIRS // max(1, q))
 
 
 def merge_topk_pools(
@@ -221,6 +241,55 @@ def collision_topk_grouped_core(
         sel_counts = torch.nn.functional.pad(sel_counts, (0, k - k_eff))
         sel_ids = torch.nn.functional.pad(sel_ids, (0, k - k_eff), value=-1)
     return sel_counts, sel_ids
+
+
+def collision_counts_core(
+    sig_t: torch.Tensor,
+    ids: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_bands: int,
+    chunk: int,
+    probes: int = 1,
+) -> torch.Tensor:
+    """Full per-slot collision counts, ``(Q, C)`` int32 (0 at dead slots).
+
+    The unbounded-candidate paths (the full rerank engine, ``top_k=None``)
+    need every colliding candidate, as the reference's candidate dict
+    holds them. ``chunk`` slots go through per step (see
+    :func:`count_step`).
+    """
+    c = sig_t.shape[1]
+    out = torch.empty((qwords.shape[0], c), dtype=torch.int32, device=sig_t.device)
+    for s in range(0, c, chunk):
+        e = min(c, s + chunk)
+        counts = band_counts_t(sig_t[:, s:e], qwords, num_bands, probes)
+        out[:, s:e] = torch.where(ids[None, s:e] >= 0, counts, 0)
+    return out
+
+
+def collision_nnz_core(
+    sig_t: torch.Tensor,
+    ids: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_bands: int,
+    chunk: int,
+    probes: int = 1,
+) -> torch.Tensor:
+    """Per-query colliding-candidate count, ``(Q,)`` int32.
+
+    Each step reduces its ``(Q, chunk)`` counts at once, so the ``(Q, C)``
+    matrix never exists: the completeness probe of the bounded candidate
+    enumeration (``top_k=None``) reads back O(Q).
+    """
+    c = sig_t.shape[1]
+    acc = torch.zeros((qwords.shape[0],), dtype=torch.int32, device=sig_t.device)
+    for s in range(0, c, chunk):
+        e = min(c, s + chunk)
+        counts = band_counts_t(sig_t[:, s:e], qwords, num_bands, probes)
+        acc += ((counts > 0) & (ids[None, s:e] >= 0)).sum(dim=1, dtype=torch.int32)
+    return acc
 
 
 def global_tie_core(ids: torch.Tensor) -> torch.Tensor:

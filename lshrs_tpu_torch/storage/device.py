@@ -13,16 +13,21 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         planes   (capacity, num_perm)       int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily)
+        payload  (capacity, dim)   f32/bf16/int8   raw vectors (store_vectors)
+        pnorm    (capacity,)                f32    norms of the stored rows
+        pscale   (capacity,)                f32    int8 per-row scales
 
 Words are int32 bit-views of the uint32 signature words (see
 `lshrs_tpu_torch.ops.bitpack`).
 
 Query engines: grouped collision counting (kernel B1) and grouped
 Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
-themselves (kernel B3), all exact against the reference ordering. Stores
-those engines cannot take — a selection key past int32, more than 64
-bands — raise ``NotImplementedError`` (ROADMAP: the chunked fallback or
-int64 keys).
+themselves (kernel B3), all exact against the reference ordering; and,
+with ``store_vectors``, top-p cosine rerank over the resident payload by
+the full or the gather engine (`lshrs_tpu_torch.ops.rerank`, the gather
+engine on kernel B1). Stores those engines cannot take — a selection key
+past int32, more than 64 bands — raise ``NotImplementedError`` (ROADMAP:
+the chunked fallback or int64 keys).
 
 Mutation model: appends write the tail in place; re-ingesting an id
 overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
@@ -57,9 +62,17 @@ from lshrs_tpu_torch.ops.hamming import (
     supports_hamming_grouped,
     unpack_bitplanes,
 )
+from lshrs_tpu_torch.ops.rerank import (
+    rerank_topp_batch_core,
+    rerank_topp_core,
+    rerank_topp_gather_core,
+)
 from lshrs_tpu_torch.ops.scan import (
     build_grouped_refine_rows,
+    collision_counts_core,
+    collision_nnz_core,
     collision_topk_grouped_core,
+    count_step,
     global_tie_core,
     supports_fast_path,
 )
@@ -69,6 +82,7 @@ from lshrs_tpu_torch.storage.filter import as_filter
 __all__ = ["DeviceStore"]
 
 _MAX_ID = 2**31 - 1
+_PAYLOAD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def _next_pow2(n: int) -> int:
@@ -77,6 +91,30 @@ def _next_pow2(n: int) -> int:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A)")
+
+
+def _cast_payload_rows(
+    x: torch.Tensor, dtype: torch.dtype
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Float32 rows -> ``(rows, pnorm, pscale)`` at the payload dtype.
+
+    ``int8``: symmetric per-row quantization ``rows = round(x / s)`` with
+    ``s = max|x| / 127`` (zero rows get s = 1); ``torch.round`` rounds half
+    to even like ``jnp.round``, so the rows equal the reference's.
+    ``pnorm`` is the norm of the rows as stored (the integer rows for
+    int8, so the scale cancels out of the cosine); ``pscale`` is None for
+    float dtypes. Re-quantizing a dequantized row gives the same int8 row
+    (the reference's argument, `lshrs_tpu/storage/device.py`), so queries
+    survive a checkpoint or a compact unchanged.
+    """
+    scale = None
+    if dtype == torch.int8:
+        scale = x.abs().amax(dim=1) / 127.0
+        scale = torch.where(scale > 0, scale, 1.0)
+        rows = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
+    else:
+        rows = x.to(dtype)
+    return rows, torch.linalg.vector_norm(rows.to(torch.float32), dim=1), scale
 
 
 class DeviceStore(BaseStorage):
@@ -99,12 +137,24 @@ class DeviceStore(BaseStorage):
             lazily on the first Hamming use; ``"packed"`` ranks by XOR +
             popcount over the packed words the store already holds
             (kernel B3), zero extra bytes. Results are identical.
+        store_vectors: keep the raw vectors resident (the payload), so
+            top-p cosine rerank runs on the device; requires ``dim``.
+        payload_dtype: payload precision — ``"float32"`` (value-exact
+            cosines), ``"bfloat16"`` (half the bytes, ~1e-3 relative
+            cosine rounding) or ``"int8"`` (a quarter, per-row-scale
+            quantized, ~4e-3).
+        rerank_engine: top-p formulation — ``"full"`` (one ``(Q, C)``
+            cosine matmul over the store), ``"gather"`` (rerank only the
+            ``rerank_candidates`` most-colliding slots, selected by kernel
+            B1; exact whenever the colliding set fits, flagged per query)
+            or ``"auto"`` (the reference's cost model, see
+            :meth:`_resolve_rerank_engine`).
+        rerank_candidates: per-query candidate budget of the gather engine.
         device: where the store's tensors live (``"cuda"`` by default; the
             CPU runs the kernels' plain PyTorch versions).
 
-    ``store_vectors``, ``query_mode="bucket"`` and ``hamming_cascade`` are
-    accepted only at their defaults: they belong to slices not ported yet
-    (ROADMAP Queue A).
+    ``query_mode="bucket"`` and ``hamming_cascade`` are accepted only at
+    their defaults: they belong to slices not ported yet (ROADMAP Queue A).
     """
 
     supports_signature_batches = True
@@ -124,14 +174,23 @@ class DeviceStore(BaseStorage):
         enable_hamming: bool = False,
         hamming_storage: str = "planes",
         hamming_cascade: int = 0,
+        payload_dtype: str = "float32",
+        rerank_engine: str = "auto",
+        rerank_candidates: int = 1024,
         device: str | torch.device = "cuda",
     ) -> None:
         if chunk_size <= 0 or chunk_size > 1 << 14:
             raise ValueError("chunk_size must be in (0, 16384]")
+        if payload_dtype not in _PAYLOAD_DTYPES:
+            raise ValueError("payload_dtype must be 'float32', 'bfloat16' or 'int8'")
+        if rerank_engine not in ("auto", "full", "gather"):
+            raise ValueError("rerank_engine must be 'auto', 'full' or 'gather'")
+        if rerank_candidates <= 0:
+            raise ValueError("rerank_candidates must be greater than zero")
+        if store_vectors and not dim:
+            raise ValueError("dim is required when store_vectors=True")
         if group_size <= 0 or group_size & (group_size - 1):
             raise ValueError("group_size must be a power of two")
-        if store_vectors:
-            raise _not_ported("store_vectors (the resident payload of the rerank slice)")
         if query_mode != "scan":
             raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)")
         if hamming_storage not in ("planes", "packed"):
@@ -151,6 +210,11 @@ class DeviceStore(BaseStorage):
         self.dedupe = dedupe
         self.enable_hamming = enable_hamming
         self.hamming_storage = hamming_storage
+        self.store_vectors = store_vectors
+        self.payload_dtype = payload_dtype
+        self.rerank_engine = rerank_engine
+        self.rerank_candidates = rerank_candidates
+        self._rerank_truncations = 0
         self.device = torch.device(device)
 
         self._capacity = _next_pow2(max(chunk_size, initial_capacity))
@@ -177,6 +241,17 @@ class DeviceStore(BaseStorage):
         # packed store never builds them.
         self._planes: torch.Tensor | None = None
         self._ranks_dirty = False  # fresh tensors are self-consistent
+        self._payload: torch.Tensor | None = None
+        self._pnorm: torch.Tensor | None = None
+        # Per-row int8 scales: reconstruction only (get_vectors,
+        # checkpoints); the rerank never reads them.
+        self._pscale: torch.Tensor | None = None
+        if self.store_vectors:
+            dtype = _PAYLOAD_DTYPES[self.payload_dtype]
+            self._payload = torch.zeros((cap, self.dim), dtype=dtype, device=dev)
+            self._pnorm = torch.zeros((cap,), dtype=torch.float32, device=dev)
+            if dtype == torch.int8:
+                self._pscale = torch.zeros((cap,), dtype=torch.float32, device=dev)
 
     # -- query path selection ------------------------------------------------
 
@@ -189,6 +264,63 @@ class DeviceStore(BaseStorage):
             and self.num_bands <= 64
             and self._capacity % self.group == 0
         )
+
+    # The reference's auto rerank policy, kept constant for constant so both
+    # packages resolve the same engine. Its cost model was fitted on a TPU
+    # v5e at 768d and 1024-query batches (full ~ 125 ms * C / 1M, gather ~
+    # 0.25 ms * M + 25 ms * C / 1M: a crossover near C ~ 2560 * M), and the
+    # 8 GB budget for the full engine's (Q, C) temporaries is a 16 GB
+    # chip's; their fit on this card is an open question (PERF.md).
+    _GATHER_MIN_CAPACITY = 1 << 18
+    _GATHER_CROSSOVER_SLOTS_PER_CANDIDATE = 2560
+    _FULL_RERANK_TEMP_BUDGET = 8 << 30
+
+    def _gather_usable(self) -> bool:
+        return self.store_vectors and self._use_grouped()
+
+    def _expected_candidates(self) -> float:
+        """Expected colliding candidates per query for random pairs:
+        ``alive * (1 - (1 - 2^-r)^b)``. Near-duplicates exceed it;
+        truncations are counted."""
+        alive = max(0, self._size - self._tombstones)
+        r = min(self.rows_per_band, 40)
+        return alive * (1.0 - (1.0 - 2.0**-r) ** self.num_bands)
+
+    def _resolve_rerank_engine(
+        self, engine: str | None, max_candidates: int | None, q: int = 1024
+    ) -> tuple[str, int]:
+        """``(engine, max_candidates)`` for a ``q``-query rerank: explicit
+        arguments, else the store's; ``"auto"`` takes gather when the full
+        engine's temporaries cannot fit, or past both the capacity floor
+        and the cost crossover while the expected candidate load fits half
+        the budget, and full otherwise."""
+        engine = engine if engine is not None else self.rerank_engine
+        mc = max_candidates if max_candidates is not None else self.rerank_candidates
+        if engine not in ("auto", "full", "gather"):
+            raise ValueError("rerank engine must be 'auto', 'full' or 'gather'")
+        if mc <= 0:
+            raise ValueError("max_candidates must be greater than zero")
+        if engine == "gather" and not self._gather_usable():
+            raise RuntimeError(
+                "rerank_engine='gather' requires store_vectors=True and the "
+                "grouped fast path (capacity within int32 key packing)"
+            )
+        if engine == "auto":
+            rows = self._capacity
+            usable = self._gather_usable()
+            full_infeasible = q * rows * 8 > self._FULL_RERANK_TEMP_BUDGET and usable
+            engine = (
+                "gather"
+                if full_infeasible
+                or (
+                    usable
+                    and rows >= self._GATHER_MIN_CAPACITY
+                    and rows >= mc * self._GATHER_CROSSOVER_SLOTS_PER_CANDIDATE
+                    and self._expected_candidates() <= mc / 2
+                )
+                else "full"
+            )
+        return engine, mc
 
     def _refresh_ranks(self) -> None:
         """Mark selection keys stale after a mutation (recomputed lazily)."""
@@ -287,10 +419,26 @@ class DeviceStore(BaseStorage):
             raise ValueError("indices must be in [0, 2**31) for the device store")
         return ids_np
 
+    def _payload_vectors(self, vectors, n: int) -> torch.Tensor | None:
+        """Payload rows -> ``(n, dim)`` float32 on the device, or None
+        without ``store_vectors``."""
+        if not self.store_vectors:
+            return None
+        if vectors is None:
+            raise ValueError("vectors are required when store_vectors=True")
+        if not isinstance(vectors, torch.Tensor):
+            vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32))
+        if tuple(vectors.shape) != (n, self.dim):
+            raise ValueError(
+                f"vectors must have shape ({n}, {self.dim}); received {tuple(vectors.shape)}"
+            )
+        return vectors.to(self.device, torch.float32)
+
     def add_signature_batch(
         self,
         indices: Sequence[int] | np.ndarray,
         words,
+        vectors=None,
     ) -> None:
         """Insert/overwrite a batch of ``(id, packed-signature)`` rows.
 
@@ -300,11 +448,14 @@ class DeviceStore(BaseStorage):
                 uint32 tensor (device tensors stay on the device), or the
                 dense uint8 wire ``(n, num_bands * ceil(r/8))`` from
                 `LSHHasher.hash_batch_dense_host`, decoded on the device.
+            vectors: ``(n, dim)`` float32 payload rows (NumPy or tensor),
+                required when ``store_vectors``.
         """
         ids_np = self._check_ids(indices)
         if ids_np.size == 0:
             return
         words = self._decode_words(words, ids_np.size)
+        vecs = self._payload_vectors(vectors, ids_np.size)
         ids32 = ids_np.astype(np.int32)
         with self._lock:
             if self._slot_of is not None and self._needs_upsert(ids32):
@@ -315,7 +466,9 @@ class DeviceStore(BaseStorage):
                 keep = np.sort(ids32.size - 1 - last_pos)
                 if keep.size != ids32.size:
                     ids32 = ids32[keep]
-                    words = words[torch.as_tensor(keep, device=self.device)]
+                    pick = torch.as_tensor(keep, device=self.device)
+                    words = words[pick]
+                    vecs = vecs[pick] if vecs is not None else None
                 existing = np.fromiter(
                     (i in self._slot_of for i in ids32.tolist()), dtype=bool,
                     count=ids32.size,
@@ -325,11 +478,13 @@ class DeviceStore(BaseStorage):
                         (self._slot_of[i] for i in ids32[existing].tolist()),
                         dtype=np.int64, count=int(existing.sum()),
                     )
-                    self._overwrite(slots, words[torch.as_tensor(existing, device=self.device)])
+                    old = torch.as_tensor(existing, device=self.device)
+                    self._overwrite(slots, words[old], vecs[old] if vecs is not None else None)
                     ids32 = ids32[~existing]
-                    words = words[torch.as_tensor(~existing, device=self.device)]
+                    words = words[~old]
+                    vecs = vecs[~old] if vecs is not None else None
             if ids32.size:
-                self._append(ids32, words)
+                self._append(ids32, words, vecs)
 
     def add_vectors_batch(
         self,
@@ -343,7 +498,9 @@ class DeviceStore(BaseStorage):
 
         The hash is the same full-float32 matmul the query path uses, so
         stored and query signatures come from one formulation. Batches with
-        duplicate or already-present ids take the upsert path.
+        duplicate or already-present ids take the upsert path. With
+        ``store_vectors`` the same device tensor becomes the payload rows
+        (one upload per batch).
         """
         if hash_family != "gaussian":
             raise _not_ported(f"hash_family={hash_family!r}")
@@ -361,7 +518,7 @@ class DeviceStore(BaseStorage):
         words = hash_words(
             x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band
         )
-        self.add_signature_batch(ids_np, words)
+        self.add_signature_batch(ids_np, words, x if self.store_vectors else None)
 
     def _needs_upsert(self, ids32: np.ndarray) -> bool:
         """True when the batch holds duplicate or already-present ids."""
@@ -370,17 +527,29 @@ class DeviceStore(BaseStorage):
         slot_of = self._slot_of
         return any(i in slot_of for i in ids32.tolist())
 
-    def _overwrite(self, slots: np.ndarray, words: torch.Tensor) -> None:
+    def _write_payload(self, idx, vecs: torch.Tensor | None) -> None:
+        """Cast ``vecs`` to the payload dtype and write them, their norms
+        and (int8) scales at slots ``idx`` (a slice or an index tensor)."""
+        if self._payload is None or vecs is None:
+            return
+        rows, norms, scale = _cast_payload_rows(vecs, self._payload.dtype)
+        self._payload[idx] = rows
+        self._pnorm[idx] = norms
+        if scale is not None:
+            self._pscale[idx] = scale
+
+    def _overwrite(self, slots: np.ndarray, words: torch.Tensor, vecs: torch.Tensor | None) -> None:
         idx = torch.as_tensor(slots, device=self.device)
         self._sig_t[:, idx] = words.T
         self._sig_rows[idx] = words
         if self._planes is not None:
             self._planes[idx] = self._planes_rows(words)
+        self._write_payload(idx, vecs)
         self._refine = None
         self._generation += 1
         # ids unchanged -> tie keys unchanged.
 
-    def _append(self, ids32: np.ndarray, words: torch.Tensor) -> None:
+    def _append(self, ids32: np.ndarray, words: torch.Tensor, vecs: torch.Tensor | None) -> None:
         n = ids32.size
         # Reserve next_pow2(n) slots, as the reference pads each batch.
         pad = _next_pow2(n)
@@ -394,6 +563,7 @@ class DeviceStore(BaseStorage):
         self._ids[off : off + n] = torch.from_numpy(ids32).to(self.device)
         if self._planes is not None:
             self._planes[off : off + n] = self._planes_rows(words)
+        self._write_payload(slice(off, off + n), vecs)
         if self._slot_of is not None:
             self._slot_of.update(zip(ids32.tolist(), range(off, off + n)))
         self._size += n
@@ -402,16 +572,20 @@ class DeviceStore(BaseStorage):
     def _grow(self, new_cap: int) -> None:
         new_cap = _next_pow2(new_cap)
         cap = self._capacity
-        old = (self._sig_t, self._sig_rows, self._ids, self._planes)
+        old = (self._sig_t, self._sig_rows, self._ids, self._payload, self._pnorm, self._pscale)
+        planes = self._planes
         self._alloc(new_cap)
-        self._sig_t[:, :cap] = old[0]
-        self._sig_rows[:cap] = old[1]
-        self._ids[:cap] = old[2]
-        if old[3] is not None:
+        for new, prev in zip(
+            (self._sig_t.T, self._sig_rows, self._ids, self._payload, self._pnorm, self._pscale),
+            (old[0].T, *old[1:]),
+        ):
+            if prev is not None:
+                new[:cap] = prev
+        if planes is not None:
             self._planes = torch.zeros(
-                (new_cap, old[3].shape[1]), dtype=torch.int8, device=self.device
+                (new_cap, planes.shape[1]), dtype=torch.int8, device=self.device
             )
-            self._planes[:cap] = old[3]
+            self._planes[:cap] = planes
         self._capacity = new_cap
         self._refresh_ranks()
 
@@ -612,6 +786,271 @@ class DeviceStore(BaseStorage):
         return serve
 
     # ------------------------------------------------------------------
+    # full counts, candidate enumeration, top-p rerank
+    # ------------------------------------------------------------------
+
+    def _counts_dev(self, qw: torch.Tensor) -> torch.Tensor:
+        """``(Q, C)`` collision counts on the device (call under the lock)."""
+        return collision_counts_core(
+            self._sig_t, self._ids, qw, num_bands=self.num_bands,
+            chunk=count_step(qw.shape[0], self.chunk),
+        )
+
+    def query_counts(self, qwords, *, where=None) -> tuple[np.ndarray, np.ndarray]:
+        """Full per-slot collision counts plus the slot-id map:
+        ``(counts (Q, capacity), ids (capacity,))``, the device analogue of
+        the reference's whole candidate dict."""
+        as_filter(where)
+        qw = self._query_words(qwords)
+        with self._lock:
+            if self._size == 0:
+                return (
+                    np.zeros((qw.shape[0], self._capacity), np.int32),
+                    np.full((self._capacity,), -1, np.int32),
+                )
+            counts, ids = self._counts_dev(qw), self._ids.clone()
+        return counts.cpu().numpy(), ids.cpu().numpy()
+
+    def query_nnz(self, qwords, *, where=None) -> np.ndarray:
+        """Per-query colliding-candidate counts, ``(Q,)``: the completeness
+        probe of the bounded candidate enumeration (O(Q) readback, and no
+        ``(Q, C)`` matrix on the device either)."""
+        as_filter(where)
+        qw = self._query_words(qwords)
+        with self._lock:
+            if self._size == 0:
+                return np.zeros((qw.shape[0],), np.int32)
+            n = collision_nnz_core(
+                self._sig_t, self._ids, qw, num_bands=self.num_bands,
+                chunk=count_step(qw.shape[0], self.chunk),
+            )
+        return n.cpu().numpy()
+
+    def _require_payload(self) -> None:
+        if self._payload is None:
+            raise RuntimeError("store_vectors=False: no resident payload to rerank")
+
+    def _query_vectors(self, qvecs, q: int) -> torch.Tensor:
+        """Query vectors -> ``(q, dim)`` float32 or bfloat16 on the device."""
+        if isinstance(qvecs, torch.Tensor):
+            if qvecs.dtype not in (torch.float32, torch.bfloat16):
+                qvecs = qvecs.to(torch.float32)
+        else:
+            qvecs = torch.from_numpy(np.ascontiguousarray(qvecs, dtype=np.float32))
+        if tuple(qvecs.shape) != (q, self.dim):
+            raise ValueError(
+                f"query vectors must have shape ({q}, {self.dim}); "
+                f"received {tuple(qvecs.shape)}"
+            )
+        return qvecs.to(self.device)
+
+    def query_topp(
+        self, qwords, qvec, max_out: int, *, where=None
+    ) -> tuple[np.ndarray, np.ndarray, int]:
+        """Top-p rerank of one query on the device: collision counts, then
+        the cosine ranking (full engine). Returns the first ``max_out``
+        colliding candidates by (cosine desc, id asc) and the candidate
+        count; only ``O(max_out)`` values reach the host."""
+        self._require_payload()
+        as_filter(where)
+        qw = self._query_words(qwords)
+        with self._lock:
+            if self._size == 0:
+                return np.full(max_out, -1, np.int32), np.zeros(max_out, np.float32), 0
+            qv = self._query_vectors(np.asarray(qvec, np.float32).reshape(1, -1), 1)[0]
+            ids, sims, n = rerank_topp_core(
+                self._payload, self._pnorm, self._ids, self._counts_dev(qw)[0], qv,
+                max_out=max(1, min(max_out, self._capacity)),
+            )
+        return ids.cpu().numpy(), sims.cpu().numpy(), int(n)
+
+    def _topp_dev_batch(self, eng: str, mc: int) -> int:
+        """Queries per slice of a top-p batch: each slice's working set
+        stays near 2 GB. Gather: the refine-row and payload gathers, ~``mc *
+        (group * (BW + 2) + dim) * 4`` bytes per query, plus the group-max
+        keys; full: the ``(Q, C)`` counts and cosines, ``C * 8``. No floor:
+        a 128-query floor would overshoot the bound (the reference's
+        ``max(128, ...)`` does)."""
+        if eng == "gather":
+            group = self._group()
+            per_q = mc * (group * (self.words + 2) + self.dim) * 4
+            per_q += (self._capacity // group) * 4
+        else:
+            per_q = self._capacity * 8
+        q_cap = max(1, (1 << 31) // per_q)
+        return (q_cap // 128) * 128 if q_cap >= 128 else q_cap
+
+    def _topp_dev(self, qw, qv, *, eng: str, mc: int, max_out: int, dev_batch: int):
+        """Top-p rerank of a batch on the device, ``dev_batch`` queries at
+        a time (call under the lock). Returns device ``(ids, sims, n,
+        exact)``; ``exact`` is all True on the full engine."""
+        if eng == "gather":
+            self._ensure_ranks()
+            refine = self._refine_rows()
+        parts = []
+        for s in range(0, qw.shape[0], dev_batch):
+            q_s, v_s = qw[s : s + dev_batch], qv[s : s + dev_batch]
+            if eng == "gather":
+                parts.append(rerank_topp_gather_core(
+                    self._payload, self._pnorm, self._tie, self._sig_t, q_s, v_s, refine,
+                    num_bands=self.num_bands, max_out=max_out, max_candidates=mc,
+                    group=self._group(), narrow_r=self._refine_narrow_r,
+                ))
+            else:
+                ids, sims, n = rerank_topp_batch_core(
+                    self._payload, self._pnorm, self._ids, self._counts_dev(q_s), v_s,
+                    max_out=max_out,
+                )
+                parts.append((ids, sims, n, torch.ones_like(n, dtype=torch.bool)))
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat(cols) for cols in zip(*parts))
+
+    def query_topp_batch(
+        self,
+        qwords,
+        qvecs,
+        max_out: int,
+        *,
+        wire_dtype: str = "float32",
+        engine: str | None = None,
+        max_candidates: int | None = None,
+        where=None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched top-p rerank on the device.
+
+        Returns ``(ids (Q, out), sims (Q, out), n (Q,))`` ordered by
+        (cosine desc, id asc), ``out = min(max_out, capacity)``; ``n[i]``
+        is query i's colliding-candidate count.
+
+        Args:
+            wire_dtype: ``"float32"`` (value-exact cosines) or
+                ``"bfloat16"``: the queries are rounded to bf16 (on the
+                host, by ``torch``, half to even) and ship half the bytes,
+                at ~1e-2 relative cosine rounding.
+            engine / max_candidates: override ``rerank_engine`` /
+                ``rerank_candidates`` for this call. On the gather engine a
+                query whose colliding set exceeds the budget reranks the
+                ``max_candidates`` most-colliding candidates, ``n`` is a
+                lower bound, and ``stats()["rerank_truncations"]`` counts it.
+        """
+        self._require_payload()
+        if wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
+        as_filter(where)
+        qw = self._query_words(qwords)
+        q = qw.shape[0]
+        with self._lock:
+            if self._size == 0:
+                return (
+                    np.full((q, max_out), -1, np.int32),
+                    np.zeros((q, max_out), np.float32),
+                    np.zeros((q,), np.int32),
+                )
+            eng, mc = self._resolve_rerank_engine(engine, max_candidates, q=q)
+            qv = torch.from_numpy(np.ascontiguousarray(qvecs, dtype=np.float32))
+            if wire_dtype == "bfloat16":
+                qv = qv.to(torch.bfloat16)
+            ids, sims, n, exact = self._topp_dev(
+                qw, self._query_vectors(qv, q), eng=eng, mc=mc,
+                max_out=max(1, min(max_out, self._capacity)),
+                dev_batch=self._topp_dev_batch(eng, mc),
+            )
+            self._rerank_truncations += q - int(exact.sum())
+        return ids.cpu().numpy(), sims.cpu().numpy(), n.cpu().numpy()
+
+    def snapshot_topp_fn(
+        self,
+        max_out: int,
+        *,
+        wire: str = "words",
+        engine: str | None = None,
+        max_candidates: int | None = None,
+        probes: int = 1,
+        batch_hint: int = 1024,
+        dev_batch: int | None = None,
+        where=None,
+    ):
+        """Top-p rerank serving closure over the CURRENT contents.
+
+        Args:
+            max_out: ranked prefix length per query.
+            wire: ``"words"`` or ``"dense"`` signatures (as
+                :meth:`snapshot_query_fn`).
+            engine / max_candidates: rerank formulation, resolved once
+                here. On the gather engine ``n[i] >= max_candidates`` marks
+                a possibly truncated ranking.
+            batch_hint: the batch size the closure will serve; the auto
+                engine sizes the full engine's ``(Q, C)`` temporaries from
+                it.
+            dev_batch: queries per device slice; ``None`` sizes slices to
+                ~2 GB of working set (see :meth:`_topp_dev_batch`).
+
+        Returns:
+            callable ``(signatures, qvecs) -> (ids (Q, out) int32, sims
+            (Q, out) float32, n (Q,) int32)`` device tensors; ``qvecs`` is
+            float32 or bfloat16 (NumPy float32, or a tensor on any
+            device). Mutating the store invalidates the snapshot (a stale
+            closure raises ``RuntimeError``).
+        """
+        if wire not in ("words", "dense"):
+            raise ValueError("wire must be 'words' or 'dense'")
+        if probes != 1:
+            raise _not_ported("probes > 1 (multi-probe)")
+        self._require_payload()
+        as_filter(where)
+        with self._lock:
+            if self._size == 0:
+                raise RuntimeError("snapshot_topp_fn requires a non-empty store")
+            eng, mc = self._resolve_rerank_engine(engine, max_candidates, q=batch_hint)
+            out = max(1, min(max_out, self._capacity))
+            snapshot_gen = self._generation
+        if dev_batch is None:
+            dev_batch = self._topp_dev_batch(eng, mc)
+
+        def serve(q, qvecs):
+            with self._lock:
+                if self._generation != snapshot_gen:
+                    raise RuntimeError(
+                        "snapshot_topp_fn is stale: the store was mutated "
+                        "after the snapshot was taken; call snapshot_topp_fn "
+                        "again"
+                    )
+                if wire == "dense":
+                    qw = dense_to_words(
+                        torch.as_tensor(q).to(self.device),
+                        num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+                    )
+                else:
+                    qw = self._query_words(q)
+                qv = self._query_vectors(qvecs, qw.shape[0])
+                return self._topp_dev(qw, qv, eng=eng, mc=mc, max_out=out, dev_batch=dev_batch)[:3]
+
+        return serve
+
+    def get_vectors(self, indices: Sequence[int]) -> np.ndarray:
+        """Resident payload rows by id, float32 (int8 rows dequantized by
+        their scale). Ids never indexed or deleted raise ``KeyError``."""
+        if self._payload is None:
+            raise RuntimeError("store_vectors=False: no resident payload to fetch")
+        if self._slot_of is None:
+            raise RuntimeError("get_vectors requires dedupe=True (id -> slot map)")
+        with self._lock:
+            missing = [int(i) for i in indices if int(i) not in self._slot_of]
+            if missing:
+                raise KeyError(
+                    f"ids not present in the index (unknown or deleted): "
+                    f"{missing[:8]}{'...' if len(missing) > 8 else ''}"
+                )
+            slots = torch.as_tensor(
+                [self._slot_of[int(i)] for i in indices], dtype=torch.int64, device=self.device
+            )
+            rows = self._payload[slots].to(torch.float32)
+            if self._pscale is not None:
+                rows = rows * self._pscale[slots][:, None]
+        return rows.cpu().numpy()
+
+    # ------------------------------------------------------------------
     # bucket-level API and maintenance
     # ------------------------------------------------------------------
 
@@ -695,19 +1134,46 @@ class DeviceStore(BaseStorage):
             ),
             "fast_path": self._use_grouped(),
             "signature_bytes": self._capacity * self.words * 4,
+            # Payload rows plus, for int8, the 4-byte per-row scale.
+            "payload_bytes": (
+                self._capacity * self.dim * self._payload.element_size()
+                + (self._capacity * 4 if self._pscale is not None else 0)
+                if self._payload is not None
+                else 0
+            ),
+            # Introspection never raises: a pinned "gather" the geometry
+            # cannot take errors only when a rerank is issued.
+            "rerank_engine": (
+                (
+                    self._resolve_rerank_engine(None, None)[0]
+                    if self.rerank_engine != "gather" or self._gather_usable()
+                    else "gather (unusable: needs the grouped fast path)"
+                )
+                if self.store_vectors
+                else None
+            ),
+            "rerank_truncations": self._rerank_truncations,
         }
 
     def state_arrays(self) -> dict[str, np.ndarray]:
-        """Dense host snapshot of the used slots: ``ids`` (n,) int32 and
-        ``sig`` (n, BW) uint32 — the reference package's format. The arrays
-        are copies: later in-place writes (upserts, deletes) leave a
+        """Dense host snapshot of the used slots: ``ids`` (n,) int32, ``sig``
+        (n, BW) uint32 and, with ``store_vectors``, ``payload`` (n, dim)
+        float32 — the reference package's format (bf16 rows export exactly;
+        int8 rows export dequantized and re-quantize to the same rows). The
+        arrays are copies: later in-place writes (upserts, deletes) leave a
         snapshot unchanged, on the CPU too."""
         with self._lock:
             n = self._size
-            return {
+            out = {
                 "ids": self._ids[:n].to("cpu", copy=True).numpy(),
                 "sig": words_to_numpy(self._sig_rows[:n].to("cpu", copy=True)),
             }
+            if self._payload is not None:
+                rows = self._payload[:n].to(torch.float32)
+                if self._pscale is not None:
+                    rows = rows * self._pscale[:n, None]
+                out["payload"] = rows.to("cpu", copy=True).numpy()
+            return out
 
     def load_state_arrays(self, state: dict[str, np.ndarray]) -> None:
         """Restore from a :meth:`state_arrays` snapshot (replaces contents;
@@ -718,5 +1184,9 @@ class DeviceStore(BaseStorage):
             ids = np.asarray(state["ids"], dtype=np.int32)
             alive = ids >= 0
             self.add_signature_batch(
-                ids[alive], np.asarray(state["sig"], dtype=np.uint32)[alive]
+                ids[alive],
+                np.asarray(state["sig"], dtype=np.uint32)[alive],
+                np.asarray(state["payload"], dtype=np.float32)[alive]
+                if "payload" in state and self.store_vectors
+                else None,
             )

@@ -5,10 +5,11 @@ These NumPy functions implement the rerank contract of the reference
 a user callback are ranked by cosine against the query, descending, with
 ``(index, score)`` tuples returned.
 
-A device-resident rerank is not ported yet (ROADMAP, rerank slice); this
-module is used when vectors come from the user's primary datastore
-(``vector_fetch_fn``), where the data is already on host and tiny (a
-candidate set), so NumPy is the right tool.
+The device-resident rerank (``store_vectors=True``) lives in
+`lshrs_tpu_torch.ops.rerank` and reranks every cutoff on the device; this
+module serves vectors from the user's primary datastore
+(``vector_fetch_fn``). Those arrive on the host and are few (a candidate
+set), so NumPy is the right tool.
 """
 
 from __future__ import annotations

@@ -107,18 +107,19 @@ def test_unported_paths_raise(rng):
     with pytest.raises(NotImplementedError):
         TorchLSHRS(dim=8, backend="memory", device="cpu")
     with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, store_vectors=True, device="cpu")
+        TorchLSHRS(dim=8, shards=2, device="cpu")
     with pytest.raises(NotImplementedError):
         TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, multiprobe=2, device="cpu")
     with pytest.raises(NotImplementedError):
         TorchLSHRS(dim=8, hash_family="structured", device="cpu")
-    tl = TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, device="cpu")
+    tl = TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, store_vectors=True,
+                    device="cpu")
     x = rng.standard_normal(8).astype(np.float32)
     tl.index([0], x[None, :])
     with pytest.raises(NotImplementedError):
-        tl.query(x, top_p=0.5)
+        tl.query(x, top_p=0.5, where=[0])
     with pytest.raises(NotImplementedError):
-        tl.query(x, top_k=None)
+        tl.serving_fn(top_k=3, mode="asymmetric")
     with pytest.raises(NotImplementedError):
         tl.query(x, where=[0])
     with pytest.raises(ValueError, match="zero vector"):

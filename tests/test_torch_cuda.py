@@ -179,3 +179,117 @@ def test_packed_lshrs_on_the_gpu_matches_the_cpu_after_delete(dev, rng):
     assert gpu._storage._planes is None
     assert gpu.compact() == cpu.compact() == 100
     np.testing.assert_array_equal(gpu.serving_fn(top_k=10)(Q), cpu.serving_fn(top_k=10)(Q))
+
+
+@pytest.mark.parametrize("q", [256, 200])  # the gather path's slice, and a ragged one
+def test_b1_kernel_matches_plain_at_a_million_slots(q, dev, rng):
+    c, nb = 1 << 20, 16
+    sig = rng.integers(0, 4, (nb, c), dtype=np.int32)
+    q0 = rng.integers(0, 4, (q, nb), dtype=np.int32)
+    q0[: q // 4] = sig[:, rng.integers(0, c, q // 4)].T
+    sig_t, qwords = torch.from_numpy(sig).to(dev), torch.from_numpy(q0).to(dev)
+    tie = _tie(rng, c, dev)
+    kw = dict(num_bands=nb, words=1, group=64, scale=gm.key_scale(c))
+    assert torch.equal(gm.group_max_keys(sig_t, tie, qwords, **kw),
+                       gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
+
+
+def _graded_clusters(rng, clusters=150, members=20, dim=64):
+    """Clusters whose member k is its centre plus noise orthogonal to it,
+    of norm 0.05 * (k + 1) times the centre's: the cosine to the centre is
+    exactly 1 / sqrt(1 + (0.05 (k + 1))**2), so neighbouring members differ
+    by >= 3.7e-3 and an int8 payload's rounding (~1e-4) keeps them apart.
+    Queries are centres moved by 0.2% of their norm."""
+    c = rng.standard_normal((clusters, dim))
+    noise = rng.standard_normal((clusters, members, dim))
+    unit = c / np.linalg.norm(c, axis=1, keepdims=True)
+    noise -= np.einsum("cmd,cd->cm", noise, unit)[..., None] * unit[:, None]
+    noise /= np.linalg.norm(noise, axis=2, keepdims=True)
+    steps = 0.05 * (1 + np.arange(members))
+    X = c[:, None] + (steps[:, None] * noise) * np.linalg.norm(c, axis=1)[:, None, None]
+    e = rng.standard_normal((100, dim))
+    e *= 0.002 * np.linalg.norm(c[:100], axis=1, keepdims=True) / np.linalg.norm(e, axis=1,
+                                                                                keepdims=True)
+    return X.reshape(-1, dim).astype(np.float32), (c[:100] + e).astype(np.float32)
+
+
+@pytest.mark.parametrize("payload_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("engine", ["full", "gather"])
+def test_topp_on_the_gpu_matches_the_cpu(payload_dtype, engine, dev, rng):
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host", seed=8,
+              store_vectors=True, payload_dtype=payload_dtype, rerank_engine=engine)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X, Q = _graded_clusters(rng)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(len(X)), X)
+        lsh.delete(list(range(0, len(X), 40)))
+    b1 = gm.group_max_keys.launches
+    ids, sims, n = gpu.serving_fn(top_k=10, mode="topp")(Q)
+    assert gm.group_max_keys.launches - b1 == (1 if engine == "gather" else 0)
+    want = cpu.serving_fn(top_k=10, mode="topp")(Q)
+    valid = want[0] >= 0
+    gaps = np.abs(np.diff(np.where(valid, want[1], np.nan), axis=1))[valid[:, 1:]]
+    assert (gaps > 1e-5).all(), "near-tie in the compared cosines"
+    np.testing.assert_array_equal(n, want[2])
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_allclose(sims[valid], want[1][valid], atol=1e-5)
+    assert not np.isin(ids, np.arange(0, len(X), 40)).any()
+    np.testing.assert_array_equal(gpu.serving_fn(top_k=1, mode="topp")(X[1:40])[0][:, 0],
+                                  np.arange(1, 40))
+    assert gpu.get_above_p_batch(Q[:8], p=0.5) == gpu.get_above_p_batch(Q[:8], p=0.5)
+    g, c = gpu.get_above_p(Q[3], p=0.5), cpu.get_above_p(Q[3], p=0.5)
+    assert [i for i, _ in g] == [i for i, _ in c]
+    assert gpu.query(Q[3], top_k=None) == cpu.query(Q[3], top_k=None)
+
+
+@pytest.mark.parametrize("payload_dtype", ["float32", "int8"])
+def test_topp_past_4096_candidates_stays_on_the_gpu(payload_dtype, dev, rng, monkeypatch):
+    """6,000 vectors fanned around one direction (cosines 1 - 2e-5 (k+1)),
+    nearly all colliding with it: the default ``get_above_p`` (p=0.95) and
+    a ``top_k`` past the first 4,096 reranked on the card equal the CPU
+    store's, and no payload row is fetched to the host."""
+    dim, n = 16, 6000
+    u = rng.standard_normal(dim)
+    u /= np.linalg.norm(u)
+    v = rng.standard_normal((n, dim))
+    v -= (v @ u)[:, None] * u
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    cos = 1.0 - 2e-5 * (1 + np.arange(n))
+    X = (cos[:, None] * u + np.sqrt(1.0 - cos**2)[:, None] * v).astype(np.float32)
+    kw = dict(dim=dim, num_perm=16, num_bands=4, rows_per_band=4, hash_mode="host", seed=2,
+              store_vectors=True, payload_dtype=payload_dtype)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(n), X)
+
+    def refuse(ids):
+        raise AssertionError("the resident payload left the card for a host rerank")
+
+    monkeypatch.setattr(gpu._storage, "get_vectors", refuse)
+    q = u.astype(np.float32)
+    m = len(gpu.query(q, top_k=None))
+    assert m == len(cpu.query(q, top_k=None)) and np.ceil(0.95 * m) > gpu._MAX_DEVICE_RERANK
+    for got, want in ((gpu.get_above_p(q), cpu.get_above_p(q)),
+                      (gpu.query(q, top_p=1.0, top_k=4500), cpu.query(q, top_p=1.0, top_k=4500))):
+        assert len(got) == len(want) > 4096
+        w = np.asarray([s for _, s in want])
+        tied = np.zeros(len(w), bool)  # an int8 payload's rounding may tie neighbours
+        tied[:-1] |= np.abs(np.diff(w)) <= 1e-5
+        tied[1:] |= np.abs(np.diff(w)) <= 1e-5
+        same = np.asarray([i for i, _ in got]) == np.asarray([i for i, _ in want])
+        assert (same | tied).all()
+        np.testing.assert_allclose([s for _, s in got], w, atol=1e-5)
+
+
+def test_rerank_refuses_tf32(dev, rng):
+    lsh = LSHRS(dim=32, num_perm=64, num_bands=8, rows_per_band=8, hash_mode="host",
+                store_vectors=True, device=dev)
+    X = rng.standard_normal((300, 32)).astype(np.float32)
+    lsh.index(np.arange(300), X)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            lsh.get_above_p_batch(X[:4], p=0.5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -161,7 +161,7 @@ def test_empty_store_and_unported_options(hasher, rng):
     with pytest.raises(NotImplementedError):
         ts.snapshot_query_fn(3, mode="asymmetric")
     with pytest.raises(NotImplementedError):
-        TorchStore(store_vectors=True, device="cpu", **KW)
+        TorchStore(query_mode="bucket", device="cpu", **KW)
     with pytest.raises(ValueError, match="hamming_storage"):
         TorchStore(hamming_storage="sparse", device="cpu", **KW)
     ts.remove_indices([1])  # an absent id: nothing to tombstone

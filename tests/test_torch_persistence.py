@@ -122,7 +122,7 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
 
 
 @pytest.mark.parametrize("where,change", [
-    ("tpu_config", {"store_vectors": True}),
+    ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
     ("tpu_config", {"hash_family": "structured"}),
     ("tpu_config", {"multiprobe": 2}),
