@@ -12,8 +12,9 @@ then runs these phases and prints JSON lines as it goes:
 2. each kernel (B1, B2, B3) against its plain PyTorch version on the card,
    bit-exact (``torch.equal``; tolerance 0: every output is an integer
    key), at the main path's shapes (B1 also at the gather rerank's
-   C=2**20, Q=256), ragged query counts, dead slots and every template
-   instantiation;
+   C=2**20, Q=256; B2 also at the 1M serving batch, Q=8192, at P=512 with
+   group 128, and at 30 bits padded to 32 columns), ragged query counts,
+   dead slots and every template instantiation;
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -28,7 +29,11 @@ then runs these phases and prints JSON lines as it goes:
    1.0, ids and distances equal to the bitplane path (kernel B2) and to
    the plain versions on the same store words; then 1% of the ids are
    deleted and none may come back;
-6. times: each kernel against its plain version (median CUDA-event ms),
+6. times: each kernel against its plain version (median CUDA-event ms)
+   and its bound (the least time the card could take: operations at their
+   peak rate or bytes at the HBM rate, whichever is larger), B2 also
+   against ``torch._int_mm`` on the same operands (the library yardstick,
+   never called by the port),
    serving QPS at 100k, 1M and 4M (packed, and planes on the same
    words), a torch.profiler breakdown of the serving batches (device time
    by kernel, device-busy share), and the 100k build rate;
@@ -55,8 +60,8 @@ then runs these phases and prints JSON lines as it goes:
 
 Every launch counter is reset just before each path of phases 3-5, 7 and
 8 and read just after it; each path must launch its kernel. Then it prints
-the nvidia-smi line, one JSON line with the kernels, and last
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+the nvidia-smi line, one JSON line with the kernels (launches, error, ms,
+plain, bound and library ms), and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
 """
@@ -90,6 +95,13 @@ TOPP_QPS_BATCHES_1M = (1024, 8192)
 # with an int8 payload: measured 0.7459 for both engines on an H100 (seed 0).
 RECALL_FLOOR_1M = 0.70
 DEVICE = "cuda"
+# Peak rates of one H100 SXM at its 700 W limit, for each kernel's bound:
+# int8 tensor cores and HBM from NVIDIA's data sheet; int32 ALU lanes and
+# __popc issue slots per clock per SM at the 1.98 GHz boost clock.
+H100_INT8_OPS = 1.979e15
+H100_HBM_BYTES = 3.35e12
+H100_INT32_OPS = 64 * 132 * 1.98e9
+H100_POPC_OPS = 16 * 132 * 1.98e9
 # The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
 KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
 
@@ -104,6 +116,30 @@ def card_label() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_bound(name: str, shape: dict) -> tuple[float, str]:
+    """The least time (ms) the H100 could take for a kernel's work at
+    ``shape``, and what sets it: the larger of the operations at their peak
+    rate and the bytes (each input read once, the output written once) at
+    the HBM rate."""
+    c, q = shape["C"], shape["Q"]
+    if name.startswith("group_max_keys"):  # B1: a compare and an add per band word
+        bw, probes = shape["bands"], shape["probes"]
+        ops, rate = 2 * q * c * probes * bw, H100_INT32_OPS
+        nbytes = 4 * (bw * c + c + q * probes * bw + q * (c // 64))
+    elif name.startswith("hamming_group_max_keys"):  # B2: int8 multiply-adds
+        from lshrs_tpu_torch.ops.hamming import plane_width
+
+        p, width = shape["P"], plane_width(shape["P"])
+        ops, rate = 2 * q * c * p, H100_INT8_OPS
+        nbytes = c * width + 4 * c + q * width + 4 * q * (c // shape["group"])
+    else:  # B3: one popcount per (query, slot, word)
+        bw = shape["BW"]
+        ops, rate = q * c * bw, H100_POPC_OPS
+        nbytes = 4 * (bw * c + c + q * bw + q * (c // shape["group"]))
+    op_ms, byte_ms = ops / rate * 1e3, nbytes / H100_HBM_BYTES * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
 def median_ms(fn, *, reps: int = 10) -> float:
@@ -140,8 +176,12 @@ def b1_inputs(rng, *, bw, c, q, probes, dev):
 
 
 def b2_inputs(rng, *, c, p, q, asymmetric, dev):
+    """+-1 planes and queries (or quantised asymmetric queries), zero-padded
+    to the store's plane width, as the store holds them; ~10% dead slots."""
+    from lshrs_tpu_torch.ops.hamming import plane_width
     from lshrs_tpu_torch.ops.scan import global_tie_core
 
+    pad = ((0, 0), (0, plane_width(p) - p))
     planes = (2 * rng.integers(0, 2, (c, p), dtype=np.int8) - 1).astype(np.int8)
     ids = rng.permutation(c).astype(np.int32)
     ids[rng.random(c) < 0.1] = -1
@@ -151,9 +191,9 @@ def b2_inputs(rng, *, c, p, q, asymmetric, dev):
         qb = planes[rng.integers(0, c, q)].copy()
         qb[q // 2 :] *= np.where(rng.random((q - q // 2, p)) < 0.2, -1, 1).astype(np.int8)
     return (
-        torch.from_numpy(planes).to(dev),
+        torch.from_numpy(np.pad(planes, pad)).to(dev),
         global_tie_core(torch.from_numpy(ids).to(dev)),
-        torch.from_numpy(qb).to(dev),
+        torch.from_numpy(np.pad(qb, pad)).to(dev),
     )
 
 
@@ -216,44 +256,58 @@ def phase_kernels(rng, dev) -> dict:
             timed["group_max_keys@gather_1m"] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
-                dict(C=c, Q=q, bands=nb, probes=probes),
+                dict(C=c, Q=q, bands=nb, probes=probes), None,
             )
         if (nb, w, c, q, probes) == (16, 1, 131072, 1024, 1):
             timed["group_max_keys"] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
-                dict(C=c, Q=q, bands=nb, probes=probes),
+                dict(C=c, Q=q, bands=nb, probes=probes), None,
             )
 
-    c, p = 1 << 20, NUM_PERM
+    c = 1 << 20
     scale = key_scale(c)
-    shift = asymmetric_shift(p, c)
-    b2_cases = [  # (Q, asymmetric)
-        (512, False),
-        (512, True),
-        (300, False),  # ragged Q
+    b2_cases = [  # (P, Q, group, asymmetric)
+        (NUM_PERM, 512, 64, False),
+        (NUM_PERM, 512, 64, True),
+        (NUM_PERM, 300, 64, False),   # ragged Q
+        (512, 512, 128, False),       # the widest resident planes, group 128
+        (30, 300, 16, True),          # padded 30 -> 32 columns
+        (NUM_PERM, QPS_BATCH_1M, 64, False),  # the 1M serving batch
     ]
-    for q, asym in b2_cases:
+    for p, q, group, asym in b2_cases:
         planes, tie, qb = b2_inputs(rng, c=c, p=p, q=q, asymmetric=asym, dev=dev)
-        kw = dict(group=64, scale=scale)
+        kw = dict(group=group, scale=scale, num_perm=p)
         if asym:
-            kw.update(offset=p * 127, shift=shift)
+            kw.update(offset=p * 127, shift=asymmetric_shift(p, c))
         got = hamming_group_max_keys(planes, tie, qb, **kw)
         want = hamming_group_max_keys_ref(planes, tie, qb, **kw)
         torch.cuda.synchronize()
         diff = int((got.long() - want.long()).abs().max())
         err["hamming_group_max_keys"] = max(err["hamming_group_max_keys"], diff)
         ok = torch.equal(got, want)
-        emit("kernel_check", kernel="hamming_group_max_keys", C=c, P=p, Q=q,
-             asymmetric=asym, shift=kw.get("shift", 1), equal=ok, max_abs_err=diff)
+        emit("kernel_check", kernel="hamming_group_max_keys", C=c, P=p, width=planes.shape[1],
+             Q=q, group=group, asymmetric=asym, shift=kw.get("shift", 1), equal=ok,
+             max_abs_err=diff)
         if not ok:
-            raise AssertionError(f"B2 kernel != plain at Q={q}, asymmetric={asym}")
-        if (q, asym) == (512, False):
+            raise AssertionError(f"B2 kernel != plain at P={p}, Q={q}, group={group}, "
+                                 f"asymmetric={asym}")
+        shape = dict(C=c, Q=q, P=p, group=group)
+        if (p, q, group, asym) == (NUM_PERM, 512, 64, False):
+            # torch._int_mm: the same int8 product, no key and no group
+            # max, writing the whole (Q, C) int32 matrix; timed only.
             timed["hamming_group_max_keys"] = (
                 lambda planes=planes, tie=tie, qb=qb, kw=kw: hamming_group_max_keys(planes, tie, qb, **kw),
                 lambda planes=planes, tie=tie, qb=qb, kw=kw: hamming_group_max_keys_ref(planes, tie, qb, **kw),
-                dict(C=c, Q=q, P=p),
+                shape, lambda planes=planes, qb=qb: torch._int_mm(qb, planes.t()),
             )
+        if q == QPS_BATCH_1M:
+            timed["hamming_group_max_keys@serving_1m"] = (
+                lambda planes=planes, tie=tie, qb=qb, kw=kw: hamming_group_max_keys(planes, tie, qb, **kw),
+                lambda planes=planes, tie=tie, qb=qb, kw=kw: hamming_group_max_keys_ref(planes, tie, qb, **kw),
+                shape, None,
+            )
+        del planes, qb, got, want
 
     b3_cases = [  # (BW, C, Q, group)
         (16, 1 << 20, 512, 64),
@@ -279,7 +333,7 @@ def phase_kernels(rng, dev) -> dict:
             timed["hamming_packed_group_max_keys"] = (
                 lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys(*a, **kw),
                 lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys_ref(*a, **kw),
-                dict(C=c, Q=q, BW=bw),
+                dict(C=c, Q=q, BW=bw, group=group), None,
             )
     return {"max_abs_err": err, "timed": timed}
 
@@ -478,7 +532,7 @@ def phase_packed_4m(seed: int) -> dict:
         hamming_packed_group_max_keys_ref,
         key_scale,
     )
-    from lshrs_tpu_torch.ops.hamming import _select_refine, hamming_topk_core, unpack_bitplanes
+    from lshrs_tpu_torch.ops.hamming import _select_refine, hamming_topk_core
 
     lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
                 hamming_storage="packed", device=DEVICE)
@@ -529,8 +583,8 @@ def phase_packed_4m(seed: int) -> dict:
         with store._lock:
             store._ensure_ranks()
             return hamming_topk_core(
-                planes, store._tie, unpack_bitplanes(qw, num_bands=NUM_BANDS, rows_per_band=ROWS),
-                qw, store._refine_rows(), k=TOP_K, group=group, narrow_r=narrow_r,
+                planes, store._tie, store._planes_rows(qw), qw, store._refine_rows(),
+                k=TOP_K, group=group, narrow_r=narrow_r, num_perm=p,
             )
 
     def plain_topk(qw, *, packed):
@@ -541,8 +595,8 @@ def phase_packed_4m(seed: int) -> dict:
                 gmax = hamming_packed_group_max_keys_ref(
                     store._sig_t, store._tie, qw, num_perm=p, group=group, scale=scale)
             else:
-                qbits = unpack_bitplanes(qw, num_bands=NUM_BANDS, rows_per_band=ROWS)
-                gmax = hamming_group_max_keys_ref(planes, store._tie, qbits, group=group, scale=scale)
+                gmax = hamming_group_max_keys_ref(planes, store._tie, store._planes_rows(qw),
+                                                  group=group, scale=scale, num_perm=p)
             return _select_refine(gmax, qw, store._refine_rows(), p=p, k=TOP_K, group=group,
                                   narrow_r=narrow_r)
 
@@ -888,8 +942,11 @@ def main() -> int:
     s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed))
 
     times = {}
-    for name, (run, plain, shape) in kern["timed"].items():
-        times[name] = {"ms": median_ms(run), "plain_ms": median_ms(plain), **shape}
+    for name, (run, plain, shape, library) in kern["timed"].items():
+        bound_ms, bound_by = kernel_bound(name, shape)
+        times[name] = {"ms": median_ms(run), "plain_ms": median_ms(plain),
+                       "library_ms": median_ms(library) if library else None,
+                       "bound_ms": bound_ms, "bound_by": bound_by, **shape}
         emit("kernel_time", card=label, kernel=name, **times[name])
     qps_100k = serving_qps(s100["serve"], s100["queries"])
     emit("serving", card=label, rows=N_100K, batch=QPS_BATCH_100K, engine="collision",
@@ -960,7 +1017,8 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kern["max_abs_err"][name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
+         **{key: times[name][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, rep) in sources.items()
     ]
     print(label)

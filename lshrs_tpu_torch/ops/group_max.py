@@ -13,7 +13,9 @@ exactly (`lshrs_tpu_torch.ops.scan`, `lshrs_tpu_torch.ops.hamming`).
   CUDA source ``csrc/collision_group_max.cu``.
 - **B2** :func:`hamming_group_max_keys` — int8 bitplane dot:
   ``key = ((dot + offset) >> shift) * S + bias``, bias ``tie + S`` alive
-  / ``-maxscaled * S`` dead. CUDA source ``csrc/hamming_group_max.cu``.
+  / ``-maxscaled * S`` dead, on operands zero-padded to a multiple of 16
+  (the store: 32) columns. CUDA source ``csrc/hamming_group_max.cu``
+  (wgmma on int8 tensor cores, TMA loads).
 - **B3** :func:`hamming_packed_group_max_keys` — XOR + popcount Hamming
   over the packed words: ``key = bias - ham * S``, bias
   ``(P + 1) * S + tie`` alive / ``0`` dead. CUDA source
@@ -99,6 +101,16 @@ def _hamming_key_bias(
     scaled-dot term — ``(2 * offset) >> shift`` — so dead keys land at or
     below zero, under every alive key (``>= scale``)."""
     return torch.where(tie >= 0, tie + scale, -maxscaled * scale)
+
+
+def _hamming_offset(width: int, offset: int | None, num_perm: int | None) -> int:
+    """B2's key offset: ``offset`` if given, else the true signature width
+    ``num_perm`` (default: the operands' width ``width``)."""
+    if num_perm is not None and not 0 < num_perm <= width:
+        raise ValueError(f"num_perm={num_perm} must be in (0, {width}], the operands' width")
+    if offset is not None:
+        return offset
+    return width if num_perm is None else num_perm
 
 
 def _hamming_packed_key_bias(
@@ -253,6 +265,7 @@ def hamming_group_max_keys_ref(
     scale: int,
     offset: int | None = None,
     shift: int = 1,
+    num_perm: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B2 (see :func:`hamming_group_max_keys`).
 
@@ -264,7 +277,7 @@ def hamming_group_max_keys_ref(
     q = qbits.shape[0]
     if p * 127 >= 2**24:
         raise ValueError(f"P={p} is too wide for an exact float32 dot")
-    off = p if offset is None else offset
+    off = _hamming_offset(p, offset, num_perm)
     bias = _hamming_key_bias(tie, scale=scale, maxscaled=(2 * off) >> shift)
     qf = qbits.to(torch.float32)
     out = torch.empty((q, c // group), dtype=torch.int32, device=planes.device)
@@ -286,18 +299,24 @@ def hamming_group_max_keys(
     scale: int,
     offset: int | None = None,
     shift: int = 1,
+    num_perm: int | None = None,
 ) -> torch.Tensor:
     """Per-group maxima of packed (scaled-dot, tie) keys — kernel B2.
 
     Args:
-        planes: ``(C, P)`` int8 +-1 store bitplanes.
+        planes: ``(C, Pp)`` int8 +-1 store bitplanes; columns past the
+            true width are zero (the store pads ``Pp`` to a multiple of 32).
         tie: ``(C,)`` int32 tie keys (-1 dead).
-        qbits: ``(Q, P)`` int8 query operand (+-1 bitplanes, or quantised
-            coordinates for asymmetric ranking).
+        qbits: ``(Q, Pp)`` int8 query operand (+-1 bitplanes, or quantised
+            coordinates for asymmetric ranking), padded like ``planes``.
         group: slots per group, a power of two dividing C (16, 32, 64 or
-            128 for the CUDA kernel, which also needs P % 4 == 0).
+            128 for the CUDA kernel, which also needs ``Pp % 16 == 0`` and
+            16-byte aligned operands: its TMA row stride).
         offset / shift: key packing ``((dots+offset)>>shift)*scale + tie``
-            — default (None, 1) is symmetric Hamming, ``offset = P``.
+            — default (None, 1) is symmetric Hamming, ``offset = num_perm``.
+        num_perm: the true signature width P (default ``Pp``); zero
+            columns add nothing to the dot but would shift the default
+            offset.
 
     Returns:
         ``(Q, C // group)`` int32 group-max keys, contiguous groups.
@@ -309,19 +328,22 @@ def hamming_group_max_keys(
     _check("qbits", qbits, torch.int8, (q, p))
     if group <= 0 or group & (group - 1) or c % group:
         raise ValueError(f"group must be a power of two dividing C={c}; got {group}")
+    off = _hamming_offset(p, offset, num_perm)
     dev = _device(planes, tie, qbits)
     if dev.type == "cpu":
         return hamming_group_max_keys_ref(
-            planes, tie, qbits, group=group, scale=scale, offset=offset, shift=shift
+            planes, tie, qbits, group=group, scale=scale, offset=off, shift=shift
         )
     if not (planes.is_contiguous() and tie.is_contiguous() and qbits.is_contiguous()):
         raise ValueError("hamming_group_max_keys: CUDA inputs must be contiguous")
-    if group not in (16, 32, 64, 128) or p % 4:
+    if planes.data_ptr() % 16 or qbits.data_ptr() % 16:
+        raise ValueError("hamming_group_max_keys: planes and qbits must be 16-byte aligned")
+    if group not in (16, 32, 64, 128) or p % 16:
         raise ValueError(
-            f"the CUDA kernel needs group in (16, 32, 64, 128) and P % 4 == 0; "
-            f"got group={group}, P={p}"
+            f"the CUDA kernel needs group in (16, 32, 64, 128) and a row width that is a "
+            f"multiple of 16 bytes (pad P with zero columns, pass num_perm=); "
+            f"got group={group}, width={p}"
         )
-    off = p if offset is None else offset
     out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
     if q == 0:
         return out

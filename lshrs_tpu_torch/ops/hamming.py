@@ -38,6 +38,7 @@ from lshrs_tpu_torch.ops.scan import gather_refine_group_rows
 __all__ = [
     "hamming_topk_core",
     "hamming_topk_packed_core",
+    "plane_width",
     "popcount32",
     "supports_hamming_grouped",
     "unpack_bitplanes",
@@ -49,24 +50,37 @@ def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
     return (num_perm + 2) * key_scale(capacity) < 2**31
 
 
+def plane_width(num_perm: int) -> int:
+    """Columns of the stored bitplanes: ``num_perm`` rounded up to a
+    multiple of 32, so every row stride suits the B2 kernel's TMA loads
+    and its 32-byte wgmma k-steps."""
+    return -(-num_perm // 32) * 32
+
+
 def unpack_bitplanes(
-    words: torch.Tensor, *, num_bands: int, rows_per_band: int
+    words: torch.Tensor, *, num_bands: int, rows_per_band: int, width: int | None = None
 ) -> torch.Tensor:
     """Packed int32 signature words -> +-1 int8 bitplanes.
 
     Args:
         words: ``(n, num_bands * W)`` int32 (see `lshrs_tpu_torch.ops.bitpack`).
+        width: columns of the result (default ``num_bands * rows_per_band``);
+            the columns past the signature are zero.
     Returns:
-        ``(n, num_bands * rows_per_band)`` int8 in {-1, +1}, bit order
-        matching the packing (band-major, row-minor).
+        ``(n, width)`` int8, {-1, +1} over the signature's bits in the
+        packing's order (band-major, row-minor).
     """
     n = words.shape[0]
     w = words.shape[1] // num_bands
+    p = num_bands * rows_per_band
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     # (word >> s) & 1 is bit s even under the arithmetic shift of int32.
     bits = (words.reshape(n, num_bands, w, 1) >> shifts) & 1
     bits = bits.reshape(n, num_bands, w * 32)[:, :, :rows_per_band]
-    return (2 * bits - 1).to(torch.int8).reshape(n, num_bands * rows_per_band)
+    planes = (2 * bits - 1).to(torch.int8).reshape(n, p)
+    if width is None or width == p:
+        return planes
+    return torch.nn.functional.pad(planes, (0, width - p))
 
 
 def hamming_topk_core(
@@ -79,24 +93,29 @@ def hamming_topk_core(
     k: int,
     group: int,
     narrow_r: int = 0,
+    num_perm: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
     Args:
-        planes: ``(C, P)`` int8 store bitplanes (dead slots arbitrary).
+        planes: ``(C, Pp)`` int8 store bitplanes (dead slots arbitrary),
+            zero past the signature's ``num_perm`` columns.
         tie: ``(C,)`` int32 global tie keys (-1 dead).
-        qbits / qwords: ``(Q, P)`` int8 and ``(Q, BW)`` int32 queries.
+        qbits / qwords: ``(Q, Pp)`` int8 (padded like ``planes``) and
+            ``(Q, BW)`` int32 queries.
         sig_rows: ``(C // group, group * (nw + 2))`` grouped refine table
             (`lshrs_tpu_torch.ops.scan.build_grouped_refine_rows`);
             narrow-packed when ``narrow_r`` is nonzero.
+        num_perm: signature bits P (default ``Pp``).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
         id -1 and hamming P+1.
     """
     c, p = planes.shape
+    p = p if num_perm is None else num_perm
     gmax = hamming_group_max_keys(
-        planes, tie, qbits, group=group, scale=key_scale(c)
+        planes, tie, qbits, group=group, scale=key_scale(c), num_perm=p
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r

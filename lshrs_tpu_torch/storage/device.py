@@ -10,9 +10,10 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         sig_rows (capacity, num_bands * W)  int32  row-major twin
         ids      (capacity,)                int32  vector id, -1 = dead
         tie      (capacity,)                int32  global id-rank key
-        planes   (capacity, num_perm)       int8   +-1 bitplanes (Hamming with
+        planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
-                                                   built lazily)
+                                                   built lazily); Pp is num_perm
+                                                   rounded up to 32, zero-padded
         payload  (capacity, dim)   f32/bf16/int8   raw vectors (store_vectors)
         pnorm    (capacity,)                f32    norms of the stored rows
         pscale   (capacity,)                f32    int8 per-row scales
@@ -59,6 +60,7 @@ from lshrs_tpu_torch.ops.bitpack import (
 from lshrs_tpu_torch.ops.hamming import (
     hamming_topk_core,
     hamming_topk_packed_core,
+    plane_width,
     supports_hamming_grouped,
     unpack_bitplanes,
 )
@@ -349,12 +351,15 @@ class DeviceStore(BaseStorage):
     _PLANES_MATERIALIZE_STEP = 1 << 17
 
     def _planes_rows(self, words: torch.Tensor) -> torch.Tensor:
+        """Bitplane rows of ``words``, zero-padded to ``plane_width(P)``
+        columns (stores and queries alike; kernel B2 takes the true P)."""
         return unpack_bitplanes(
-            words, num_bands=self.num_bands, rows_per_band=self.rows_per_band
+            words, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+            width=plane_width(self.num_bands * self.rows_per_band),
         )
 
     def _materialize_planes(self) -> torch.Tensor:
-        p = self.num_bands * self.rows_per_band
+        p = plane_width(self.num_bands * self.rows_per_band)
         planes = torch.empty((self._capacity, p), dtype=torch.int8, device=self.device)
         step = min(self._PLANES_MATERIALIZE_STEP, self._capacity)
         for off in range(0, self._capacity, step):
@@ -681,11 +686,9 @@ class DeviceStore(BaseStorage):
                 self._sig_t, self._tie, qw, self._refine_rows(), num_perm=p, **kw
             )
         self._ensure_planes()
-        qbits = unpack_bitplanes(
-            qw, num_bands=self.num_bands, rows_per_band=self.rows_per_band
-        )
         return hamming_topk_core(
-            self._planes, self._tie, qbits, qw, self._refine_rows(), **kw
+            self._planes, self._tie, self._planes_rows(qw), qw, self._refine_rows(),
+            num_perm=p, **kw
         )
 
     def query_hamming(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
@@ -1127,11 +1130,8 @@ class DeviceStore(BaseStorage):
             "capacity": self._capacity,
             "chunk_size": self.chunk,
             "hamming_storage": self.hamming_storage if self.enable_hamming else None,
-            "hamming_plane_bytes": (
-                self._capacity * self.num_bands * self.rows_per_band
-                if self._planes is not None
-                else 0
-            ),
+            # The bytes held, padding columns included.
+            "hamming_plane_bytes": self._planes.numel() if self._planes is not None else 0,
             "fast_path": self._use_grouped(),
             "signature_bytes": self._capacity * self.words * 4,
             # Payload rows plus, for int8, the 4-byte per-row scale.

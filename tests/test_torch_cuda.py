@@ -69,24 +69,59 @@ def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
     assert torch.equal(got, gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
 
 
-@pytest.mark.parametrize("asymmetric", [False, True])
-@pytest.mark.parametrize("q", [128, 77])
-def test_b2_kernel_matches_plain(asymmetric, q, dev, rng):
-    c, p = 8192, 256
-    planes = (2 * rng.integers(0, 2, (c, p), dtype=np.int8) - 1).astype(np.int8)
-    if asymmetric:
-        qb = rng.integers(-127, 128, (q, p), dtype=np.int16).astype(np.int8)
-        kw = dict(offset=p * 127, shift=gm.asymmetric_shift(p, c))
-    else:
-        qb = planes[rng.integers(0, c, q)].copy()
+# asymmetric_shift(256, 2**20): the serving store's asymmetric packing.
+_SHIFT_1M = 5
+
+
+@pytest.mark.parametrize(
+    "p,c,q,group,mode",
+    [
+        (256, 8192, 128, 64, "symmetric"),
+        (256, 8192, 77, 64, "asymmetric"),       # the store's own shift
+        (256, 8192, 513, 16, "asymmetric_5"),    # the 1M store's shift
+        (256, 8192, 300, 128, "extremes"),       # dots at +-P * 127
+        (32, 4096, 300, 32, "symmetric"),
+        (30, 4096, 513, 16, "symmetric"),        # padded 30 -> 32
+        (120, 4096, 1, 128, "asymmetric_0"),     # padded 120 -> 128, shift 0
+        (64, 16000, 77, 16, "symmetric"),        # C not a multiple of the 256-slot tile
+        (128, 192, 128, 64, "symmetric"),        # C smaller than one slot tile
+        (128, 4096, 300, 32, "extremes"),
+        (512, 4096, 513, 128, "asymmetric_5"),
+        (512, 2048, 1, 64, "extremes"),
+        (768, 2048, 70, 64, "symmetric"),        # past a resident slot tile: streamed
+    ],
+)
+def test_b2_kernel_matches_plain(p, c, q, group, mode, dev, rng):
+    """Kernel B2 bit for bit against its plain version: widths 30-768
+    (padded to 32-column multiples), every group size, ragged Q, ~10% dead
+    slots, symmetric and asymmetric packing, dots at the extremes."""
+    from lshrs_tpu_torch.ops.hamming import plane_width
+
+    width = plane_width(p)
+    planes = np.zeros((c, width), np.int8)
+    planes[:, :p] = 2 * rng.integers(0, 2, (c, p)) - 1
+    qb = np.zeros((q, width), np.int8)
+    if mode == "symmetric":
+        qb[:, :p] = planes[rng.integers(0, c, q), :p]
+        qb[q // 2 :, :p] *= np.where(rng.random((q - q // 2, p)) < 0.2, -1, 1).astype(np.int8)
         kw = {}
+    else:
+        qb[:, :p] = rng.integers(-127, 128, (q, p))
+        shift = {"asymmetric": gm.asymmetric_shift(p, c), "asymmetric_0": 0,
+                 "asymmetric_5": _SHIFT_1M, "extremes": _SHIFT_1M}[mode]
+        kw = dict(offset=p * 127, shift=shift)
+    if mode == "extremes":
+        planes[0, :p], planes[1, :p] = 1, -1   # all-+1 and all--1 slots
+        qb[0, :p] = 127
+        qb[min(1, q - 1), :p] = -127
     planes_d = torch.from_numpy(planes).to(dev)
     qb_d = torch.from_numpy(qb).to(dev)
     tie = _tie(rng, c, dev)
-    kw.update(group=64, scale=gm.key_scale(c))
+    kw.update(group=group, scale=gm.key_scale(c), num_perm=p)
     before = gm.hamming_group_max_keys.launches
     got = gm.hamming_group_max_keys(planes_d, tie, qb_d, **kw)
     assert gm.hamming_group_max_keys.launches == before + 1
+    assert got.device == planes_d.device and got.shape == (q, c // group)
     assert torch.equal(got, gm.hamming_group_max_keys_ref(planes_d, tie, qb_d, **kw))
 
 
@@ -125,9 +160,12 @@ def test_cuda_wrappers_reject_what_the_kernels_cannot_take(dev):
     qw = torch.zeros((8, 8), dtype=torch.int32, device=dev)[:, ::2]  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         gm.group_max_keys(sig_t, tie, qw, num_bands=4, words=1, group=64, scale=512)
-    planes = torch.ones((512, 6), dtype=torch.int8, device=dev)  # P % 4 != 0
-    with pytest.raises(ValueError, match="P % 4"):
+    planes = torch.ones((512, 24), dtype=torch.int8, device=dev)  # 24-byte rows
+    with pytest.raises(ValueError, match="multiple of 16"):
         gm.hamming_group_max_keys(planes, tie, planes[:3], group=64, scale=512)
+    planes = torch.ones((512 * 32 + 1,), dtype=torch.int8, device=dev)[1:].view(512, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        gm.hamming_group_max_keys(planes, tie, planes[:3].contiguous(), group=64, scale=512)
     kw = dict(num_perm=128, group=64, scale=512)
     with pytest.raises(ValueError, match="contiguous"):
         gm.hamming_packed_group_max_keys(sig_t, tie, qw, **kw)
@@ -158,6 +196,25 @@ def test_lshrs_on_the_gpu_matches_the_cpu(engine, dev, rng):
     np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
     np.testing.assert_array_equal(gpu.serving_fn(top_k=1)(X[:300])[:, 0], np.arange(300))
     assert gpu.query_batch(Q, top_k=5) == cpu.query_batch(Q, top_k=5)
+
+
+def test_lshrs_at_30_bits_on_the_gpu_matches_the_cpu(dev, rng):
+    """num_perm = 30 on the Hamming engine: the card's padded bitplanes
+    (32 columns) through kernel B2 give the CPU store's ids."""
+    kw = dict(dim=32, num_perm=30, num_bands=10, rows_per_band=3, hash_mode="host",
+              seed=7, engine="hamming")
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((3000, 32)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(3000), X)
+    Q = X[:200] + 0.3 * rng.standard_normal((200, 32)).astype(np.float32)
+    b2 = gm.hamming_group_max_keys.launches
+    out = gpu.serving_fn(top_k=10)(Q)
+    assert gm.hamming_group_max_keys.launches == b2 + 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    assert gpu.query_hamming_batch(Q, top_k=5) == cpu.query_hamming_batch(Q, top_k=5)
+    assert gpu._storage._planes.shape[1] == 32
+    assert gpu.stats()["index"]["hamming_plane_bytes"] == cpu.stats()["index"]["hamming_plane_bytes"]
 
 
 def test_packed_lshrs_on_the_gpu_matches_the_cpu_after_delete(dev, rng):

@@ -99,3 +99,98 @@ def test_supports_hamming_grouped_matches(num_perm, capacity):
     assert tham.supports_hamming_grouped(num_perm, capacity) == jham.supports_hamming_grouped(
         num_perm, capacity
     )
+
+
+# -- signatures whose width is not a multiple of 32 (padded bitplanes) -------
+
+
+def _strided_rows(a: np.ndarray, chunk: int, group: int) -> np.ndarray:
+    """Permute axis 0 so the Pallas kernel's strided group g holds the
+    port's contiguous group g (as in ``tests/test_torch_group_max.py``)."""
+    s = np.arange(a.shape[0])
+    g, i = s // group, s % group
+    ngc = chunk // group
+    out = np.empty_like(a)
+    out[(g // ngc) * chunk + (g % ngc) + i * ngc] = a
+    return out
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize("p", [30, 120, 256])
+def test_padded_plain_b2_matches_pallas(p, asymmetric, rng):
+    """The plain B2 on operands zero-padded to ``plane_width(p)`` columns,
+    told the true width, equals the Pallas kernel on the unpadded ones."""
+    from lshrs_tpu.ops import asymmetric as jasym
+    from lshrs_tpu.ops import pallas_scan as jps
+    from lshrs_tpu_torch.ops import group_max as gm
+
+    planes = (2 * rng.integers(0, 2, (C, p)) - 1).astype(np.int8)
+    ids = rng.permutation(C).astype(np.int32)
+    ids[rng.random(C) < 0.1] = -1
+    tie = np.array(jscan.compute_global_tie(jnp.asarray(ids)))
+    if asymmetric:
+        qbits = rng.integers(-127, 128, (Q, p)).astype(np.int8)
+        kw = dict(offset=p * jasym.QMAX, shift=gm.asymmetric_shift(p, C))
+    else:
+        qbits = planes[rng.integers(0, C, Q)].copy()
+        qbits[Q // 2 :] *= np.where(rng.random((Q - Q // 2, p)) < 0.2, -1, 1).astype(np.int8)
+        kw = {}
+    kw.update(group=GROUP, scale=gm.key_scale(C))
+    width = tham.plane_width(p)
+    assert width % 32 == 0 and width - p < 32
+    pad = ((0, 0), (0, width - p))
+    got = gm.hamming_group_max_keys(
+        torch.from_numpy(np.pad(planes, pad)), torch.from_numpy(tie),
+        torch.from_numpy(np.pad(qbits, pad)), num_perm=p, **kw,
+    ).numpy()
+    want = np.asarray(jps.hamming_group_max_keys(
+        jnp.asarray(_strided_rows(planes, CHUNK, GROUP)),
+        jnp.asarray(_strided_rows(tie, CHUNK, GROUP)),
+        jnp.asarray(qbits), chunk=CHUNK, q_tile=4, interpret=True, **kw,
+    ))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("num_bands,rows", [(10, 3), (20, 6), (16, 16)])
+def test_hamming_lshrs_at_any_width_matches_reference(num_bands, rows, rng):
+    """``LSHRS(engine="hamming")`` at 30, 120 and 256 bits: the port's
+    padded bitplanes give the reference's ids and distances."""
+    from lshrs_tpu import LSHRS as JaxLSHRS
+    from lshrs_tpu_torch import LSHRS as TorchLSHRS
+
+    p = num_bands * rows
+    kw = dict(dim=24, num_perm=p, num_bands=num_bands, rows_per_band=rows,
+              hash_mode="host", seed=13, engine="hamming")
+    jl, tl = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
+    X = rng.standard_normal((700, 24)).astype(np.float32)
+    jl.index(list(range(700)), X)
+    tl.index(list(range(700)), X)
+    Qx = X[:40] + 0.3 * rng.standard_normal((40, 24)).astype(np.float32)
+    qwords = jl._hasher.hash_batch_words_host(Qx)
+    j_ham, j_ids = jl._storage.query_hamming(qwords, 10)
+    t_ham, t_ids = tl._storage.query_hamming(qwords, 10)
+    np.testing.assert_array_equal(t_ids, j_ids)
+    np.testing.assert_array_equal(t_ham, j_ham)
+    np.testing.assert_array_equal(tl.serving_fn(top_k=10)(Qx), np.asarray(jl.serving_fn(top_k=10)(Qx)))
+    assert tl.query_hamming_batch(Qx, top_k=5) == jl.query_hamming_batch(Qx, top_k=5)
+    store = tl._storage
+    assert store._planes.shape == (store._capacity, tham.plane_width(p))
+    assert not store._planes[:, p:].any()
+    assert tl.stats()["index"]["hamming_plane_bytes"] == store._planes.numel()
+
+
+def test_b2_num_perm_is_the_true_width(rng):
+    """Zero columns change no dot; ``num_perm`` keeps the symmetric offset
+    at the true width, and a width past the operands is refused."""
+    from lshrs_tpu_torch.ops import group_max as gm
+
+    planes = torch.from_numpy((2 * rng.integers(0, 2, (256, 30)) - 1).astype(np.int8))
+    qbits = planes[:5].clone()
+    tie = tscan.global_tie_core(torch.from_numpy(rng.permutation(256).astype(np.int32)))
+    kw = dict(group=16, scale=gm.key_scale(256))
+    padded = torch.nn.functional.pad(planes, (0, 2)), torch.nn.functional.pad(qbits, (0, 2))
+    want = gm.hamming_group_max_keys(planes, tie, qbits, **kw)
+    assert torch.equal(gm.hamming_group_max_keys(padded[0], tie, padded[1], num_perm=30, **kw), want)
+    assert not torch.equal(gm.hamming_group_max_keys(padded[0], tie, padded[1], **kw), want)
+    with pytest.raises(ValueError, match="num_perm"):
+        gm.hamming_group_max_keys(planes, tie, qbits, num_perm=31, **kw)
