@@ -56,12 +56,45 @@ then runs these phases and prints JSON lines as it goes:
    cosine at least 0.70 — then serving QPS of each engine at Q=1024 and 8192 in turns and a
    profile of one 8192-query batch each; last, at 100k, delete 1,000 ids
    and compact (no deleted id comes back) and save / load with the
-   payload (the same top-p ids).
+   payload (the same top-p ids);
+9. the hash families, multi-probe and ``where=`` filters (phase 2 also
+   holds B1 bit-exact at ``probes`` 2 and 4 and at 32 band words, at
+   131,072 slots and at the shapes the 2**20-slot paths launch: 256-query
+   gather slices with 4 probes and with 32 band words, and the 8,192-query
+   top-k batch at 32 band words):
+   - hash parity on the card: structured (16 x 16) and cross-polytope
+     (32 x 8) words of 65,536 x 768 vectors from ``hash_batch_words``
+     (CUDA) == ``hash_batch_words_host`` (the native C FWHT, which must
+     have loaded) == the NumPy FWHT; probe words host == device at T=4;
+     hash times beside the gaussian matmul's;
+   - structured_1m: ``LSHRS(hash_family="structured")`` over the 2**20
+     clustered vectors with ``hash_mode="host"`` (planes and packed) and
+     ``hash_mode="device"``: build rates, auto -> Hamming on B2 / B3,
+     self-match 1.0, ids equal to a CPU copy on 256 queries, the three
+     indexes equal to each other, serving QPS at Q=8192;
+   - multi-probe: 100k gaussian vectors with ``multiprobe`` 2 and 4 (B1
+     launched with that many probes, ids equal to a CPU copy, self-match
+     1.0, every T=1 hit's count <= its count under T probes, QPS beside
+     T=1), and the 1M int8 top-p gather engine with ``multiprobe=4``
+     (recall@10 not below T=1's; top-k and top-p of 256 queries equal to
+     a CPU copy);
+   - cross-polytope: 32 bands x 8 rows at 2**20 slots with an int8 payload
+     (collision top-k on B1 at 32 band words, top-p gather, self-match,
+     card == CPU copy, recall@10, QPS; ``engine="hamming"`` raises);
+   - filters: an allowlist of 10% of the ids minus a denylist of 1,000 at
+     100k (B1), 1M planes (B2) and 1M packed (B3): no inadmissible id,
+     ids equal to a CPU copy under the same filter (64 queries on the
+     packed store, whose filtered B3 keys are also held to the plain
+     version on the card) and to brute force over the admitted subset, the
+     filter's state cached and recomputed
+     after a delete, filtered top-p on both engines, filtered QPS;
+   - save / ``load_from_disk(device="cuda")`` of a structured and two
+     cross-polytope indexes (``diagonals.npz``; multiprobe 2 and 4).
 
 Every launch counter is reset just before each path of phases 3-5, 7 and
 8 and read just after it; each path must launch its kernel. Then it prints
 the nvidia-smi line, one JSON line with the kernels (launches, error, ms,
-plain, bound and library ms), and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+plain, bound and library ms; B1 once per timed instantiation), and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
 """
@@ -69,6 +102,7 @@ CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import shutil
 import subprocess
@@ -104,6 +138,30 @@ H100_INT32_OPS = 64 * 132 * 1.98e9
 H100_POPC_OPS = 16 * 132 * 1.98e9
 # The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
 KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
+B1, B2, B3 = KERNELS
+# B1's timed multi-probe and 32-word cases (num_bands, words, C, Q, probes),
+# each one a line of the kernels record.
+B1_VARIANTS = {
+    (16, 1, 131072, 1024, 2): "group_max_keys@bw16_probes2",
+    (16, 1, 131072, 1024, 4): "group_max_keys@bw16_probes4",
+    (32, 1, 131072, 1024, 1): "group_max_keys@bw32_probes1",
+    (32, 1, 131072, 1024, 2): "group_max_keys@bw32_probes2",
+    (32, 1, 131072, 1024, 4): "group_max_keys@bw32_probes4",
+}
+# B1 at the shapes the 2**20-slot paths launch it with, timed beside the
+# table above: the gather rerank's 256-query slices.
+B1_TIMED_1M = {
+    (16, 1, N_1M, 256, 1): "group_max_keys@gather_1m",
+    (16, 1, N_1M, 256, 4): "group_max_keys@gather_1m_probes4",
+    (32, 1, N_1M, 256, 1): "group_max_keys@gather_1m_bw32",
+}
+# Plain B1 holds a (Q, C) int32 key matrix: past this many elements it is
+# run over slices of the queries.
+B1_PLAIN_ELEMENTS = 1 << 28
+CP_BANDS, CP_ROWS = 32, 8
+HASH_ROWS = 1 << 16
+FILTER_DENY = 1000
+PACKED_CPU_QUERIES = 64
 
 
 def emit(phase: str, **fields) -> None:
@@ -238,25 +296,46 @@ def phase_kernels(rng, dev) -> dict:
         (4, 3, 16384, 200, 1),     # generic (non-register) instantiation
         (16, 1, N_1M, 256, 1),     # the gather rerank's slice at 1M slots
         (16, 1, N_1M, 200, 1),     # ragged
+        (16, 1, 131072, 1024, 4),  # multi-probe, registers <16, 1, 4>
+        (32, 1, 131072, 1024, 1),  # 32 band words (cross-polytope at dim 768)
+        (32, 1, 131072, 1024, 2),
+        (32, 1, 131072, 1024, 4),
+        (32, 1, 131072, 1000, 4),  # ragged
+        (16, 2, 131072, 1024, 4),  # generic instantiation with probes
+        (16, 1, N_1M, 256, 4),     # multiprobe4_1m: the gather rerank's slice
+        (16, 1, N_1M, 200, 4),     # ragged
+        (32, 1, N_1M, 256, 1),     # cp_1m: the gather rerank's slice
+        (32, 1, N_1M, 200, 1),     # ragged
+        (32, 1, N_1M, QPS_BATCH_1M, 1),  # cp_1m: the top-k serving batch
     ]
     for nb, w, c, q, probes in b1_cases:
         sig_t, tie, qw = b1_inputs(rng, bw=nb * w, c=c, q=q, probes=probes, dev=dev)
         kw = dict(num_bands=nb, words=w, group=64, scale=key_scale(c), probes=probes)
         got = group_max_keys(sig_t, tie, qw, **kw)
-        want = group_max_keys_ref(sig_t, tie, qw, **kw)
+        step = max(1, B1_PLAIN_ELEMENTS // c)
+        diff, ok = 0, True
+        for s in range(0, q, step):
+            want = group_max_keys_ref(sig_t, tie, qw[s : s + step], **kw)
+            diff = max(diff, int((got[s : s + step].long() - want.long()).abs().max()))
+            ok = ok and torch.equal(got[s : s + step], want)
         torch.cuda.synchronize()
-        diff = int((got.long() - want.long()).abs().max())
         err["group_max_keys"] = max(err["group_max_keys"], diff)
-        ok = torch.equal(got, want)
         emit("kernel_check", kernel="group_max_keys", bands=nb, words=w, C=c, Q=q,
              probes=probes, equal=ok, max_abs_err=diff)
         if not ok:
             raise AssertionError(f"B1 kernel != plain at {(nb, w, c, q, probes)}")
-        if (nb, w, c, q, probes) == (16, 1, N_1M, 256, 1):
-            timed["group_max_keys@gather_1m"] = (
+        if (nb, w, c, q, probes) in B1_TIMED_1M:
+            timed[B1_TIMED_1M[nb, w, c, q, probes]] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
                 dict(C=c, Q=q, bands=nb, probes=probes), None,
+            )
+        variant = B1_VARIANTS.get((nb, w, c, q, probes))
+        if variant:
+            timed[variant] = (
+                lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
+                lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
+                dict(C=c, Q=q, bands=nb * w, probes=probes), None,
             )
         if (nb, w, c, q, probes) == (16, 1, 131072, 1024, 1):
             timed["group_max_keys"] = (
@@ -775,12 +854,30 @@ def phase_topp_1m(seed: int) -> dict:
     from lshrs_tpu_torch.ops.group_max import group_max_keys
 
     rng, centers, batches = clustered_1m(seed)
-    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
-                store_vectors=True, payload_dtype="int8", device=DEVICE)
+    kw = dict(dim=DIM, num_perm=NUM_PERM, store_vectors=True, payload_dtype="int8", device=DEVICE)
+    lsh = LSHRS(num_bands=NUM_BANDS, rows_per_band=ROWS, **kw)
+    # The same vectors under multiprobe=4 and under the cross-polytope
+    # family (32 x 8; never Hamming), both on the gather engine: phase 9.
+    others = {
+        "multiprobe4": LSHRS(num_bands=NUM_BANDS, rows_per_band=ROWS, multiprobe=4,
+                             rerank_engine="gather", **kw),
+        "crosspolytope": LSHRS(num_bands=CP_BANDS, rows_per_band=CP_ROWS,
+                               hash_family="crosspolytope", rerank_engine="gather", **kw),
+    }
+    build_s = dict.fromkeys(others, 0.0)
+    keep = None
     exact_x = torch.empty((N_1M, DIM), dtype=torch.float32, device=DEVICE)
     for off, xb in batches:
+        if keep is None:
+            keep = xb[:QPS_BATCH_1M].copy()
         lsh.index(np.arange(off, off + INGEST_BATCH), xb)
         exact_x[off : off + INGEST_BATCH] = torch.from_numpy(xb).to(DEVICE)
+        for name, other in others.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            other.index(np.arange(off, off + INGEST_BATCH), xb)
+            torch.cuda.synchronize()
+            build_s[name] += time.perf_counter() - t0
     store = lsh._storage
     qx = centers[rng.integers(0, 4096, TOPP_QUERIES)]
     qx += 0.35 * rng.standard_normal((TOPP_QUERIES, DIM), dtype=np.float32)
@@ -852,7 +949,8 @@ def phase_topp_1m(seed: int) -> dict:
     queries = {q: [centers[rng.integers(0, 4096, q)]
                    + 0.35 * rng.standard_normal((q, DIM), dtype=np.float32) for _ in range(2)]
                for q in TOPP_QPS_BATCHES_1M}
-    return {"lsh": lsh, "queries": queries, "recall": result}
+    return {"lsh": lsh, "queries": queries, "recall": result, "others": others,
+            "others_build_s": build_s, "qx": qx, "truth": truth, "keep": keep, "rng": rng}
 
 
 def phase_topp_lifecycle(t100: dict, seed: int) -> None:
@@ -895,6 +993,492 @@ def phase_topp_lifecycle(t100: dict, seed: int) -> None:
          payload_bytes=back.stats()["index"]["payload_bytes"], device=back.stats()["device"])
     assert equal, "100k: the loaded index returns other top-p ids"
 
+
+# ---------------------------------------------------------------------------
+# phase 9: hash families, multi-probe, where= filters
+# ---------------------------------------------------------------------------
+
+def host_seconds(fn) -> tuple[float, object]:
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def phase_hash_parity(seed: int, label: str) -> None:
+    """CUDA == native C == NumPy FWHT words for the structured and the
+    cross-polytope family on 65,536 x 768 vectors; probe words host ==
+    device at T=4; hash times beside the gaussian matmul's."""
+    from lshrs_tpu_torch.hash.crosspolytope import cp_dims_for
+    from lshrs_tpu_torch.hash.fwht import _structured_coords_numpy
+    from lshrs_tpu_torch.hash.hasher import LSHHasher
+    from lshrs_tpu_torch.native import load_fwht_library, native_status
+    from lshrs_tpu_torch.ops.bitpack import pack_bits_to_words_np, words_to_numpy
+
+    lib = load_fwht_library()
+    emit("native_fwht", status=native_status())
+    assert lib is not None, f"the native C FWHT did not load: {native_status()}"
+    rng = np.random.default_rng(seed + 7)
+    x = rng.standard_normal((HASH_ROWS, DIM), dtype=np.float32)
+    x[:256] = rng.integers(-2, 3, (256, DIM))  # exact magnitude ties
+    xd = torch.from_numpy(x).to(DEVICE)
+    numpy_rows = {"structured": HASH_ROWS, "crosspolytope": HASH_ROWS // 32}
+    probe_rows = HASH_ROWS // 8
+    for family, nb, r in (("structured", NUM_BANDS, ROWS), ("crosspolytope", CP_BANDS, CP_ROWS),
+                          ("gaussian", NUM_BANDS, ROWS)):
+        h = LSHHasher(nb, r, DIM, seed=42, hash_family=family, device=DEVICE)
+        dev_words = h.hash_batch_words(xd)
+        device_ms = median_ms(lambda h=h: h.hash_batch_words(xd), reps=5)
+        host_s, host_words = host_seconds(lambda h=h: h.hash_batch_words_host(x))
+        fields = dict(card=label, family=family, bands=nb, rows_per_band=r, rows=HASH_ROWS,
+                      device_ms=device_ms, device_vectors_per_s=HASH_ROWS / device_ms * 1e3,
+                      host_s=host_s, host_vectors_per_s=HASH_ROWS / host_s)
+        if family == "gaussian":
+            # A host sgemm and the card's matmul round differently: no
+            # parity is claimed; the times stand beside the FWHT's.
+            emit("hash", **fields)
+            continue
+        equal_c = bool(np.array_equal(words_to_numpy(dev_words), host_words))
+        n = numpy_rows[family]
+        if family == "structured":
+            bits = _structured_coords_numpy(x[:n], h.diagonals, nb * r) > 0
+        else:
+            dpad, cp_d = h.diagonals.shape[2], cp_dims_for(r)
+            y = _structured_coords_numpy(x[:n], h.diagonals, nb * dpad)
+            y = y.reshape(n, nb, dpad)[:, :, :cp_d]
+            i = np.argmax(np.abs(y), axis=2)
+            sym = 2 * i + (np.take_along_axis(y, i[:, :, None], axis=2)[:, :, 0] < 0)
+            bits = ((sym[..., None] >> np.arange(r)) & 1).astype(bool).reshape(n, -1)
+        numpy_words = pack_bits_to_words_np(bits, num_bands=nb, rows_per_band=r)
+        equal_np = bool(np.array_equal(numpy_words, host_words[:n]))
+        pw_dev = words_to_numpy(h.hash_batch_probe_words(xd[:probe_rows], 4))
+        pw_host = h.hash_batch_probe_words_host(x[:probe_rows], 4)
+        equal_probe = bool(np.array_equal(pw_dev, pw_host))
+        emit("hash", cuda_equals_c=equal_c, c_equals_numpy=equal_np, numpy_rows=n,
+             probe_words_equal=equal_probe, probe_rows=probe_rows, **fields)
+        assert equal_c, f"{family}: CUDA words != native C words"
+        assert equal_np, f"{family}: native C words != NumPy FWHT words"
+        assert equal_probe, f"{family}: probe words host != device"
+
+
+def phase_structured_1m(seed: int, label: str) -> dict:
+    """The structured family at 2**20 clustered vectors: host hash (planes
+    and packed) and device hash, auto -> Hamming."""
+    from lshrs_tpu_torch import LSHRS
+
+    rng, _, batches = clustered_1m(seed)
+    kw = dict(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+              hash_family="structured", device=DEVICE)
+    idx = {
+        "host": LSHRS(hash_mode="host", **kw),
+        "device": LSHRS(hash_mode="device", **kw),
+        "host_packed": LSHRS(hash_mode="host", hamming_storage="packed", **kw),
+    }
+    build_s = dict.fromkeys(idx, 0.0)
+    keep = None
+    for off, xb in batches:
+        if keep is None:
+            keep = xb[:QPS_BATCH_1M].copy()
+        for name, lsh in idx.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lsh.index(np.arange(off, off + INGEST_BATCH), xb)
+            torch.cuda.synchronize()
+            build_s[name] += time.perf_counter() - t0
+    serves = {name: lsh.serving_fn(top_k=TOP_K) for name, lsh in idx.items()}
+    qx = keep[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    want = None
+    for name, lsh in idx.items():
+        stats = lsh.stats()
+        sm = self_match(serves[name], [(np.arange(QPS_BATCH_1M), keep)], N_1M)
+        out = serves[name](qx)
+        emit("slice_structured_1m", hash_mode=name, card=label, capacity=stats["index"]["capacity"],
+             ranking=stats["ranking"], engine_resolved=stats["engine_resolved"],
+             hamming_storage=stats["index"]["hamming_storage"], self_match=sm,
+             build_vectors_per_s=N_1M / build_s[name], build_s=build_s[name])
+        assert stats["engine_resolved"] == "hamming" and stats["hash_family"] == "structured"
+        assert sm == 1.0, f"structured_1m {name}: self-match {sm}"
+        # Host- and device-hashed words are identical, so all three agree.
+        if want is None:
+            want = out
+        assert np.array_equal(out, want), f"structured_1m: {name} != host"
+    host = idx["host"]
+    qwords = host._hasher.hash_batch_words_host(qx)
+    ham_gpu, ids_gpu = host._storage.query_hamming(qwords, TOP_K)
+    cpu = carry_to_cpu(host._storage)
+    ham_cpu, ids_cpu = cpu.query_hamming(qwords, TOP_K)
+    equal = bool(np.array_equal(ids_gpu, ids_cpu) and np.array_equal(ham_gpu, ham_cpu))
+    emit("carry_structured_1m", queries=CARRY_QUERIES, equal=equal,
+         serving_equals_query=bool(np.array_equal(ids_gpu, want)))
+    assert equal and np.array_equal(ids_gpu, want)
+    queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(3)]
+    return {"idx": idx, "serves": serves, "queries": queries, "keep": keep, "cpu": cpu,
+            "rng": rng}
+
+
+def phase_multiprobe_100k(seed: int, label: str) -> None:
+    """multiprobe 2 and 4 on 100k gaussian vectors (kernel B1 with probes)."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N_100K, DIM), dtype=np.float32)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    queries = [rng.standard_normal((QPS_BATCH_100K, DIM), dtype=np.float32) for _ in range(4)]
+    counts_t1 = None
+    for probes in (1, 2, 4):
+        lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                    engine="collision", multiprobe=probes, device=DEVICE)
+        for i in range(0, N_100K, INGEST_BATCH):
+            lsh.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+        serve = lsh.serving_fn(top_k=TOP_K)
+        before = group_max_keys.launches_by_shape[NUM_BANDS, probes]
+        sm = self_match(serve, [(np.arange(QPS_BATCH_100K), X[:QPS_BATCH_100K])], N_100K)
+        launched = group_max_keys.launches_by_shape[NUM_BANDS, probes] - before
+        pw = lsh._hash_query_words(qx)
+        counts, ids = lsh._storage.query_topk(pw, TOP_K)
+        cpu = carry_to_cpu(lsh._storage)
+        counts_cpu, ids_cpu = cpu.query_topk(pw.cpu(), TOP_K)
+        equal = bool(np.array_equal(ids, ids_cpu) and np.array_equal(counts, counts_cpu))
+        served_equal = bool(np.array_equal(serve(qx), ids))
+        if probes == 1:
+            counts_t1, ids_t1, store_t1 = counts, ids, lsh._storage
+            grew = None
+        else:
+            # Every T=1 hit keeps at least its count under T probes: count
+            # the T=1 hits' slots again with the probe words.
+            full, slot_ids = lsh._storage.query_counts(pw[:32])
+            pos = {int(i): s for s, i in enumerate(slot_ids) if i >= 0}
+            grew = all(
+                full[r, pos[int(i)]] >= c
+                for r in range(32) for i, c in zip(ids_t1[r], counts_t1[r]) if c > 0
+            )
+        qps = serving_qps(serve, queries, trials=2)
+        emit("multiprobe_100k", card=label, probes=probes, self_match=sm,
+             b1_launches_with_these_probes=launched, card_equals_cpu=equal,
+             serving_equals_query=served_equal, counts_kept_or_grew=grew,
+             mean_top1_count=float(counts[:, 0].mean()), qps=qps, batch=QPS_BATCH_100K)
+        assert sm == 1.0 and launched > 0 and equal and served_equal and grew is not False
+
+
+def build_profiles(seed: int, label: str) -> None:
+    """One 65,536-vector ``index()`` batch with the device hash, by family:
+    where the structured build's time goes (FWHT passes) beside the
+    gaussian build's (one matmul)."""
+    from lshrs_tpu_torch import LSHRS
+
+    rng = np.random.default_rng(seed + 11)
+    xb = rng.standard_normal((INGEST_BATCH, DIM), dtype=np.float32)
+    for family, nb, r in (("gaussian", NUM_BANDS, ROWS), ("structured", NUM_BANDS, ROWS),
+                          ("crosspolytope", CP_BANDS, CP_ROWS)):
+        lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=nb, rows_per_band=r, hash_family=family,
+                    initial_capacity=4 * INGEST_BATCH, device=DEVICE)
+        batch_no = itertools.count()
+
+        def build(x, lsh=lsh, batch_no=batch_no):  # fresh ids each call: appends, no upserts
+            i = next(batch_no)
+            lsh.index(np.arange(i * INGEST_BATCH, (i + 1) * INGEST_BATCH), x)
+
+        prof = serving_profile(build, [xb, xb], top=6)
+        emit("build_profile", card=label, hash_family=family, hash_mode="device",
+             batch=INGEST_BATCH, vectors_per_s=INGEST_BATCH / prof["wall_ms_per_batch"] * 1e3,
+             **prof)
+
+
+def recall_at_10(ids: np.ndarray, truth: np.ndarray) -> float:
+    hits = [len(set(ids[r][ids[r] >= 0]) & set(truth[r])) for r in range(len(truth))]
+    return float(np.mean(hits)) / TOP_K
+
+
+def phase_probe_and_cp_1m(t1m: dict, label: str) -> None:
+    """multiprobe=4 and the cross-polytope family on the 1M int8 data of
+    phase 8 (same queries, same exact-cosine truth)."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    qx, truth, keep, rng = t1m["qx"], t1m["truth"], t1m["keep"], t1m["rng"]
+    t1 = t1m["lsh"]
+    t1._storage.rerank_engine = "gather"
+    recall = {"multiprobe1": t1m["recall"]["gather"]["recall_at_10"]}
+    queries = t1m["queries"][TOPP_QPS_BATCHES_1M[0]]
+    qps = {"multiprobe1": serving_qps(
+        t1.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES), queries, trials=2)}
+    noisy = keep[:CARRY_QUERIES] + 0.2 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    held_by_cpu = {}
+    for name, bw, probes in (("multiprobe4", NUM_BANDS, 4), ("crosspolytope", CP_BANDS, 1)):
+        lsh = t1m["others"][name]
+        store = lsh._storage
+        stats = lsh.stats()
+        assert stats["index"]["alive"] == N_1M, stats["index"]
+        serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES)
+        before = group_max_keys.launches_by_shape[bw, probes]
+        ids, sims, n = serve(qx)
+        launched = group_max_keys.launches_by_shape[bw, probes] - before
+        recall[name] = recall_at_10(ids, truth)
+        # Self-match through top-p: the vector first, cosine ~1 (int8 payload).
+        ids_s, sims_s, _ = serve(keep[:TOPP_QUERIES])
+        sm = float((ids_s[:, 0] == np.arange(TOPP_QUERIES)).mean())
+        qps[name] = serving_qps(serve, queries, trials=2)
+        emit("topp_1m_" + name, card=label, queries=TOPP_QUERIES, recall_at_10=recall[name],
+             mean_candidates=float(n.mean()), truncated=int((n >= store.rerank_candidates).sum()),
+             self_match=sm, max_abs_cos_minus_1=float(np.abs(sims_s[:, 0] - 1.0).max()),
+             b1_launches_at_this_shape=launched, qps=qps[name], batch=TOPP_QPS_BATCHES_1M[0],
+             build_vectors_per_s=N_1M / t1m["others_build_s"][name])
+        assert launched > 0 and sm == 1.0, (name, launched, sm)
+        # The card against the store carried to the CPU: collision top-k
+        # and top-p gather (B1 at this (BW, probes) over 2**20 slots).
+        qw = lsh._hash_query_words(noisy)
+        counts, ids = store.query_topk(qw, TOP_K)
+        topp = store.query_topp_batch(qw, noisy, TOP_K)
+        cpu_s, cpu = host_seconds(lambda store=store: carry_to_cpu(store))
+        qw_cpu = qw.cpu() if isinstance(qw, torch.Tensor) else qw
+        query_s, (counts_cpu, ids_cpu) = host_seconds(lambda: cpu.query_topk(qw_cpu, TOP_K))
+        topp_cpu = cpu.query_topp_batch(qw_cpu, noisy, TOP_K)
+        del cpu
+        held_by_cpu[name] = dict(
+            equal=bool(np.array_equal(ids, ids_cpu) and np.array_equal(counts, counts_cpu)),
+            agree=compare_rankings(topp, topp_cpu), counts=counts, cpu_copy_s=cpu_s)
+        emit("card_vs_cpu_1m_" + name, card=label, queries=CARRY_QUERIES, bands=bw, probes=probes,
+             topk_card_equals_cpu=held_by_cpu[name]["equal"],
+             topp_card_vs_cpu=held_by_cpu[name]["agree"],
+             colliding_top1=int((counts[:, 0] > 0).sum()), cpu_copy_s=cpu_s,
+             cpu_topk_s=query_s)
+        assert held_by_cpu[name]["equal"], f"{name}: card != CPU copy"
+        agree = held_by_cpu[name]["agree"]
+        assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, (name, agree)
+    emit("topp_1m_recall", card=label, **{f"recall_{k}": v for k, v in recall.items()},
+         **{f"qps_{k}": v for k, v in qps.items()})
+    assert recall["multiprobe4"] >= recall["multiprobe1"], recall
+
+    # Cross-polytope collision top-k (kernel B1 at 32 band words, 2**20 slots).
+    cp = t1m["others"]["crosspolytope"]
+    store = cp._storage
+    assert store._use_grouped() and store.words == CP_BANDS
+    serve = cp.serving_fn(top_k=TOP_K)
+    before = group_max_keys.launches_by_shape[CP_BANDS, 1]
+    sm = self_match(serve, [(np.arange(QPS_BATCH_1M), keep)], N_1M)
+    launched = group_max_keys.launches_by_shape[CP_BANDS, 1] - before
+    held = held_by_cpu["crosspolytope"]
+    equal, agree, counts, cpu_s = (held[k] for k in ("equal", "agree", "counts", "cpu_copy_s"))
+    served = serve(qx)
+    qps_topk = serving_qps(
+        serve, [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)],
+        trials=2)
+    emit("slice_cp_1m", card=label, capacity=store._capacity, bands=CP_BANDS, rows_per_band=CP_ROWS,
+         self_match=sm, b1_launches_bw32=launched, card_equals_cpu=equal, topp_card_vs_cpu=agree,
+         colliding_top1=int((counts[:, 0] > 0).sum()), queries=CARRY_QUERIES,
+         topk_recall_at_10=recall_at_10(served, truth), topk_qps=qps_topk, batch=QPS_BATCH_1M,
+         cpu_copy_s=cpu_s)
+    assert sm == 1.0 and launched > 0 and equal, (sm, launched, equal)
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    for bad in (dict(engine="hamming"), dict(enable_hamming=True)):
+        try:
+            LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=CP_BANDS, rows_per_band=CP_ROWS,
+                  hash_family="crosspolytope", device=DEVICE, **bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"cross-polytope accepted {bad}")
+
+
+def make_filter(n: int, rng):
+    """An allowlist of 10% of the ids minus a denylist of 1,000 of them
+    (and 1,000 ids outside it)."""
+    from lshrs_tpu_torch import IdFilter
+
+    allow = rng.choice(n, n // 10, replace=False)
+    deny = np.concatenate([allow[: FILTER_DENY // 2], rng.choice(n, FILTER_DENY // 2)])
+    return IdFilter(allowed_ids=allow, disallowed_ids=deny)
+
+
+def subset_store(store, flt):
+    """A store on the card holding only the ids ``flt`` admits (brute
+    force over the admitted subset = its unfiltered answers)."""
+    from lshrs_tpu_torch import DeviceStore
+
+    state = store.state_arrays()
+    keep = flt.admits(state["ids"]) & (state["ids"] >= 0)
+    sub = DeviceStore(
+        num_bands=store.num_bands, rows_per_band=store.rows_per_band, dim=store.dim,
+        initial_capacity=store._capacity, chunk_size=store.chunk, group_size=store.group,
+        enable_hamming=store.enable_hamming, hamming_storage=store.hamming_storage,
+        device=DEVICE,
+    )
+    sub.add_signature_batch(state["ids"][keep], state["sig"][keep])
+    return sub, int(keep.sum())
+
+
+def phase_filters(s1m: dict, t1m: dict, seed: int, label: str) -> None:
+    """where= at 100k (B1), 1M planes (B2) and 1M packed (B3), and on the
+    1M top-p engines."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops import group_max
+
+    rng = np.random.default_rng(seed + 8)
+    X = np.random.default_rng(seed).standard_normal((N_100K, DIM), dtype=np.float32)
+    lsh100 = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                   engine="collision", device=DEVICE)
+    for i in range(0, N_100K, INGEST_BATCH):
+        lsh100.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+    # One filter and one set of queries for the two 1M indexes: they hold
+    # the same words, so their filtered answers must be equal too.
+    flt_1m = make_filter(N_1M, rng)
+    noise = 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    cases = [
+        ("100k_collision", B1, lsh100, N_100K, X[:QPS_BATCH_100K], QPS_BATCH_100K,
+         make_filter(N_100K, rng), None),
+        ("1m_planes", B2, s1m["idx"]["host"], N_1M, s1m["keep"], QPS_BATCH_1M, flt_1m,
+         s1m["cpu"]),
+        ("1m_packed", B3, s1m["idx"]["host_packed"], N_1M, s1m["keep"], QPS_BATCH_1M, flt_1m,
+         None),
+    ]
+    planes_answer = None
+    for name, kernel, lsh, n, stored, batch, flt, cpu in cases:
+        store = lsh._storage
+        wrapper = getattr(group_max, kernel)
+        serve = lsh.serving_fn(top_k=TOP_K, where=flt)
+        before = wrapper.launches
+        out = serve(stored)
+        launched = wrapper.launches - before
+        got = out[out >= 0]
+        inadmissible = int((~flt.admits(got)).sum())
+        # An admitted stored vector is its own best match among the admitted.
+        adm = flt.admits(np.arange(batch))
+        sm = float((out[adm, 0] == np.arange(batch)[adm]).mean())
+        # The cached columns are the same tensors as long as nothing
+        # recomputed them.
+        state = flt.device_state(store)[0]
+        serve(stored[:CARRY_QUERIES])
+        reused = flt.device_state(store)[0] is state
+
+        qx = stored[:CARRY_QUERIES] + noise
+        qw = lsh._hash_words(qx)
+        query = store.query_topk if kernel == B1 else store.query_hamming
+        score, ids = query(qw, TOP_K, where=flt)
+        sub, admitted = subset_store(store, flt)
+        sub_query = sub.query_topk if kernel == B1 else sub.query_hamming
+        score_sub, ids_sub = sub_query(qw, TOP_K)
+        del sub
+        brute = bool(np.array_equal(ids, ids_sub) and np.array_equal(score, score_sub))
+        if cpu is None:
+            cpu = carry_to_cpu(store)
+        # The packed plain version runs seconds per query batch on the CPU:
+        # fewer queries there, and all of them against it on the card below.
+        n_cpu = PACKED_CPU_QUERIES if kernel == B3 else CARRY_QUERIES
+        qw_cpu = (qw.cpu() if isinstance(qw, torch.Tensor) else qw)[:n_cpu]
+        cpu_query = cpu.query_topk if kernel == B1 else cpu.query_hamming
+        cpu_s, (score_cpu, ids_cpu) = host_seconds(lambda: cpu_query(qw_cpu, TOP_K, where=flt))
+        del cpu
+        cpu_equal = bool(np.array_equal(ids[:n_cpu], ids_cpu)
+                         and np.array_equal(score[:n_cpu], score_cpu))
+        extra = {}
+        if kernel == B3:
+            # Kernel B3 on the filtered tie column against its plain version
+            # on the card, and the packed index against the planes index
+            # (same words, same filter, same queries).
+            ids_f, tie_f = flt.device_state(store)
+            qw_np = qw.cpu().numpy() if isinstance(qw, torch.Tensor) else np.asarray(qw)
+            qw_dev = torch.from_numpy(
+                np.ascontiguousarray(qw_np).view(np.int32).reshape(CARRY_QUERIES, -1)).to(DEVICE)
+            kw = dict(num_perm=NUM_PERM, group=store._group(),
+                      scale=group_max.key_scale(store._capacity))
+            counted = wrapper.launches  # a comparison launch is no launch of the path
+            keys = group_max.hamming_packed_group_max_keys(store._sig_t, tie_f, qw_dev, **kw)
+            wrapper.launches = counted
+            plain = group_max.hamming_packed_group_max_keys_ref(store._sig_t, tie_f, qw_dev, **kw)
+            extra = dict(
+                filtered_keys_equal_plain_on_card=torch.equal(keys, plain),
+                dead_under_filter=int((tie_f < 0).sum()),
+                equals_planes_index=bool(np.array_equal(ids, planes_answer[1])
+                                         and np.array_equal(score, planes_answer[0])))
+            del keys, plain
+            assert all(v for v in extra.values()), extra
+        if kernel == B2:
+            planes_answer = (score, ids)
+        queries = [rng.standard_normal((batch, DIM), dtype=np.float32) for _ in range(2)]
+        qps_f = serving_qps(serve, queries, trials=2)
+        qps_u = serving_qps(lsh.serving_fn(top_k=TOP_K), queries, trials=2)
+        profile = serving_profile(serve, queries[:1]) if kernel == B2 else None
+
+        # A delete bumps the store's generation: the state is recomputed and
+        # the deleted id is gone even though the filter admits it.
+        victim = int(np.flatnonzero(adm)[0])
+        lsh.delete([victim])
+        after = lsh.serving_fn(top_k=TOP_K, where=flt)(stored[:CARRY_QUERIES])
+        recomputed = flt.device_state(store)[0] is not state
+        gone = victim not in after
+        emit("filter_" + name, card=label, kernel=kernel, admitted=admitted, rows=n,
+             launches_under_filter=launched, inadmissible_ids_returned=inadmissible,
+             admitted_self_match=sm, state_reused=reused, recomputed_after_delete=recomputed,
+             deleted_id_gone=gone, equals_brute_force_over_admitted=brute, equals_cpu_copy=cpu_equal,
+             cpu_queries=n_cpu, cpu_seconds=cpu_s, queries=CARRY_QUERIES, **extra, qps_filtered=qps_f, qps_unfiltered=qps_u,
+             batch=batch)
+        if profile:
+            emit("profile", card=label, rows=n, batch=batch, engine="hamming", filtered=True,
+                 **profile)
+        assert launched > 0 and inadmissible == 0 and sm == 1.0, (name, launched, inadmissible, sm)
+        assert reused and recomputed and gone and brute and cpu_equal, (
+            name, reused, recomputed, gone, brute, cpu_equal)
+
+    # Filtered top-p on the 1M int8 index, both engines.
+    lsh, qx = t1m["lsh"], t1m["qx"]
+    store = lsh._storage
+    flt = make_filter(N_1M, rng)
+    qw = lsh._hasher.hash_batch_words(qx)
+    out = {eng: store.query_topp_batch(qw, qx, TOP_K, engine=eng, where=flt)
+           for eng in ("full", "gather")}
+    exact = out["gather"][2] < store.rerank_candidates
+    agree = compare_rankings([x[exact] for x in out["gather"]], [x[exact] for x in out["full"]],
+                             tie=1e-6)
+    ids = out["full"][0]
+    inadmissible = int((~flt.admits(ids[ids >= 0])).sum())
+    n_unfiltered = store.query_topp_batch(qw, qx, TOP_K, engine="gather")[2]
+    qps = {}
+    queries = t1m["queries"][TOPP_QPS_BATCHES_1M[0]]
+    for eng in ("full", "gather"):
+        store.rerank_engine = eng
+        for tag, where in (("filtered", flt), ("unfiltered", None)):
+            serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES, where=where)
+            qps[f"qps_{eng}_{tag}"] = serving_qps(serve, queries, trials=2)
+    emit("filter_topp_1m", card=label, queries=TOPP_QUERIES, gather_exact=int(exact.sum()),
+         gather_vs_full_on_exact=agree, inadmissible_ids_returned=inadmissible,
+         mean_candidates=float(out["full"][2].mean()),
+         mean_candidates_unfiltered=float(n_unfiltered.mean()), batch=TOPP_QPS_BATCHES_1M[0], **qps)
+    assert agree["rows_bad"] == 0 and inadmissible == 0 and exact.sum() > 0, (agree, inadmissible)
+    assert (out["full"][2] <= n_unfiltered).all()
+
+
+def phase_family_lifecycle(seed: int) -> None:
+    """save / load_from_disk(device="cuda") of a structured and a
+    cross-polytope index (diagonals.npz), identical ids before and after."""
+    from lshrs_tpu_torch import LSHRS
+
+    rng = np.random.default_rng(seed + 10)
+    X = rng.standard_normal((N_100K, DIM), dtype=np.float32)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    for family, nb, r, probes in (("structured", NUM_BANDS, ROWS, 2),
+                                  ("crosspolytope", CP_BANDS, CP_ROWS, 2),
+                                  ("crosspolytope", CP_BANDS, CP_ROWS, 4)):
+        lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=nb, rows_per_band=r, seed=7,
+                    hash_family=family, multiprobe=probes, device=DEVICE)
+        for i in range(0, N_100K, INGEST_BATCH):
+            lsh.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+        ckpt = Path(__file__).resolve().parent / "build" / f"chip_smoke_{family}{probes}_checkpoint"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            lsh.save_to_disk(ckpt)
+            files = sorted(f.name for f in ckpt.iterdir())
+            back = LSHRS.load_from_disk(ckpt, device=DEVICE)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        want = lsh.query_batch(qx, top_k=TOP_K)
+        equal = back.query_batch(qx, top_k=TOP_K) == want
+        same_diags = bool(np.array_equal(back._hasher.diagonals, lsh._hasher.diagonals))
+        emit("save_load_family", family=family, files=files, equal=equal, same_diagonals=same_diags,
+             multiprobe=back.stats()["multiprobe"], device=back.stats()["device"],
+             nonempty=sum(1 for row in want if row))
+        assert equal and same_diags and "diagonals.npz" in files and "projections.npz" not in files
+        assert back.stats()["multiprobe"] == probes and back.stats()["hash_family"] == family
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -908,7 +1492,7 @@ def main() -> int:
 
     from lshrs_tpu_torch.ops import _build
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE)
     label = card_label()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
@@ -925,16 +1509,30 @@ def main() -> int:
     wrappers = {name: getattr(group_max, name) for name in KERNELS}
     launches = {name: 0 for name in KERNELS}
 
-    def drive(path: str, kernel: str, run):
+    b1_by_shape = {}
+
+    def drive(path: str, kernel, run, *, b1_shapes=()):
+        """Run one path with every launch counter at 0 just before it and
+        read just after: each kernel named (one name or several) must have
+        been launched, and B1 at each ``(BW, probes)`` of ``b1_shapes``."""
         for w in wrappers.values():
             w.launches = 0
+        wrappers[B1].launches_by_shape.clear()
         out = run()
         counts = {name: w.launches for name, w in wrappers.items()}
-        emit("launches", path=path, **counts)
-        if counts[kernel] == 0:
-            raise AssertionError(f"{kernel} was not launched on the {path} path")
+        shapes = dict(wrappers[B1].launches_by_shape)
+        emit("launches", path=path, **counts,
+             b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())})
+        for name in ([kernel] if isinstance(kernel, str) else kernel):
+            if counts[name] == 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+        for shape in b1_shapes:
+            if shapes.get(shape, 0) == 0:
+                raise AssertionError(f"B1 was not launched at (BW, probes)={shape} on the {path} path")
         for name, n in counts.items():
             launches[name] += n
+        for shape, n in shapes.items():
+            b1_by_shape[shape] = b1_by_shape.get(shape, 0) + n
         return out
 
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
@@ -1003,8 +1601,29 @@ def main() -> int:
              engine=eng, payload_dtype="int8",
              **serving_profile(serves[eng, TOPP_QPS_BATCHES_1M[-1]],
                                t1m["queries"][TOPP_QPS_BATCHES_1M[-1]][:1]))
-    del t1m, lsh1m, store1m, serves
+    del lsh1m, store1m, serves
+
+    # Phase 9: hash families, multi-probe, filters.
+    drive("hash_parity", (), lambda: phase_hash_parity(args.seed, label))
+    st1m = drive("structured_1m", (B2, B3), lambda: phase_structured_1m(args.seed, label))
+    for name in ("host", "device", "device", "host", "host_packed"):
+        emit("serving", card=label, rows=N_1M, batch=QPS_BATCH_1M, engine="hamming",
+             hash_family="structured", hash_mode=name,
+             qps=serving_qps(st1m["serves"][name], st1m["queries"], trials=2))
+    emit("profile", card=label, rows=N_1M, batch=QPS_BATCH_1M, engine="hamming",
+         hash_family="structured", hash_mode="device",
+         **serving_profile(st1m["serves"]["device"], st1m["queries"][:2]))
+    build_profiles(args.seed, label)
+    drive("multiprobe_100k", B1, lambda: phase_multiprobe_100k(args.seed, label),
+          b1_shapes=[(NUM_BANDS, 2), (NUM_BANDS, 4)])
+    drive("probe_and_cp_1m", B1, lambda: phase_probe_and_cp_1m(t1m, label),
+          b1_shapes=[(NUM_BANDS, 4), (CP_BANDS, 1)])
+    drive("filters", KERNELS, lambda: phase_filters(st1m, t1m, args.seed, label))
+    del t1m, st1m
     drive("topp_lifecycle_100k", "group_max_keys", lambda: phase_topp_lifecycle(t100, args.seed))
+    del t100
+    drive("family_lifecycle_100k", B1, lambda: phase_family_lifecycle(args.seed),
+          b1_shapes=[(NUM_BANDS, 2), (CP_BANDS, 2), (CP_BANDS, 4)])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
@@ -1021,6 +1640,16 @@ def main() -> int:
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, rep) in sources.items()
     ]
+    # B1 once more per timed multi-probe / 32-word instantiation: the same
+    # source, its launches on the main path at that (BW, probes).
+    src, rep = sources[B1]
+    for variant in B1_VARIANTS.values():
+        t = times[variant]
+        kernels.append(
+            {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+             "launches": b1_by_shape[t["bands"], t["probes"]],
+             "max_abs_err": kern["max_abs_err"][B1],
+             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(label)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

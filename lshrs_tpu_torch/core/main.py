@@ -4,22 +4,27 @@ The PyTorch port of `lshrs_tpu.core.main.LSHRS` for the device backend:
 build, exact top-k serving, top-p cosine rerank, delete and compact, and
 persistence.
 
-    ingest/index -> batch hash (one matmul + bitpack; or host sgemm +
-                    dense wire with hash_mode="host")
+    ingest/index -> batch hash (gaussian / learned: one matmul + bitpack;
+                    structured / cross-polytope: FWHT rotations; on the
+                    device, or on the host — sgemm or the native C FWHT —
+                    shipping the dense wire with hash_mode="host")
                  -> store append (device tensors, in place; with
                     store_vectors the payload rows too)
-    query        -> hash -> kernel B1 (collision), B2 (Hamming on
-                    bitplanes) or B3 (Hamming on packed words) group max
-                 -> exact top-k groups -> refine -> ids
+    query        -> hash (with multiprobe=T: T probe signatures per
+                    query for collision counting and top-p) -> kernel B1
+                    (collision), B2 (Hamming on bitplanes) or B3 (Hamming
+                    on packed words) group max -> exact top-k groups ->
+                    refine -> ids; where= ranks only the admitted ids
     top-p        -> hash -> collision counts (full engine) or kernel B1's
                     candidate gather -> cosine rerank over the resident
                     payload -> (id, cosine); or, without a payload, the
                     enumerated candidates through vector_fetch_fn and a
                     host rerank
     delete       -> tombstones (id -1); compact rebuilds the dense prefix
-    save/load    -> metadata.json + projections.npz + index.npz, the
-                    reference package's format (checkpoints load across
-                    the two packages)
+    save/load    -> metadata.json + projections.npz (diagonals.npz for the
+                    structured and cross-polytope families) + index.npz,
+                    the reference package's format (checkpoints load
+                    across the two packages)
 
 Same public contract as the reference for these paths: validation
 messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
@@ -28,8 +33,8 @@ rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 buffer-restore-on-failed-flush semantics.
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP Queue A):
-id filters, multi-probe, MIPS, the non-gaussian hash families, the
-asymmetric and cascade modes, bucket backends, sharding and retuning.
+MIPS, the asymmetric and cascade modes, the bucketed engine, bucket
+backends, sharding and retuning (``rehash`` / ``retrain``).
 """
 
 from __future__ import annotations
@@ -45,10 +50,11 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from lshrs_tpu_torch.hash.hasher import LSHHasher, hash_words
+from lshrs_tpu_torch.hash.hasher import LSHHasher
 from lshrs_tpu_torch.storage.device import DeviceStore
 from lshrs_tpu_torch.storage.filter import as_filter
 from lshrs_tpu_torch.utils.br import get_optimal_config
+from lshrs_tpu_torch.utils.cp import get_optimal_cp_config
 from lshrs_tpu_torch.utils.similarity import top_k_cosine
 
 logger = logging.getLogger(__name__)
@@ -82,7 +88,8 @@ def _not_ported(what: str) -> NotImplementedError:
 class LSHRS:
     """Locality-sensitive-hashing index over dense float32 vectors.
 
-    Signatures are banded random hyperplane projections, kept in a
+    Signatures are banded hash signatures (random hyperplanes, FWHT
+    rotations or cross-polytope symbols, by ``hash_family``), kept in a
     device-resident signature store (`lshrs_tpu_torch.storage.DeviceStore`)
     and queried with the hand-written group-max kernels.
 
@@ -113,10 +120,23 @@ class LSHRS:
             over the stored words, kernel B3, zero extra bytes); ``None``
             (default) means ``"planes"``. An explicit ``"packed"`` is kept
             when the auto/hamming engine turns Hamming ranking on.
-        hash_mode: ``"device"`` (one float32 matmul per batch on the
-            device) or ``"host"`` (NumPy sgemm, ships the dense signature
-            wire). One path per instance, so stored and query signatures
-            agree bit for bit.
+        hash_mode: ``"device"`` (hash on the device) or ``"host"`` (NumPy
+            sgemm or the native C FWHT; ships the dense signature wire).
+            One path per instance, so stored and query signatures agree
+            bit for bit.
+        hash_family: ``"gaussian"`` (seeded hyperplanes), ``"structured"``
+            (FWHT rotations, bit-identical on host and device),
+            ``"learned"`` (hyperplanes fitted with
+            `lshrs_tpu_torch.hash.itq`, assigned through
+            ``_hasher.projections``) or ``"crosspolytope"`` (one
+            signed-argmax symbol per band; collision counting and top-p
+            only, ``engine`` is forced to ``"collision"``); see `LSHHasher`.
+        multiprobe: query-directed multi-probe depth T (default 1 = off,
+            at most ``rows_per_band``, or ``2^(rows_per_band-1)`` for
+            cross-polytope). Collision top-k, candidate enumeration and
+            top-p count a band that matches ANY of the query's T probe
+            signatures; Hamming ranking scores every slot already and
+            uses probe 0.
         engine: top-k ranking — ``"collision"`` (band-collision counting,
             reference parity), ``"hamming"`` (full-signature Hamming) or
             ``"auto"`` (default: collision below `_AUTO_HAMMING_CAPACITY`
@@ -124,8 +144,8 @@ class LSHRS:
         device: where the store and the device hash live (``"cuda"`` by
             default; ``"cpu"`` runs the kernels' plain PyTorch versions).
 
-    ``backend``, ``shards``, ``hash_family``, ``multiprobe`` and
-    ``similarity`` are accepted only at their defaults.
+    ``backend``, ``shards`` and ``similarity`` are accepted only at their
+    defaults.
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -171,14 +191,38 @@ class LSHRS:
             raise ValueError("buffer_size must be greater than zero")
         if hash_mode not in ("device", "host"):
             raise ValueError("hash_mode must be 'device' or 'host'")
+        if hash_family not in ("gaussian", "structured", "learned", "crosspolytope"):
+            raise ValueError(
+                "hash_family must be 'gaussian', 'structured', 'learned' "
+                "or 'crosspolytope'"
+            )
         if engine not in ("auto", "collision", "hamming"):
             raise ValueError("engine must be 'auto', 'collision' or 'hamming'")
+        if hash_family == "crosspolytope":
+            # Cross-polytope signatures are signed-argmax SYMBOLS, not sign
+            # bits: Hamming distance over a symbol's binary encoding is
+            # meaningless, so the bit-semantic engine is rejected rather
+            # than silently mis-ranking. Collision counting + payload
+            # rerank carry this family.
+            if engine == "hamming":
+                raise ValueError(
+                    "engine='hamming' requires sign-bit signatures; the "
+                    "cross-polytope family ranks by collision counting "
+                    "(+ payload rerank)"
+                )
+            if enable_hamming:
+                raise ValueError(
+                    "enable_hamming is unavailable with "
+                    "hash_family='crosspolytope': Hamming distance over "
+                    "argmax symbols is not meaningful"
+                )
+            engine = "collision"
+        if not isinstance(multiprobe, int) or multiprobe < 1:
+            raise ValueError("multiprobe must be an integer >= 1")
         if backend != "device":
             raise _not_ported(f"backend={backend!r} (bucket backends: I/O and Redis)")
         if shards is not None and shards > 1:
             raise _not_ported("shards (sharding)")
-        if multiprobe != 1:
-            raise _not_ported("multiprobe")
         if similarity != "cosine":
             raise _not_ported(f"similarity={similarity!r} (MIPS)")
         # None means "planes"; an explicit "packed" (zero extra memory)
@@ -191,12 +235,30 @@ class LSHRS:
             enable_hamming = True
 
         if num_bands is None or rows_per_band is None:
-            num_bands, rows_per_band = get_optimal_config(num_perm, similarity_threshold)
+            if hash_family == "crosspolytope":
+                # The sign-bit S-curve (p = s^r) does not describe
+                # cross-polytope collisions; the CP tuner integrates a
+                # Monte-Carlo collision curve instead.
+                num_bands, rows_per_band = get_optimal_cp_config(
+                    num_perm, similarity_threshold, dim
+                )
+            else:
+                num_bands, rows_per_band = get_optimal_config(num_perm, similarity_threshold)
         if num_bands * rows_per_band != num_perm:
             raise ValueError(
                 "num_bands * rows_per_band must equal num_perm "
                 f"(received {num_bands} * {rows_per_band} != {num_perm})"
             )
+        max_probes = (
+            1 << (rows_per_band - 1) if hash_family == "crosspolytope" else rows_per_band
+        )
+        if multiprobe > max_probes:
+            bound = "cp_dims" if hash_family == "crosspolytope" else "rows_per_band"
+            raise ValueError(
+                f"multiprobe must be <= {bound} "
+                f"(= {max_probes}); received {multiprobe}"
+            )
+        self._multiprobe = multiprobe
 
         self._engine = engine
         self._dim = dim
@@ -348,7 +410,10 @@ class LSHRS:
         idx_arr, words, vecs = record
         if words is None:  # device hash + append
             self.flush()
-            self._storage.add_vectors_batch(idx_arr, vecs, self._hasher.device_projection())
+            self._storage.add_vectors_batch(
+                idx_arr, vecs, self._hasher.device_projection(),
+                hash_family=self._hasher.hash_family,
+            )
             self._count("vectors_ingested", idx_arr.size)
             self._count("flushes")
             return
@@ -456,28 +521,34 @@ class LSHRS:
         payload, or ``vector_fetch_fn``), ordered by ``(cosine desc, id
         asc)``; returns the top ``max(1, ceil(n_candidates * top_p))`` as
         ``(id, cosine)`` tuples, capped by ``top_k`` when given.
+
+        ``where``: optional `lshrs_tpu_torch.storage.IdFilter` (or an
+        array-like allowlist of ids). Results rank ONLY the admitted
+        subset — exact top-k / top-p over it, not post-filtering (a
+        filtered-out candidate never consumes a result slot).
         """
         if top_k is not None and top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         if top_p is not None and not 0 < top_p <= 1:
             raise ValueError("top_p must be within the range (0, 1]")
-        as_filter(where)
+        where = as_filter(where)
         query_vector = self._prepare_vector(vector)
         self._count("queries_served")
         if top_p is None and top_k is not None:
-            qwords = self._hash_words(query_vector[None, :])
             if self._use_hamming_ranking():
-                _, ids = self._storage.query_hamming(qwords, top_k)
+                qwords = self._hash_words(query_vector[None, :])
+                _, ids = self._storage.query_hamming(qwords, top_k, where=where)
                 return [int(i) for i in ids[0] if i >= 0]
-            counts, ids = self._storage.query_topk(qwords, top_k)
+            qwords = self._hash_query_words(query_vector[None, :])
+            counts, ids = self._storage.query_topk(qwords, top_k, where=where)
             return [int(i) for i, c in zip(ids[0], counts[0]) if c > 0]
 
         # Resident payload and no fetch callback: counts, cosines and the
         # cutoff on the device, only the (id, cosine) prefix reaches the host.
         if top_p is not None and self._store_vectors and self._vector_fetch_fn is None:
-            return self._query_topp_device(query_vector, top_k, top_p)
+            return self._query_topp_device(query_vector, top_k, top_p, where=where)
 
-        ordered = self._ordered_candidates(query_vector)
+        ordered = self._ordered_candidates(query_vector, where=where)
         if not ordered:
             return []
         if top_p is None:
@@ -496,41 +567,47 @@ class LSHRS:
     _MAX_DEVICE_RERANK = 4096
 
     def _query_topp_device(
-        self, query_vector: np.ndarray, top_k: Optional[int], top_p: float
+        self, query_vector: np.ndarray, top_k: Optional[int], top_p: float, where=None
     ) -> CandidateScores:
         """Top-p on the device store. A cutoff past the first prefix is
         reranked on the device again with the prefix the candidate count
         asks for: the payload never leaves the device (the reference
         reranks such cutoffs on the host)."""
-        qwords = self._hash_words(query_vector[None, :])
-        ids, sims, n = self._storage.query_topp(qwords, query_vector, self._MAX_DEVICE_RERANK)
+        qwords = self._hash_query_words(query_vector[None, :])
+        ids, sims, n = self._storage.query_topp(
+            qwords, query_vector, self._MAX_DEVICE_RERANK, where=where
+        )
         if n == 0:
             return []
         limit = max(1, math.ceil(n * top_p))
         if top_k is not None:
             limit = min(limit, top_k)
         if limit > len(ids):
-            ids, sims, _ = self._storage.query_topp(qwords, query_vector, limit)
+            ids, sims, _ = self._storage.query_topp(qwords, query_vector, limit, where=where)
         return [(int(i), float(s)) for i, s in zip(ids[:limit], sims[:limit])]
 
     # First guess of the bounded candidate enumeration; it grows to the
     # next power of two of the device-counted candidate total.
     _CANDIDATE_ENUM_START = 4096
 
-    def _ordered_candidates(self, query_vector: np.ndarray) -> list[tuple[int, int]]:
+    def _ordered_candidates(
+        self, query_vector: np.ndarray, where=None
+    ) -> list[tuple[int, int]]:
         """Every colliding candidate as ``(id, count)``, by ``(-count, id)``.
 
         Bounded: the device counts the query's candidates (``query_nnz``,
         O(1) readback), then an exact collision top-M with M the next power
         of two of that count (at least `_CANDIDATE_ENUM_START`) returns
-        them all; the ``(Q, C)`` count matrix never reaches the host.
+        them all; the ``(Q, C)`` count matrix never reaches the host. With
+        ``multiprobe`` the candidates are the union over the probes (a
+        band counts once, whichever probe it matches).
         """
-        qwords = self._hash_words(query_vector[None, :])
-        n = int(self._storage.query_nnz(qwords)[0])
+        qwords = self._hash_query_words(query_vector[None, :])
+        n = int(self._storage.query_nnz(qwords, where=where)[0])
         if n == 0:
             return []
         m = max(self._CANDIDATE_ENUM_START, 1 << (n - 1).bit_length())
-        counts, ids = self._storage.query_topk(qwords, m)
+        counts, ids = self._storage.query_topk(qwords, m, where=where)
         return [(int(i), int(c)) for i, c in zip(ids[0, :n], counts[0, :n])]
 
     def _fetch_candidates(self, candidate_indices: list[int]) -> np.ndarray:
@@ -548,9 +625,11 @@ class LSHRS:
             )
         return arr
 
-    def get_above_p(self, vector: np.ndarray, p: float = 0.95) -> CandidateScores:
+    def get_above_p(
+        self, vector: np.ndarray, p: float = 0.95, *, where=None
+    ) -> CandidateScores:
         """Cosine-reranked top ``ceil(p * n_candidates)`` scored results."""
-        return list(self.query(vector, top_k=None, top_p=p))
+        return list(self.query(vector, top_k=None, top_p=p, where=where))
 
     def get_above_p_batch(
         self,
@@ -578,14 +657,14 @@ class LSHRS:
         if wire_dtype not in ("float32", "bfloat16"):
             raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
         arr = self._validate_batch(vectors)
-        as_filter(where)
+        where = as_filter(where)
         if not self._store_vectors or self._vector_fetch_fn is not None:
-            return [self.query(v, top_k=top_k, top_p=p) for v in arr]
+            return [self.query(v, top_k=top_k, top_p=p, where=where) for v in arr]
         self._count("queries_served", arr.shape[0])
         # The cutoff is min(ceil(p * n), top_k): top_k bounds the prefix.
         max_out = min(max_candidates, top_k) if top_k is not None else max_candidates
         ids, sims, n = self._storage.query_topp_batch(
-            self._hash_words(arr), arr, max_out, wire_dtype=wire_dtype
+            self._hash_query_words(arr), arr, max_out, wire_dtype=wire_dtype, where=where
         )
         results: list[CandidateScores] = []
         for qi in range(arr.shape[0]):
@@ -608,14 +687,13 @@ class LSHRS:
         """Batched top-k query: one hash matmul and one fused scan."""
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        as_filter(where)
+        where = as_filter(where)
         arr = self._validate_batch(vectors)
         self._count("queries_served", arr.shape[0])
-        qwords = self._hash_words(arr)
         if self._use_hamming_ranking():
-            _, ids = self._storage.query_hamming(qwords, top_k)
+            _, ids = self._storage.query_hamming(self._hash_words(arr), top_k, where=where)
             return [[int(i) for i in row if i >= 0] for row in ids]
-        counts, ids = self._storage.query_topk(qwords, top_k)
+        counts, ids = self._storage.query_topk(self._hash_query_words(arr), top_k, where=where)
         return [
             [int(i) for i, c in zip(row_ids, row_counts) if c > 0]
             for row_ids, row_counts in zip(ids, counts)
@@ -632,10 +710,11 @@ class LSHRS:
         """
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        as_filter(where)
         query_vector = self._prepare_vector(vector)[None, :]
         self._count("queries_served")
-        hamming, ids = self._storage.query_hamming(self._hash_words(query_vector), top_k)
+        hamming, ids = self._storage.query_hamming(
+            self._hash_words(query_vector), top_k, where=as_filter(where)
+        )
         return self._hamming_scores(hamming, ids)[0]
 
     def query_hamming_batch(
@@ -644,10 +723,11 @@ class LSHRS:
         """Batched :meth:`query_hamming` (one hash, one fused scan)."""
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        as_filter(where)
         arr = self._validate_batch(vectors)
         self._count("queries_served", arr.shape[0])
-        hamming, ids = self._storage.query_hamming(self._hash_words(arr), top_k)
+        hamming, ids = self._storage.query_hamming(
+            self._hash_words(arr), top_k, where=as_filter(where)
+        )
         return self._hamming_scores(hamming, ids)
 
     def _hamming_scores(self, hamming: np.ndarray, ids: np.ndarray) -> list[CandidateScores]:
@@ -661,9 +741,9 @@ class LSHRS:
             for row_ids, row_h in zip(ids, hamming)
         ]
 
-    def get_top_k(self, vector: np.ndarray, topk: int = 10) -> list[int]:
+    def get_top_k(self, vector: np.ndarray, topk: int = 10, *, where=None) -> list[int]:
         """Top ``topk`` candidate ids (see :meth:`query`)."""
-        return self.query(vector, top_k=topk)
+        return self.query(vector, top_k=topk, where=where)
 
     def serving_fn(
         self,
@@ -695,6 +775,12 @@ class LSHRS:
             batch_hint: ``"topp"`` only — the batch size the closure will
                 serve; the auto rerank engine sizes the full engine's
                 ``(Q, capacity)`` temporaries from it.
+            where: optional id filter baked into the snapshot: every batch
+                ranks ONLY the admitted subset.
+
+        With ``multiprobe=T`` the ``"collision"`` and ``"topp"`` closures
+        hash T probe signatures per query (probe words on the device, or
+        the dense probe wire from the host); ``"hamming"`` uses probe 0.
 
         Returns:
             ``"collision"`` / ``"hamming"``: callable ``(vectors (Q, dim))
@@ -708,23 +794,33 @@ class LSHRS:
             mode = "hamming" if self._use_hamming_ranking() else "collision"
         if mode not in ("collision", "hamming", "topp"):
             raise ValueError("mode must be 'collision', 'hamming', 'asymmetric' or 'topp'")
+        if mode == "hamming" and self._hasher.hash_family == "crosspolytope":
+            raise ValueError(
+                f"mode='{mode}' requires sign-bit signatures; the "
+                "cross-polytope family serves mode='collision' or 'topp'"
+            )
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         if wire_dtype not in ("float32", "bfloat16"):
             raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
+        where = as_filter(where)
         if mode == "topp":
             return self._serving_topp(top_k, wire_dtype=wire_dtype, batch_hint=batch_hint,
                                       where=where)
+        # Collision-mode serving honours the instance's multi-probe depth;
+        # the probe wire grows a T axis (T times the bytes per query).
+        probes = self._multiprobe if mode == "collision" else 1
         serve = self._storage.snapshot_query_fn(
             top_k,
             wire="words" if self._hash_on_device else "dense",
             mode=mode,
+            probes=probes,
             where=where,
         )
 
         def run(vectors) -> np.ndarray:
             arr = self._validate_batch(vectors)
-            out = serve(self._hash_for_ingest(arr)).cpu().numpy()
+            out = serve(self._hash_wire(arr, probes)).cpu().numpy()
             # Count after the dispatch: stale-snapshot calls raise and must
             # not inflate queries_served.
             self._count("queries_served", arr.shape[0])
@@ -738,9 +834,11 @@ class LSHRS:
         hash and the rerank read that tensor (a bf16 wire is rounded there,
         half to even as on the host); with the host hash, the dense wire
         and the vectors (bf16 when asked: half the bytes) are uploaded."""
+        probes = self._multiprobe
         serve = self._storage.snapshot_topp_fn(
             top_k,
             wire="words" if self._hash_on_device else "dense",
+            probes=probes,
             batch_hint=batch_hint,
             where=where,
         )
@@ -750,12 +848,9 @@ class LSHRS:
             arr = self._validate_batch(vectors)
             if self._hash_on_device:
                 qv = torch.from_numpy(arr).to(dev)
-                sig = hash_words(
-                    qv, self._hasher.device_projection(),
-                    num_bands=self._hasher.num_bands, rows_per_band=self._hasher.rows_per_band,
-                )
+                sig = self._hash_wire(qv, probes)
             else:
-                sig = self._hasher.hash_batch_dense_host(arr)
+                sig = self._hash_wire(arr, probes)
                 qv = torch.from_numpy(arr)
             if wire_dtype == "bfloat16":
                 qv = qv.to(torch.bfloat16)
@@ -804,6 +899,9 @@ class LSHRS:
             "device": str(self._storage.device),
             "engine": self._engine,
             "engine_resolved": self._tpu_config.get("engine_resolved"),
+            "similarity": self._config["similarity"],
+            "hash_family": self._hasher.hash_family,
+            "multiprobe": self._multiprobe,
             "ranking": "hamming" if self._use_hamming_ranking() else "collision",
             "buffered_operations": buffered,
             "counters": counters,
@@ -819,8 +917,9 @@ class LSHRS:
 
         Writes the reference package's format: ``metadata.json`` (version
         ``"0.1.0"``, ``config`` / ``redis_config`` / ``tpu_config``),
-        ``projections.npz`` (one ``(rows_per_band, dim)`` matrix per band)
-        and, when the index holds live entries, ``index.npz``
+        ``projections.npz`` (one ``(rows_per_band, dim)`` matrix per band;
+        the structured and cross-polytope families write their +-1
+        ``diagonals.npz`` instead) and, when the index holds live entries, ``index.npz``
         (`DeviceStore.state_arrays`). Either package loads it.
         """
         self.flush()
@@ -834,7 +933,10 @@ class LSHRS:
         }
         with open(output_dir / "metadata.json", "w") as f:
             json.dump(metadata, f, indent=2)
-        np.savez_compressed(output_dir / "projections.npz", *self._hasher.projections)
+        if self._hasher.hash_family in ("structured", "crosspolytope"):
+            np.savez_compressed(output_dir / "diagonals.npz", diagonals=self._hasher.diagonals)
+        else:
+            np.savez_compressed(output_dir / "projections.npz", *self._hasher.projections)
         if len(self._storage):
             np.savez_compressed(output_dir / "index.npz", **self._storage.state_arrays())
 
@@ -861,10 +963,14 @@ class LSHRS:
             vector_fetch_fn=vector_fetch_fn,
             device=device,
         )
-        with np.load(input_dir / "projections.npz") as data:
-            instance._hasher.projections = [
-                data[f"arr_{i}"].astype(np.float32) for i in range(len(data.files))
-            ]
+        if instance._hasher.hash_family in ("structured", "crosspolytope"):
+            with np.load(input_dir / "diagonals.npz") as data:
+                instance._hasher.diagonals = data["diagonals"]
+        else:
+            with np.load(input_dir / "projections.npz") as data:
+                instance._hasher.projections = [
+                    data[f"arr_{i}"].astype(np.float32) for i in range(len(data.files))
+                ]
         index_path = input_dir / "index.npz"
         if index_path.exists():
             with np.load(index_path) as data:
@@ -922,9 +1028,14 @@ class LSHRS:
             "config": self._config.copy(),
             "redis_config": dict(_REDIS_CONFIG_DEFAULTS),
             "tpu_config": self._tpu_config.copy(),
-            "projections": [np.asarray(m, dtype=np.float32) for m in self._hasher.projections],
             "device": str(self._storage.device),
         }
+        if self._hasher.hash_family in ("structured", "crosspolytope"):
+            state["diagonals"] = np.asarray(self._hasher.diagonals)
+        else:
+            state["projections"] = [
+                np.asarray(m, dtype=np.float32) for m in self._hasher.projections
+            ]
         if len(self._storage):
             state["index_state"] = self._storage.state_arrays()
         return state
@@ -937,7 +1048,10 @@ class LSHRS:
         )
         self.__dict__ = restored.__dict__
         self._restore_engine_resolved(tpu_config)
-        self._hasher.projections = state["projections"]
+        if "diagonals" in state:
+            self._hasher.diagonals = state["diagonals"]
+        else:
+            self._hasher.projections = state["projections"]
         if "index_state" in state:
             self._storage.load_state_arrays(state["index_state"])
 
@@ -951,6 +1065,34 @@ class LSHRS:
         if self._hash_on_device:
             return self._hasher.hash_batch_words(arr)
         return self._hasher.hash_batch_words_host(arr)
+
+    def _hash_query_words(self, arr: np.ndarray):
+        """Collision-path QUERY hashing, with multi-probe expansion.
+
+        With ``multiprobe=T > 1`` the result is ``(Q, T, BW)`` — probe 0
+        is the plain signature (bit-identical to the ingest hash), probes
+        ``t >= 1`` flip each band's ``t``-th lowest-margin bit (or step to
+        the cross-polytope's ``t``-th ranked axis). The store counts bands
+        matching ANY probe, expanding candidate sets at zero memory cost
+        (only collision counting and top-p candidate enumeration consume
+        probes; Hamming ranking scores all slots already).
+        """
+        if self._multiprobe > 1:
+            if self._hash_on_device:
+                return self._hasher.hash_batch_probe_words(arr, self._multiprobe)
+            return self._hasher.hash_batch_probe_words_host(arr, self._multiprobe)
+        return self._hash_words(arr)
+
+    def _hash_wire(self, arr, n_probes: int):
+        """Serving wire for a query batch: probe words (device hash) or
+        the dense probe wire (host hash) when probing, the instance's
+        ingest wire otherwise. ``arr`` is a NumPy batch, or with the
+        device hash a tensor already on the device."""
+        if n_probes > 1:
+            if self._hash_on_device:
+                return self._hasher.hash_batch_probe_words(arr, n_probes)
+            return self._hasher.hash_batch_probe_dense_host(arr, n_probes)
+        return self._hash_for_ingest(arr)
 
     def _hash_for_ingest(self, arr: np.ndarray):
         """Wire hashing: device words, or the dense host wire in host mode

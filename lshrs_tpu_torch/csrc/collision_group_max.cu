@@ -23,6 +23,22 @@
 // 16-byte load. The running group max stays in a register and is written
 // once per group. Blocks cover whole groups, so nothing is carried
 // between blocks.
+//
+// Register instantiations (nvcc 12.8, -O3, sm_90a, -Xptxas -v; 128 threads
+// per block, so up to 255 registers per thread are allowed):
+//   <BW, W, P>   registers  spill (stores / loads, bytes)
+//   <16, 1, 1>       48       0 / 0
+//   <16, 1, 2>       80      12 / 12
+//   <16, 1, 4>      152       0 / 0
+//   <32, 1, 1>       64       0 / 0
+//   <32, 1, 2>      180       0 / 0
+//   <32, 1, 4>      255      80 / 80   (128 query words per thread)
+//   <8, 1, 1> 48, <4, 1, 1> 32, <4, 2, 1> 39, generic <0, 0, 0> 32: no spills.
+// <32, 1, 4> spills 20 of its words to local memory and stays in registers
+// all the same: on an H100 it takes 3.2 ms at Q=1024, C=131072 where the
+// generic instantiation, which re-reads every query word through L1 in the
+// inner loop, takes several times longer on the same count of word
+// compares (benchmarks/torch_b1_probe.py times both).
 
 #include <climits>
 #include <cstdint>
@@ -188,7 +204,10 @@ extern "C" int lshrs_collision_group_max(
   }
   LSHRS_B1_CASE(16, 1, 1)
   LSHRS_B1_CASE(16, 1, 2)
+  LSHRS_B1_CASE(16, 1, 4)
   LSHRS_B1_CASE(32, 1, 1)
+  LSHRS_B1_CASE(32, 1, 2)
+  LSHRS_B1_CASE(32, 1, 4)
   LSHRS_B1_CASE(8, 1, 1)
   LSHRS_B1_CASE(4, 1, 1)
   LSHRS_B1_CASE(4, 2, 1)

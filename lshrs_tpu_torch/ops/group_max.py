@@ -24,7 +24,8 @@ exactly (`lshrs_tpu_torch.ops.scan`, `lshrs_tpu_torch.ops.hamming`).
 Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
-kernel launches it makes in its ``launches`` attribute.
+kernel launches it makes in its ``launches`` attribute (B1 also by
+``(BW, probes)`` in ``launches_by_shape``).
 
 Key packing requires ``(num_bands + 1) * S < 2**31`` (B1),
 ``(maxscaled + 2) * S < 2**31`` (B2) and ``(P + 2) * S < 2**31`` (B3)
@@ -34,6 +35,8 @@ chunked fallback).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -250,10 +253,14 @@ def group_max_keys(
         q, c, bw, words, probes, group, scale, num_bands,
     )
     group_max_keys.launches += 1
+    group_max_keys.launches_by_shape[bw, probes] += 1
     return out
 
 
 group_max_keys.launches = 0
+# The same launches, by (band words BW, probes): which template
+# instantiation a path reached.
+group_max_keys.launches_by_shape = collections.Counter()
 
 
 def hamming_group_max_keys_ref(

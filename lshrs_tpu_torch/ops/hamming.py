@@ -33,7 +33,7 @@ from lshrs_tpu_torch.ops.group_max import (
     hamming_packed_group_max_keys,
     key_scale,
 )
-from lshrs_tpu_torch.ops.scan import gather_refine_group_rows
+from lshrs_tpu_torch.ops.scan import gather_refine_group_rows, gather_refine_slots
 
 __all__ = [
     "hamming_topk_core",
@@ -88,12 +88,14 @@ def hamming_topk_core(
     tie: torch.Tensor,
     qbits: torch.Tensor,
     qwords: torch.Tensor,
-    sig_rows: torch.Tensor,
+    sig_rows: torch.Tensor | None,
     *,
     k: int,
     group: int,
     narrow_r: int = 0,
     num_perm: int | None = None,
+    sig_t: torch.Tensor | None = None,
+    ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
@@ -105,8 +107,12 @@ def hamming_topk_core(
             ``(Q, BW)`` int32 queries.
         sig_rows: ``(C // group, group * (nw + 2))`` grouped refine table
             (`lshrs_tpu_torch.ops.scan.build_grouped_refine_rows`);
-            narrow-packed when ``narrow_r`` is nonzero.
+            narrow-packed when ``narrow_r`` is nonzero. ``None`` refines
+            slot by slot from ``sig_t``, ``tie`` and ``ids`` (filtered
+            queries: the table bakes in the unfiltered columns).
         num_perm: signature bits P (default ``Pp``).
+        sig_t / ids: ``(BW, C)`` packed words and ``(C,)`` id column,
+            needed only without ``sig_rows``.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -118,7 +124,8 @@ def hamming_topk_core(
         planes, tie, qbits, group=group, scale=key_scale(c), num_perm=p
     )
     return _select_refine(
-        gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r
+        gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r,
+        sig_t=sig_t, tie=tie, ids=ids,
     )
 
 
@@ -126,12 +133,13 @@ def hamming_topk_packed_core(
     sig_t: torch.Tensor,
     tie: torch.Tensor,
     qwords: torch.Tensor,
-    sig_rows: torch.Tensor,
+    sig_rows: torch.Tensor | None,
     *,
     num_perm: int,
     k: int,
     group: int,
     narrow_r: int = 0,
+    ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc) from the PACKED words only.
 
@@ -144,7 +152,8 @@ def hamming_topk_packed_core(
             arbitrary).
         tie: ``(C,)`` int32 global tie keys (-1 dead).
         qwords: ``(Q, BW)`` int32 query words.
-        sig_rows: grouped refine table, as for :func:`hamming_topk_core`.
+        sig_rows: grouped refine table, as for :func:`hamming_topk_core`
+            (``None``: per-slot refinement, which needs ``ids``).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -155,17 +164,22 @@ def hamming_topk_packed_core(
         scale=key_scale(sig_t.shape[1]),
     )
     return _select_refine(
-        gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r
+        gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
+        sig_t=sig_t, tie=tie, ids=ids,
     )
 
 
-def _select_refine(gmax, qwords, sig_rows, *, p, k, group, narrow_r=0):
+def _select_refine(
+    gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None
+):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order.
 
     ``narrow_r`` nonzero means ``sig_rows`` is narrow-packed. Popcount is
     layout-agnostic — the narrow words hold exactly the same set bits — so
-    only the word count and the query packing change.
+    only the word count and the query packing change. Without
+    ``sig_rows`` the candidates' words, ties and ids are gathered slot by
+    slot from ``sig_t``, ``tie`` and ``ids`` (word-aligned).
     """
     q, ng = gmax.shape
     scale = key_scale(ng * group)
@@ -177,16 +191,24 @@ def _select_refine(gmax, qwords, sig_rows, *, p, k, group, narrow_r=0):
     m = min(k, ng)
     top_groups = torch.topk(gmax, m, dim=1).indices
     bw = qwords.shape[1]
-    if narrow_r:
-        # narrow packing applies only when words-per-band == 1
-        nw = narrow_words_count(bw, narrow_r)
-        qcmp = pack_words_narrow(qwords, num_bands=bw, rows_per_band=narrow_r)
-    else:
-        nw = bw
+    if sig_rows is None:
+        if sig_t is None or ids is None:
+            raise ValueError("sig_rows=None (per-slot refinement) needs sig_t and ids")
         qcmp = qwords
-    cwords, cand_tie, cand_ids = gather_refine_group_rows(
-        sig_rows, top_groups, bw=nw, group=group
-    )
+        cwords, cand_tie, cand_ids = gather_refine_slots(
+            sig_t, tie, ids, top_groups, group=group
+        )
+    else:
+        if narrow_r:
+            # narrow packing applies only when words-per-band == 1
+            nw = narrow_words_count(bw, narrow_r)
+            qcmp = pack_words_narrow(qwords, num_bands=bw, rows_per_band=narrow_r)
+        else:
+            nw = bw
+            qcmp = qwords
+        cwords, cand_tie, cand_ids = gather_refine_group_rows(
+            sig_rows, top_groups, bw=nw, group=group
+        )
     hamming = popcount32(cwords ^ qcmp[:, None, :, None]).sum(2, dtype=torch.int32)
     mg = m * group
     hamming = hamming.reshape(q, mg)

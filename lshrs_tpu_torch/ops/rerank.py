@@ -32,9 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from lshrs_tpu_torch.ops.bitpack import narrow_words_count
 from lshrs_tpu_torch.ops.group_max import group_max_keys, key_scale
-from lshrs_tpu_torch.ops.scan import gather_refine_group_rows, refine_counts_vs_query
+from lshrs_tpu_torch.ops.scan import gather_refine, refine_counts_vs_query
 
 __all__ = [
     "rerank_topp_batch_core",
@@ -185,7 +184,7 @@ def rerank_topp_gather_core(
     sig_t: torch.Tensor,
     qwords: torch.Tensor,
     qvecs: torch.Tensor,
-    sig_rows: torch.Tensor,
+    sig_rows: torch.Tensor | None,
     *,
     num_bands: int,
     max_out: int,
@@ -193,6 +192,7 @@ def rerank_topp_gather_core(
     group: int,
     narrow_r: int = 0,
     probes: int = 1,
+    ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Candidate-gather top-p rerank: cost scales with candidates, not
     capacity.
@@ -212,11 +212,16 @@ def rerank_topp_gather_core(
 
     Args:
         payload / pnorm / tie / sig_t: store state (see `DeviceStore`).
-        qwords: ``(Q, probes * BW)`` int32 query words.
+        qwords: ``(Q, probes * BW)`` int32 query words, probe-major;
+            with ``probes > 1`` the candidate set holds any-probe band
+            matches.
         qvecs: ``(Q, dim)`` float32 (or bfloat16 wire) queries.
         sig_rows: the grouped refine table
             (`lshrs_tpu_torch.ops.scan.build_grouped_refine_rows`),
-            narrow-packed when ``narrow_r``.
+            narrow-packed when ``narrow_r``. ``None`` refines slot by slot
+            from ``sig_t``, ``tie`` and ``ids`` (filtered queries: the
+            table bakes in the unfiltered columns).
+        ids: ``(C,)`` int32 id column, needed only without ``sig_rows``.
         max_out: ranked prefix length per query.
         max_candidates: M, groups refined and slots reranked per query.
         group: slots per group (contiguous), a power of two dividing C.
@@ -251,8 +256,10 @@ def rerank_topp_gather_core(
     # -- stage 3: refine the selected groups ----------------------------------
     mg = m * group
     slots = (top_groups[..., None] * group + torch.arange(group, device=sig_t.device)).reshape(q, mg)
-    nw = narrow_words_count(num_bands, narrow_r) if narrow_r else bw
-    cwords, cand_tie, cand_ids = gather_refine_group_rows(sig_rows, top_groups, bw=nw, group=group)
+    cwords, cand_tie, cand_ids, narrow_r = gather_refine(
+        sig_rows, sig_t, tie, ids, top_groups,
+        num_bands=num_bands, group=group, narrow_r=narrow_r,
+    )
     counts = refine_counts_vs_query(
         cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
     ).reshape(q, mg)

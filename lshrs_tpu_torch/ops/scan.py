@@ -15,7 +15,10 @@ alive keys are globally distinct and plain top-k selection is exact:
    selector does.
 3. One gather of each selected group's wide row from the grouped refine
    table, a recount of its slots against the query, and an exact top-k
-   over the ``k * group`` candidates.
+   over the ``k * group`` candidates. Under a ``where=`` filter the table
+   (which bakes in the unfiltered tie and id columns) is not used: the
+   selected groups' slots are gathered one by one from ``sig_t`` and the
+   filtered columns (:func:`gather_refine_slots`).
 
 The full-count paths of the top-p slice live here too:
 :func:`collision_counts_core` (every slot's count, for the full rerank
@@ -46,7 +49,9 @@ __all__ = [
     "collision_nnz_core",
     "collision_topk_grouped_core",
     "count_step",
+    "gather_refine",
     "gather_refine_group_rows",
+    "gather_refine_slots",
     "global_tie_core",
     "key_scale",
     "merge_topk_pools",
@@ -127,6 +132,41 @@ def gather_refine_group_rows(
     return rows[:, :, :bw, :], rows[:, :, bw, :], rows[:, :, bw + 1, :]
 
 
+def gather_refine_slots(
+    sig_t: torch.Tensor,
+    tie: torch.Tensor,
+    ids: torch.Tensor,
+    top_groups: torch.Tensor,
+    *,
+    group: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-slot twin of :func:`gather_refine_group_rows`, for ``tie`` /
+    ``ids`` columns the grouped table does not hold (a ``where=`` filter).
+
+    Group ``g`` is slots ``g * group .. g * group + group - 1`` (the
+    kernels' contiguous grouping). Returns the same ``(words (Q, m, BW,
+    group), tie (Q, m, group), ids (Q, m, group))``, words word-aligned.
+    """
+    q, m = top_groups.shape
+    bw = sig_t.shape[0]
+    slots = (
+        top_groups[..., None] * group + torch.arange(group, device=sig_t.device)
+    ).reshape(-1)
+    words = sig_t.index_select(1, slots).reshape(bw, q, m, group).permute(1, 2, 0, 3)
+    return words, tie[slots].reshape(q, m, group), ids[slots].reshape(q, m, group)
+
+
+def gather_refine(sig_rows, sig_t, tie, ids, top_groups, *, num_bands, group, narrow_r):
+    """``(words, tie, ids, narrow_r)`` of the selected groups: from the
+    grouped table when there is one, else slot by slot (word-aligned)."""
+    if sig_rows is not None:
+        nw = narrow_words_count(num_bands, narrow_r) if narrow_r else sig_t.shape[0]
+        return (*gather_refine_group_rows(sig_rows, top_groups, bw=nw, group=group), narrow_r)
+    if ids is None:
+        raise ValueError("sig_rows=None (per-slot refinement) needs the ids column")
+    return (*gather_refine_slots(sig_t, tie, ids, top_groups, group=group), 0)
+
+
 def refine_counts_vs_query(
     cwords: torch.Tensor,
     qwords: torch.Tensor,
@@ -184,13 +224,14 @@ def collision_topk_grouped_core(
     sig_t: torch.Tensor,
     tie: torch.Tensor,
     qwords: torch.Tensor,
-    sig_rows: torch.Tensor,
+    sig_rows: torch.Tensor | None,
     *,
     num_bands: int,
     k: int,
     group: int,
     narrow_r: int = 0,
     probes: int = 1,
+    ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (count desc, id asc) via group-max keys + refinement.
 
@@ -202,9 +243,13 @@ def collision_topk_grouped_core(
         sig_rows: ``(C // group, group * (nw + 2))`` grouped refine table
             (:func:`build_grouped_refine_rows`); ``nw = BW`` when
             ``narrow_r == 0``, else ``narrow_words_count(num_bands,
-            narrow_r)`` narrow-packed words.
+            narrow_r)`` narrow-packed words. ``None`` refines slot by slot
+            from ``sig_t``, ``tie`` and ``ids`` (filtered queries: the
+            table bakes in the unfiltered columns).
         probes: multi-probe variants per query; the count is the number of
             bands matching ANY variant.
+        ids: ``(C,)`` int32 id column, -1 dead; needed only without
+            ``sig_rows``.
 
     Returns:
         ``(counts, ids)``, each ``(Q, k)`` int32; zero-count tail entries
@@ -222,9 +267,9 @@ def collision_topk_grouped_core(
     m = min(k, ng)
     top_groups = torch.topk(gmax, m, dim=1).indices
     mg = m * group
-    nw = narrow_words_count(num_bands, narrow_r) if narrow_r else bw
-    cwords, cand_tie, cand_ids = gather_refine_group_rows(
-        sig_rows, top_groups, bw=nw, group=group
+    cwords, cand_tie, cand_ids, narrow_r = gather_refine(
+        sig_rows, sig_t, tie, ids, top_groups,
+        num_bands=num_bands, group=group, narrow_r=narrow_r,
     )
     counts = refine_counts_vs_query(
         cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes

@@ -26,7 +26,11 @@ Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
 themselves (kernel B3), all exact against the reference ordering; and,
 with ``store_vectors``, top-p cosine rerank over the resident payload by
 the full or the gather engine (`lshrs_tpu_torch.ops.rerank`, the gather
-engine on kernel B1). Stores those engines cannot take — a selection key
+engine on kernel B1). Collision counting and top-p take multi-probe query
+words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
+every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
+the kernels read the filtered tie column, refinement gathers per slot).
+Stores those engines cannot take — a selection key
 past int32, more than 64 bands — raise ``NotImplementedError`` (ROADMAP:
 the chunked fallback or int64 keys).
 
@@ -156,7 +160,7 @@ class DeviceStore(BaseStorage):
             CPU runs the kernels' plain PyTorch versions).
 
     ``query_mode="bucket"`` and ``hamming_cascade`` are accepted only at
-    their defaults: they belong to slices not ported yet (ROADMAP Queue A).
+    their defaults (ROADMAP Queue A: the bucketed engine, the cascade).
     """
 
     supports_signature_batches = True
@@ -498,17 +502,32 @@ class DeviceStore(BaseStorage):
         proj_t: torch.Tensor,
         hash_family: str = "gaussian",
     ) -> None:
-        """Device build: hash a raw-vector batch with the device projection
-        (`LSHHasher.device_projection`) and append it.
+        """Device build: hash a raw-vector batch with the device hash
+        operand (`LSHHasher.device_projection`) and append it.
 
-        The hash is the same full-float32 matmul the query path uses, so
-        stored and query signatures come from one formulation. Batches with
-        duplicate or already-present ids take the upsert path. With
-        ``store_vectors`` the same device tensor becomes the payload rows
-        (one upload per batch).
+        Args:
+            proj_t: ``(dim, num_perm)`` float32 projection for the gaussian
+                and learned families, the ``(nblocks, 3, dpad)`` diagonals
+                for the structured one, ``(num_bands, 3, dpad)`` for
+                cross-polytope.
+            hash_family: `LSHHasher.hash_family` of the hasher that made
+                ``proj_t`` (gaussian / learned: one full-float32 matmul;
+                structured / crosspolytope: the fixed-order FWHT, hashed in
+                row slices so its temporaries stay near 1 GiB — see
+                `lshrs_tpu_torch.hash.fwht.slice_rows`).
+
+        The hash is the formulation the device query path uses
+        (`lshrs_tpu_torch.hash.hasher.hash_words`), so stored and query
+        signatures agree bit for bit. Batches with duplicate or
+        already-present ids take the upsert path. With ``store_vectors``
+        the same device tensor becomes the payload rows (one upload per
+        batch).
         """
-        if hash_family != "gaussian":
-            raise _not_ported(f"hash_family={hash_family!r}")
+        if hash_family not in ("gaussian", "structured", "learned", "crosspolytope"):
+            raise ValueError(
+                "hash_family must be 'gaussian', 'structured', 'learned' "
+                "or 'crosspolytope'"
+            )
         ids_np = self._check_ids(indices)
         if ids_np.size == 0:
             return
@@ -521,7 +540,8 @@ class DeviceStore(BaseStorage):
                 f"received {tuple(x.shape)}"
             )
         words = hash_words(
-            x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band
+            x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+            hash_family=hash_family,
         )
         self.add_signature_batch(ids_np, words, x if self.store_vectors else None)
 
@@ -598,18 +618,80 @@ class DeviceStore(BaseStorage):
     # queries
     # ------------------------------------------------------------------
 
-    def _query_words(self, qwords) -> torch.Tensor:
-        """Query words -> ``(Q, BW)`` int32 on the device."""
+    def _norm_qwords(self, qwords) -> tuple[torch.Tensor, int]:
+        """Query words -> ``((Q, probes * BW) int32 on the device, probes)``.
+
+        Accepts the standard ``(Q, BW)`` layout and the multi-probe
+        ``(Q, T, BW)`` layout (`LSHHasher.hash_batch_probe_words[_host]`),
+        flattened probe-major, which is what kernel B1 reads.
+
+        Multi-probe CONTRACT: within each band, a query's T probe
+        signatures must be pairwise DISTINCT (the hashers' probe
+        generators guarantee this — each variant flips a distinct bit).
+        Any-match counting relies on it: a duplicated variant counts its
+        band twice, inflating counts past ``num_bands`` and, at the
+        packing limit, corrupting the (count, tie) selection keys. Pad a
+        ragged probe axis by flipping further distinct bits, never by
+        repeating a signature.
+        """
         qw = as_words(qwords, self.device)
+        if qw.ndim == 3 and qw.shape[2] == self.words and qw.shape[1] >= 1:
+            q, t, bw = qw.shape
+            return qw.reshape(q, t * bw), t
         if qw.ndim != 2 or qw.shape[1] != self.words:
-            if qw.ndim == 3:
-                raise _not_ported("multi-probe query words")
             raise ValueError(
-                f"query words must have shape (Q, {self.words}); received {tuple(qw.shape)}"
+                f"query words must have shape (Q, {self.words}) or "
+                f"(Q, T, {self.words}); received {tuple(qw.shape)}"
+            )
+        return qw, 1
+
+    def _query_words(self, qwords) -> torch.Tensor:
+        """Single-probe query words -> ``(Q, BW)`` int32 on the device
+        (the Hamming modes rank every slot already and take no probes)."""
+        qw, probes = self._norm_qwords(qwords)
+        if probes != 1:
+            raise ValueError(
+                "multi-probe applies to collision counting only (the "
+                "Hamming estimator ranks every slot already)"
             )
         return qw
 
-    def _query_topk_dev(self, qw: torch.Tensor, k: int):
+    def _wire_words(self, q, wire: str, probes: int) -> torch.Tensor:
+        """A serving closure's input -> ``(Q, probes * BW)`` int32 on the
+        device. ``wire="dense"``: ``(Q, DB)`` uint8, or ``(Q, T, DB)``
+        with probes, decoded probe by probe; ``wire="words"``: ``(Q, BW)``,
+        ``(Q, T, BW)`` or the flat probe-major ``(Q, T * BW)``."""
+        if wire == "dense":
+            d = torch.as_tensor(q).to(self.device)
+            nq = d.shape[0]
+            return dense_to_words(
+                d.reshape(nq * probes, -1),
+                num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+            ).reshape(nq, -1)
+        qw = as_words(q, self.device)
+        qw = qw.reshape(qw.shape[0], -1)
+        if qw.shape[1] != probes * self.words:
+            raise ValueError(
+                f"query words must hold {probes} x {self.words} words per "
+                f"query; received {tuple(qw.shape)}"
+            )
+        return qw
+
+    def _filtered_ids_tie(self, where) -> tuple[torch.Tensor, torch.Tensor]:
+        """(ids, tie) with ``where``-inadmissible slots marked dead (call
+        under the lock, after :meth:`_ensure_ranks`).
+
+        The filtered columns flow through every query core exactly like
+        tombstones (id / tie < 0: a dead key), so filtered results equal
+        brute force over the admitted subset. The grouped refine table
+        bakes in the UNfiltered tie / id columns, so filtered queries pass
+        ``sig_rows=None`` and the cores gather per slot.
+        """
+        if where is None:
+            return self._ids, self._tie
+        return as_filter(where).device_state(self)
+
+    def _query_topk_dev(self, qw: torch.Tensor, k: int, probes: int = 1, where=None):
         """Device-resident collision top-k (call under the lock)."""
         if not self._use_grouped():
             raise _not_ported(
@@ -617,30 +699,38 @@ class DeviceStore(BaseStorage):
                 f"{self._capacity} slots (the chunked fallback or int64 keys)"
             )
         self._ensure_ranks()
+        ids_x, tie_x = self._filtered_ids_tie(where)
         return collision_topk_grouped_core(
-            self._sig_t, self._tie, qw, self._refine_rows(),
+            self._sig_t, tie_x, qw,
+            self._refine_rows() if where is None else None,
             num_bands=self.num_bands,
             k=max(1, min(k, self._capacity)),
             group=self._group(),
             narrow_r=self._refine_narrow_r,
+            probes=probes,
+            ids=ids_x,
         )
 
     def query_topk(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
         """Exact (count desc, id asc) top-k for a query batch.
 
         Args:
-            qwords: ``(Q, num_bands * W)`` signature words.
+            qwords: ``(Q, num_bands * W)`` signature words, or the
+                multi-probe ``(Q, T, num_bands * W)`` layout — counts are
+                then bands matching ANY probe variant.
+            where: optional `lshrs_tpu_torch.storage.IdFilter` (or an
+                array-like allowlist of ids): results rank ONLY the
+                admitted subset — exact top-k over it, not post-filtering.
         Returns:
             ``(counts, ids)`` NumPy int32 arrays of shape ``(Q, k)``;
             zero-count padding carries id -1.
         """
-        as_filter(where)
-        qw = self._query_words(qwords)
+        qw, probes = self._norm_qwords(qwords)
         q = qw.shape[0]
         with self._lock:
             if self._size == 0:
                 return np.zeros((q, k), np.int32), np.full((q, k), -1, np.int32)
-            counts, ids = self._query_topk_dev(qw, k)
+            counts, ids = self._query_topk_dev(qw, k, probes, where)
         counts, ids = counts.cpu().numpy(), ids.cpu().numpy()
         if counts.shape[1] < k:
             pad = k - counts.shape[1]
@@ -650,12 +740,11 @@ class DeviceStore(BaseStorage):
 
     def query_topk_ids(self, qwords, k: int, *, where=None) -> torch.Tensor:
         """Device-resident id-only top-k, ``(Q, k_eff)`` int32 tensor."""
-        as_filter(where)
-        qw = self._query_words(qwords)
+        qw, probes = self._norm_qwords(qwords)
         with self._lock:
             if self._size == 0:
                 return torch.full((qw.shape[0], k), -1, dtype=torch.int32, device=self.device)
-            return self._query_topk_dev(qw, k)[1]
+            return self._query_topk_dev(qw, k, probes, where)[1]
 
     def _require_hamming(self) -> None:
         if not self.enable_hamming:
@@ -664,7 +753,7 @@ class DeviceStore(BaseStorage):
                 "enable_hamming=True for Hamming-mode queries"
             )
 
-    def _query_hamming_dev(self, qw: torch.Tensor, k: int):
+    def _query_hamming_dev(self, qw: torch.Tensor, k: int, where=None):
         """Device-resident Hamming top-k (call under the lock)."""
         p = self.num_bands * self.rows_per_band
         if not (
@@ -676,19 +765,22 @@ class DeviceStore(BaseStorage):
                 "chunked fallback or int64 keys)"
             )
         self._ensure_ranks()
+        ids_x, tie_x = self._filtered_ids_tie(where)
+        rows = self._refine_rows() if where is None else None
         kw = dict(
             k=max(1, min(k, self._capacity)),
             group=self._group(),
             narrow_r=self._refine_narrow_r,
+            ids=ids_x,
         )
         if self.hamming_storage == "packed":
             return hamming_topk_packed_core(
-                self._sig_t, self._tie, qw, self._refine_rows(), num_perm=p, **kw
+                self._sig_t, tie_x, qw, rows, num_perm=p, **kw
             )
         self._ensure_planes()
         return hamming_topk_core(
-            self._planes, self._tie, self._planes_rows(qw), qw, self._refine_rows(),
-            num_perm=p, **kw
+            self._planes, tie_x, self._planes_rows(qw), qw, rows,
+            num_perm=p, sig_t=self._sig_t, **kw
         )
 
     def query_hamming(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
@@ -697,17 +789,17 @@ class DeviceStore(BaseStorage):
 
         Requires ``enable_hamming=True``. Returns ``(hamming (Q, k),
         ids (Q, k))`` ordered by (hamming asc, id asc); empty tail entries
-        carry id -1 and hamming ``num_perm + 1``.
+        carry id -1 and hamming ``num_perm + 1``. ``where``: optional id
+        filter (exact ranking over the admitted subset).
         """
         self._require_hamming()
-        as_filter(where)
         qw = self._query_words(qwords)
         p = self.num_bands * self.rows_per_band
         with self._lock:
             if self._size == 0:
                 q = qw.shape[0]
                 return np.full((q, k), p + 1, np.int32), np.full((q, k), -1, np.int32)
-            hamming, ids = self._query_hamming_dev(qw, k)
+            hamming, ids = self._query_hamming_dev(qw, k, where)
         hamming, ids = hamming.cpu().numpy(), ids.cpu().numpy()
         if hamming.shape[1] < k:
             pad = k - hamming.shape[1]
@@ -718,12 +810,11 @@ class DeviceStore(BaseStorage):
     def query_hamming_ids(self, qwords, k: int, *, where=None) -> torch.Tensor:
         """Device-resident id-only Hamming top-k."""
         self._require_hamming()
-        as_filter(where)
         qw = self._query_words(qwords)
         with self._lock:
             if self._size == 0:
                 return torch.full((qw.shape[0], k), -1, dtype=torch.int32, device=self.device)
-            return self._query_hamming_dev(qw, k)[1]
+            return self._query_hamming_dev(qw, k, where)[1]
 
     def snapshot_query_fn(
         self,
@@ -731,6 +822,7 @@ class DeviceStore(BaseStorage):
         *,
         wire: str = "words",
         mode: str = "collision",
+        probes: int = 1,
         where=None,
     ):
         """Serving closure over the CURRENT contents.
@@ -746,6 +838,15 @@ class DeviceStore(BaseStorage):
             mode: ``"collision"`` (band-collision counting, kernel B1) or
                 ``"hamming"`` (full-signature ranking, kernel B2 or B3 by
                 ``hamming_storage``; requires ``enable_hamming=True``).
+            probes: multi-probe depth T (collision mode only). The
+                closure's input grows a probe axis —
+                ``(Q, T, num_bands * W)`` words from
+                `LSHHasher.hash_batch_probe_words[_host]` (a flat
+                ``(Q, T * num_bands * W)`` probe-major layout is also
+                accepted), or ``(Q, T, dense_bytes)`` with
+                ``wire="dense"``.
+            where: optional id filter, resolved once here; every batch
+                ranks only the admitted subset.
 
         Returns:
             callable ``(signatures) -> (Q, k) int32 device tensor of ids``.
@@ -758,10 +859,16 @@ class DeviceStore(BaseStorage):
             raise _not_ported("wire='coords4' (asymmetric ranking)")
         if wire not in ("words", "dense"):
             raise ValueError("wire must be 'words' or 'dense'")
+        if probes < 1:
+            raise ValueError("probes must be >= 1")
+        if probes > 1 and mode != "collision":
+            raise ValueError(
+                "multi-probe applies to collision counting only (the "
+                "Hamming estimator ranks every slot already)"
+            )
         if mode == "hamming":
             self._require_hamming()
-        as_filter(where)
-        num_bands, rows_per_band = self.num_bands, self.rows_per_band
+        where = as_filter(where)
         with self._lock:
             if self._size == 0:
                 raise RuntimeError("snapshot_query_fn requires a non-empty store")
@@ -775,16 +882,10 @@ class DeviceStore(BaseStorage):
                         "after the snapshot was taken; call snapshot_query_fn "
                         "again"
                     )
-                if wire == "dense":
-                    qw = dense_to_words(
-                        torch.as_tensor(q).to(self.device),
-                        num_bands=num_bands, rows_per_band=rows_per_band,
-                    )
-                else:
-                    qw = self._query_words(q)
+                qw = self._wire_words(q, wire, probes)
                 if mode == "hamming":
-                    return self._query_hamming_dev(qw, k)[1]
-                return self._query_topk_dev(qw, k)[1]
+                    return self._query_hamming_dev(qw, k, where)[1]
+                return self._query_topk_dev(qw, k, probes, where)[1]
 
         return serve
 
@@ -792,40 +893,48 @@ class DeviceStore(BaseStorage):
     # full counts, candidate enumeration, top-p rerank
     # ------------------------------------------------------------------
 
-    def _counts_dev(self, qw: torch.Tensor) -> torch.Tensor:
-        """``(Q, C)`` collision counts on the device (call under the lock)."""
+    def _counts_dev(
+        self, qw: torch.Tensor, ids: torch.Tensor | None = None, probes: int = 1
+    ) -> torch.Tensor:
+        """``(Q, C)`` collision counts on the device, 0 where ``ids`` (the
+        store's id column by default, or a filtered copy) is dead (call
+        under the lock)."""
         return collision_counts_core(
-            self._sig_t, self._ids, qw, num_bands=self.num_bands,
-            chunk=count_step(qw.shape[0], self.chunk),
+            self._sig_t, self._ids if ids is None else ids, qw, num_bands=self.num_bands,
+            chunk=count_step(qw.shape[0], self.chunk), probes=probes,
         )
 
     def query_counts(self, qwords, *, where=None) -> tuple[np.ndarray, np.ndarray]:
         """Full per-slot collision counts plus the slot-id map:
         ``(counts (Q, capacity), ids (capacity,))``, the device analogue of
-        the reference's whole candidate dict."""
-        as_filter(where)
-        qw = self._query_words(qwords)
+        the reference's whole candidate dict. ``where``-inadmissible slots
+        report zero counts and id -1."""
+        qw, probes = self._norm_qwords(qwords)
         with self._lock:
             if self._size == 0:
                 return (
                     np.zeros((qw.shape[0], self._capacity), np.int32),
                     np.full((self._capacity,), -1, np.int32),
                 )
-            counts, ids = self._counts_dev(qw), self._ids.clone()
+            self._ensure_ranks()
+            ids_x, _ = self._filtered_ids_tie(where)
+            counts, ids = self._counts_dev(qw, ids_x, probes), ids_x.clone()
         return counts.cpu().numpy(), ids.cpu().numpy()
 
     def query_nnz(self, qwords, *, where=None) -> np.ndarray:
         """Per-query colliding-candidate counts, ``(Q,)``: the completeness
         probe of the bounded candidate enumeration (O(Q) readback, and no
-        ``(Q, C)`` matrix on the device either)."""
-        as_filter(where)
-        qw = self._query_words(qwords)
+        ``(Q, C)`` matrix on the device either). ``where``-inadmissible
+        slots do not count."""
+        qw, probes = self._norm_qwords(qwords)
         with self._lock:
             if self._size == 0:
                 return np.zeros((qw.shape[0],), np.int32)
+            self._ensure_ranks()
+            ids_x, _ = self._filtered_ids_tie(where)
             n = collision_nnz_core(
-                self._sig_t, self._ids, qw, num_bands=self.num_bands,
-                chunk=count_step(qw.shape[0], self.chunk),
+                self._sig_t, ids_x, qw, num_bands=self.num_bands,
+                chunk=count_step(qw.shape[0], self.chunk), probes=probes,
             )
         return n.cpu().numpy()
 
@@ -855,14 +964,15 @@ class DeviceStore(BaseStorage):
         colliding candidates by (cosine desc, id asc) and the candidate
         count; only ``O(max_out)`` values reach the host."""
         self._require_payload()
-        as_filter(where)
-        qw = self._query_words(qwords)
+        qw, probes = self._norm_qwords(qwords)
         with self._lock:
             if self._size == 0:
                 return np.full(max_out, -1, np.int32), np.zeros(max_out, np.float32), 0
             qv = self._query_vectors(np.asarray(qvec, np.float32).reshape(1, -1), 1)[0]
+            self._ensure_ranks()
+            ids_x, _ = self._filtered_ids_tie(where)
             ids, sims, n = rerank_topp_core(
-                self._payload, self._pnorm, self._ids, self._counts_dev(qw)[0], qv,
+                self._payload, self._pnorm, ids_x, self._counts_dev(qw, ids_x, probes)[0], qv,
                 max_out=max(1, min(max_out, self._capacity)),
             )
         return ids.cpu().numpy(), sims.cpu().numpy(), int(n)
@@ -883,25 +993,31 @@ class DeviceStore(BaseStorage):
         q_cap = max(1, (1 << 31) // per_q)
         return (q_cap // 128) * 128 if q_cap >= 128 else q_cap
 
-    def _topp_dev(self, qw, qv, *, eng: str, mc: int, max_out: int, dev_batch: int):
+    def _topp_dev(
+        self, qw, qv, *, eng: str, mc: int, max_out: int, dev_batch: int,
+        probes: int = 1, where=None,
+    ):
         """Top-p rerank of a batch on the device, ``dev_batch`` queries at
         a time (call under the lock). Returns device ``(ids, sims, n,
         exact)``; ``exact`` is all True on the full engine."""
+        self._ensure_ranks()
+        ids_x, tie_x = self._filtered_ids_tie(where)
         if eng == "gather":
-            self._ensure_ranks()
-            refine = self._refine_rows()
+            refine = self._refine_rows() if where is None else None
         parts = []
         for s in range(0, qw.shape[0], dev_batch):
             q_s, v_s = qw[s : s + dev_batch], qv[s : s + dev_batch]
             if eng == "gather":
                 parts.append(rerank_topp_gather_core(
-                    self._payload, self._pnorm, self._tie, self._sig_t, q_s, v_s, refine,
+                    self._payload, self._pnorm, tie_x, self._sig_t, q_s, v_s, refine,
                     num_bands=self.num_bands, max_out=max_out, max_candidates=mc,
                     group=self._group(), narrow_r=self._refine_narrow_r,
+                    probes=probes, ids=ids_x,
                 ))
             else:
                 ids, sims, n = rerank_topp_batch_core(
-                    self._payload, self._pnorm, self._ids, self._counts_dev(q_s), v_s,
+                    self._payload, self._pnorm, ids_x,
+                    self._counts_dev(q_s, ids_x, probes), v_s,
                     max_out=max_out,
                 )
                 parts.append((ids, sims, n, torch.ones_like(n, dtype=torch.bool)))
@@ -936,12 +1052,16 @@ class DeviceStore(BaseStorage):
                 query whose colliding set exceeds the budget reranks the
                 ``max_candidates`` most-colliding candidates, ``n`` is a
                 lower bound, and ``stats()["rerank_truncations"]`` counts it.
+            where: optional id filter; the candidate set and ``n`` cover
+                the admitted subset only.
+
+        ``qwords`` may carry a probe axis ``(Q, T, BW)``: candidate sets
+        then include any-probe band matches before the cosine rerank.
         """
         self._require_payload()
         if wire_dtype not in ("float32", "bfloat16"):
             raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
-        as_filter(where)
-        qw = self._query_words(qwords)
+        qw, probes = self._norm_qwords(qwords)
         q = qw.shape[0]
         with self._lock:
             if self._size == 0:
@@ -958,6 +1078,7 @@ class DeviceStore(BaseStorage):
                 qw, self._query_vectors(qv, q), eng=eng, mc=mc,
                 max_out=max(1, min(max_out, self._capacity)),
                 dev_batch=self._topp_dev_batch(eng, mc),
+                probes=probes, where=where,
             )
             self._rerank_truncations += q - int(exact.sum())
         return ids.cpu().numpy(), sims.cpu().numpy(), n.cpu().numpy()
@@ -983,6 +1104,11 @@ class DeviceStore(BaseStorage):
             engine / max_candidates: rerank formulation, resolved once
                 here. On the gather engine ``n[i] >= max_candidates`` marks
                 a possibly truncated ranking.
+            probes: multi-probe depth T — the signature input grows a
+                probe axis (``(Q, T, ...)`` words or dense, as
+                :meth:`snapshot_query_fn`); candidate sets then include
+                any-probe band matches before the cosine rerank.
+            where: optional id filter, resolved once here.
             batch_hint: the batch size the closure will serve; the auto
                 engine sizes the full engine's ``(Q, C)`` temporaries from
                 it.
@@ -998,10 +1124,10 @@ class DeviceStore(BaseStorage):
         """
         if wire not in ("words", "dense"):
             raise ValueError("wire must be 'words' or 'dense'")
-        if probes != 1:
-            raise _not_ported("probes > 1 (multi-probe)")
+        if probes < 1:
+            raise ValueError("probes must be >= 1")
         self._require_payload()
-        as_filter(where)
+        where = as_filter(where)
         with self._lock:
             if self._size == 0:
                 raise RuntimeError("snapshot_topp_fn requires a non-empty store")
@@ -1019,15 +1145,12 @@ class DeviceStore(BaseStorage):
                         "after the snapshot was taken; call snapshot_topp_fn "
                         "again"
                     )
-                if wire == "dense":
-                    qw = dense_to_words(
-                        torch.as_tensor(q).to(self.device),
-                        num_bands=self.num_bands, rows_per_band=self.rows_per_band,
-                    )
-                else:
-                    qw = self._query_words(q)
+                qw = self._wire_words(q, wire, probes)
                 qv = self._query_vectors(qvecs, qw.shape[0])
-                return self._topp_dev(qw, qv, eng=eng, mc=mc, max_out=out, dev_batch=dev_batch)[:3]
+                return self._topp_dev(
+                    qw, qv, eng=eng, mc=mc, max_out=out, dev_batch=dev_batch,
+                    probes=probes, where=where,
+                )[:3]
 
         return serve
 

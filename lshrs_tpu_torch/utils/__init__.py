@@ -1,8 +1,4 @@
-"""Utility helpers exposed for convenient imports.
-
-The cross-polytope tuner (``cp``) is not ported yet: it belongs to the
-cross-polytope hash family (ROADMAP Queue A).
-"""
+"""Utility helpers exposed for convenient imports."""
 
 from .br import (
     PRECOMPUTED_CONFIGS,
@@ -12,6 +8,12 @@ from .br import (
     find_optimal_br,
     get_optimal_config,
     print_config_analysis,
+)
+from .cp import (
+    compute_cp_false_rates,
+    cp_collision_probability,
+    find_optimal_cp_br,
+    get_optimal_cp_config,
 )
 from .norm import l2_norm
 from .similarity import cosine_similarity, top_k_cosine
@@ -24,6 +26,10 @@ __all__ = [
     "find_optimal_br",
     "get_optimal_config",
     "print_config_analysis",
+    "compute_cp_false_rates",
+    "cp_collision_probability",
+    "find_optimal_cp_br",
+    "get_optimal_cp_config",
     "l2_norm",
     "cosine_similarity",
     "top_k_cosine",

@@ -109,19 +109,20 @@ def test_unported_paths_raise(rng):
     with pytest.raises(NotImplementedError):
         TorchLSHRS(dim=8, shards=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, multiprobe=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, hash_family="structured", device="cpu")
+        TorchLSHRS(dim=8, similarity="dot", device="cpu")
+    with pytest.raises(ValueError, match="multiprobe must be <= rows_per_band"):
+        TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, multiprobe=5, device="cpu")
+    with pytest.raises(ValueError, match="hash_family"):
+        TorchLSHRS(dim=8, hash_family="minhash", device="cpu")
     tl = TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, store_vectors=True,
                     device="cpu")
     x = rng.standard_normal(8).astype(np.float32)
     tl.index([0], x[None, :])
     with pytest.raises(NotImplementedError):
-        tl.query(x, top_p=0.5, where=[0])
-    with pytest.raises(NotImplementedError):
         tl.serving_fn(top_k=3, mode="asymmetric")
-    with pytest.raises(NotImplementedError):
-        tl.query(x, where=[0])
+    # Options ported since: filters answer instead of raising.
+    assert tl.query(x, where=[0]) == [0] and tl.query(x, where=[1]) == []
+    assert [i for i, _ in tl.query(x, top_p=0.5, where=[0])] == [0]
     with pytest.raises(ValueError, match="zero vector"):
         tl.index([1], np.zeros((1, 8), np.float32))
 

@@ -48,6 +48,11 @@ def _tie(rng, c, dev):
         (16, 1, 4096, 256, 1),
         (16, 1, 4096, 256, 2),
         (16, 1, 4096, 100, 1),  # ragged Q
+        (16, 1, 4096, 256, 4),  # register instantiation <16, 1, 4>
+        (32, 1, 4096, 256, 1),
+        (32, 1, 4096, 256, 2),  # <32, 1, 2>
+        (32, 1, 4096, 100, 4),  # <32, 1, 4>, ragged Q
+        (16, 2, 4096, 70, 4),   # generic instantiation with probes
         (4, 3, 2048, 70, 1),    # generic (non-register) instantiation
         (8, 1, 256, 9, 1),      # store smaller than one block's slot range
     ],
@@ -350,3 +355,80 @@ def test_rerank_refuses_tf32(dev, rng):
             lsh.get_above_p_batch(X[:4], p=0.5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# ---------------------------------------------------------------------------
+# hash families, multi-probe and where= filters on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family,nb,r", [("structured", 16, 16), ("crosspolytope", 32, 8)])
+def test_fwht_families_hash_identically_on_the_card(family, nb, r, dev, rng):
+    """CUDA words == host words (native C FWHT), probe words too: the
+    butterfly order is fixed, so the card's float32 sums are the host's."""
+    from lshrs_tpu_torch.hash.hasher import LSHHasher
+    from lshrs_tpu_torch.native import load_fwht_library, native_status
+    from lshrs_tpu_torch.ops.bitpack import words_to_numpy
+
+    assert load_fwht_library() is not None, native_status()
+    h = LSHHasher(nb, r, 768, seed=3, hash_family=family, device=dev)
+    x = rng.standard_normal((2048, 768)).astype(np.float32)
+    x[:64] = rng.integers(-2, 3, (64, 768))  # exact magnitude ties
+    np.testing.assert_array_equal(words_to_numpy(h.hash_batch_words(x)), h.hash_batch_words_host(x))
+    np.testing.assert_array_equal(
+        words_to_numpy(h.hash_batch_probe_words(x, 4)), h.hash_batch_probe_words_host(x, 4)
+    )
+
+
+@pytest.mark.parametrize("engine,storage,kernel", [
+    ("collision", None, "group_max_keys"),
+    ("hamming", "planes", "hamming_group_max_keys"),
+    ("hamming", "packed", "hamming_packed_group_max_keys"),
+])
+def test_filtered_lshrs_on_the_gpu_matches_the_cpu(engine, storage, kernel, dev, rng):
+    from lshrs_tpu_torch import IdFilter
+
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host",
+              seed=5, engine=engine, hamming_storage=storage, hash_family="structured")
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(5000), X)
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    f = IdFilter(allowed_ids=np.arange(0, 5000, 3), disallowed_ids=np.arange(0, 5000, 7))
+    fn = getattr(gm, kernel)
+    before = fn.launches
+    out = gpu.serving_fn(top_k=10, where=f)(Q)
+    assert fn.launches == before + 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10, where=f)(Q))
+    assert f.admits(out[out >= 0]).all() and (out >= 0).any()
+    assert engine == "collision" or (out >= 0).all()  # Hamming ranks every admitted slot
+    state = f.device_state(gpu._storage)
+    assert state[0].is_cuda
+    assert gpu.query_batch(Q, top_k=5, where=f) == cpu.query_batch(Q, top_k=5, where=f)
+    assert f.device_state(gpu._storage)[0] is state[0]  # reused by the second query
+
+
+@pytest.mark.parametrize("family,nb,r,probes", [
+    ("gaussian", 16, 16, 2), ("structured", 16, 16, 4), ("crosspolytope", 32, 8, 4),
+])
+def test_multiprobe_lshrs_on_the_gpu_matches_the_cpu(family, nb, r, probes, dev, rng):
+    kw = dict(dim=64, num_perm=256, num_bands=nb, rows_per_band=r, hash_mode="host", seed=5,
+              engine="collision", hash_family=family, multiprobe=probes, store_vectors=True,
+              payload_dtype="int8", rerank_engine="gather", rerank_candidates=256)
+    if family == "crosspolytope":
+        kw.update(dim=128)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, kw["dim"])).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(5000), X)
+    Q = X[:300] + 0.3 * rng.standard_normal((300, kw["dim"])).astype(np.float32)
+    before = gm.group_max_keys.launches
+    out = gpu.serving_fn(top_k=10)(Q)
+    assert gm.group_max_keys.launches == before + 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    assert gpu.query_batch(Q, top_k=5) == cpu.query_batch(Q, top_k=5)
+    ids_g, sims_g, n_g = gpu.serving_fn(top_k=5, mode="topp", batch_hint=300)(Q)
+    ids_c, sims_c, n_c = cpu.serving_fn(top_k=5, mode="topp", batch_hint=300)(Q)
+    np.testing.assert_array_equal(n_g, n_c)
+    np.testing.assert_array_equal(ids_g, ids_c)
+    np.testing.assert_allclose(sims_g[ids_c >= 0], sims_c[ids_c >= 0], atol=1e-5)

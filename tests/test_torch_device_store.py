@@ -156,8 +156,8 @@ def test_empty_store_and_unported_options(hasher, rng):
     assert (h == NB * R + 1).all() and (i == -1).all()
     with pytest.raises(RuntimeError, match="non-empty"):
         ts.snapshot_query_fn(3)
-    with pytest.raises(NotImplementedError):
-        ts.query_topk(q, 3, where=[1, 2])
+    c, i = ts.query_topk(q, 3, where=[1, 2])  # a filter on an empty store
+    assert (c == 0).all() and (i == -1).all()
     with pytest.raises(NotImplementedError):
         ts.snapshot_query_fn(3, mode="asymmetric")
     with pytest.raises(NotImplementedError):

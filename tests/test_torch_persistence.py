@@ -121,6 +121,11 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
         assert back.stats()["index"][key] == src.stats()["index"][key], key
 
 
+# What an edited checkpoint must do on load. Capabilities the port lacks
+# raise NotImplementedError. A hash family swapped in by hand names a file
+# the checkpoint does not hold (diagonals.npz): FileNotFoundError, never a
+# silent gaussian index (cross-polytope at this banding already fails its
+# geometry check: ValueError). A multi-probe depth restores as it is.
 @pytest.mark.parametrize("where,change", [
     ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
@@ -139,8 +144,18 @@ def test_unsupported_checkpoint_capabilities_raise(where, change, tmp_path, rng)
     path = tmp_path / "m" / "metadata.json"
     meta = json.loads(path.read_text())
     meta[where].update(change)
+    if change.get("hash_family") == "crosspolytope":
+        meta["tpu_config"].update(engine="collision", enable_hamming=False)
     path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError):
+    if "multiprobe" in change:
+        back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
+        assert back.stats()["multiprobe"] == 2
+        assert back.query(X[3], top_k=1) == [3]
+        return
+    expected = {"structured": FileNotFoundError, "crosspolytope": ValueError}.get(
+        change.get("hash_family"), NotImplementedError
+    )
+    with pytest.raises(expected):
         TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
 
 

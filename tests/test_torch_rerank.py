@@ -378,7 +378,7 @@ def test_topp_requires_a_payload_and_a_store(rng):
     assert (ids == -1).all() and n == 0
     with pytest.raises(RuntimeError, match="non-empty"):
         paid.snapshot_topp_fn(5)
-    with pytest.raises(NotImplementedError):
-        paid.snapshot_topp_fn(5, probes=2)
+    with pytest.raises(ValueError, match="probes must be >= 1"):
+        paid.snapshot_topp_fn(5, probes=0)
     with pytest.raises(ValueError, match="dim is required"):
         TorchStore(num_bands=4, rows_per_band=8, store_vectors=True, device="cpu")
