@@ -91,10 +91,41 @@ then runs these phases and prints JSON lines as it goes:
    - save / ``load_from_disk(device="cuda")`` of a structured and two
      cross-polytope indexes (``diagonals.npz``; multiprobe 2 and 4).
 
-Every launch counter is reset just before each path of phases 3-5, 7 and
-8 and read just after it; each path must launch its kernel. Then it prints
-the nvidia-smi line, one JSON line with the kernels (launches, error, ms,
-plain, bound and library ms; B1 once per timed instantiation), and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+10. asymmetric ranking and the refinement cascade (phase 2 also holds B2
+    bit-exact at both asymmetric wires' packings, offset 32512 / shift 5
+    and 1792 / 1, at Q=512 and the 8,192-query serving batch, and at the
+    cascade's coarse shape, P=128 at C=2**22 and 2**23, at Q=512 and at
+    the store's query slices, and times B2 at the asymmetric and coarse
+    shapes beside ``torch._int_mm``; each path must launch B2 at its own
+    packing, counted by ``(width, offset, shift)``):
+    - asymmetric_1m: ``serving_fn(mode="asymmetric")`` on the 1M planes
+      index with both coordinate wires: self-match 1.0, dots and ids ==
+      a CPU copy of the store (256 queries) and == the plain B2 plus the
+      same refine on the card (64 queries), ``where=`` with phase 9's
+      filter (no inadmissible id; == the CPU copy under the same filter;
+      against brute force over the admitted subset: equal, or within the
+      shifted key's granularity), recall@10
+      against the exact-cosine truth of phase 8 beside symmetric Hamming
+      (asymmetric must not be lower), QPS per wire and a profile;
+    - cascade_4m: ``hamming_cascade=128, hamming_cascade_refine=8192`` fed
+      the packed_4m store's words: 0.5 GiB of prefix planes (1 GiB for
+      full planes), ids == the plain B2 plus the same refine (64 queries),
+      == the exact planes engine when the pool covers a 2**16-slot store,
+      planted recall@10 and agreement@10 with the exact planes engine,
+      QPS in turns with it;
+    - cascade_8m: 2**23 clustered vectors drawn on the card, past the int32
+      key ceiling (the refine keys in int64): capacity 2**23, self-match
+      1.0, ids == the plain B2 plus the same refine (64 queries), a 1%
+      delete (no deleted id returned, survivors' self-match 1.0), planted
+      recall@10, build rate, QPS and a profile.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-10
+and read just after it; each path must launch its kernel, and its
+``launches`` line carries the path's seconds. Then it prints the script's
+seconds, the nvidia-smi line, one JSON line with the kernels (launches,
+error, ms, plain, bound and library ms; B1 once per timed instantiation,
+B2 once more per phase-10 packing), and last ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
 """
@@ -102,6 +133,7 @@ CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import shutil
@@ -118,6 +150,7 @@ TOP_K = 10
 N_100K = 100_000
 N_1M = 1 << 20
 N_4M = 1 << 22
+N_8M = 1 << 23
 INGEST_BATCH = 1 << 16
 QPS_BATCH_100K = 16384
 QPS_BATCH_1M = 8192
@@ -162,6 +195,32 @@ CP_BANDS, CP_ROWS = 32, 8
 HASH_ROWS = 1 << 16
 FILTER_DENY = 1000
 PACKED_CPU_QUERIES = 64
+# The cascade of the reference's 4M bench row: a 128-bit prefix, an
+# 8,192-slot refine pool (bench.py's "cascade128:8192").
+CASCADE_BITS, CASCADE_REFINE = 128, 8192
+PLANTED = 1024
+PLAIN_QUERIES = 64
+# B2 at the key packings of phase 10, timed at Q=512: (C, P, qmax or None
+# for the cascade's coarse pass) -> the kernels line's name.
+B2_TIMED_NEW = {
+    (N_1M, NUM_PERM, 127): "hamming_group_max_keys@asymmetric_1m",
+    (N_4M, CASCADE_BITS, None): "hamming_group_max_keys@cascade_coarse_4m",
+    (N_8M, CASCADE_BITS, None): "hamming_group_max_keys@cascade_coarse_8m",
+}
+
+
+def b2_packings() -> dict:
+    """B2's key packings ``(operand width, offset, shift)`` on phase 10's
+    paths: the asymmetric wires on the 1M store (offset ``P * qmax``,
+    shift 5 and 1 at 2**20 slots) and the cascade's coarse pass over the
+    128-column prefix (the symmetric offset and shift)."""
+    from lshrs_tpu_torch.ops.group_max import asymmetric_shift
+
+    return {
+        "asymmetric_int8": (NUM_PERM, NUM_PERM * 127, asymmetric_shift(NUM_PERM, N_1M)),
+        "asymmetric_int4": (NUM_PERM, NUM_PERM * 7, asymmetric_shift(NUM_PERM, N_1M, qmax=7)),
+        "cascade_coarse": (CASCADE_BITS, CASCADE_BITS, 1),
+    }
 
 
 def emit(phase: str, **fields) -> None:
@@ -215,6 +274,34 @@ def median_ms(fn, *, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+class RunningTruth:
+    """Exact float32 cosine top-``depth`` of fixed queries over row batches
+    on the card (TF32 is off), merged batch by batch; its seconds are kept
+    apart so a timed build can leave them out."""
+
+    def __init__(self, q: np.ndarray, depth: int = TOP_K):
+        qt = torch.from_numpy(q).to(DEVICE)
+        self.qn = qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)
+        self.best = torch.full((len(q), depth), -2.0, device=DEVICE)
+        self.ids = torch.zeros((len(q), depth), dtype=torch.int64, device=DEVICE)
+        self.seconds = 0.0
+
+    def add(self, x: torch.Tensor, off: int) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xn = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        depth = self.best.shape[1]
+        v, i = torch.topk(self.qn @ xn.T, depth, dim=1)
+        v, j = torch.topk(torch.cat([self.best, v], 1), depth, dim=1)
+        self.ids = torch.cat([self.ids, i + off], 1).gather(1, j)
+        self.best = v
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+    def truth(self) -> np.ndarray:
+        return self.ids.cpu().numpy()
+
+
 def b1_inputs(rng, *, bw, c, q, probes, dev):
     """Store words from a 4-letter alphabet (so counts spread over 0..B),
     planted full matches, ~10% dead slots; probe t > 0 flips bit t-1 of
@@ -255,6 +342,47 @@ def b2_inputs(rng, *, c, p, q, asymmetric, dev):
     )
 
 
+def b2_inputs_on_card(gen, *, c, p, q, qmax, dev):
+    """B2's operands and key arguments at phase 10's packings, drawn on the
+    card: +-1 planes, ~10% dead slots; quantised coordinates in
+    ``[-qmax, qmax]`` with the asymmetric offset and shift of a ``c``-slot
+    store, or (``qmax=None``) stored rows with ~20% of their bits flipped
+    under the cascade's coarse scale and shifted tie."""
+    from lshrs_tpu_torch.ops.group_max import asymmetric_shift, key_scale
+    from lshrs_tpu_torch.ops.hamming import cascade_coarse_scale
+    from lshrs_tpu_torch.ops.scan import global_tie_core
+
+    planes = (2 * torch.randint(0, 2, (c, p), generator=gen, device=dev) - 1).to(torch.int8)
+    ids = torch.randperm(c, generator=gen, device=dev).to(torch.int32)
+    ids[torch.rand(c, generator=gen, device=dev) < 0.1] = -1
+    tie = global_tie_core(ids)
+    if qmax is None:
+        pick = torch.randint(0, c, (q,), generator=gen, device=dev)
+        flip = torch.rand((q, p), generator=gen, device=dev) < 0.2
+        qb = torch.where(flip, -planes[pick], planes[pick]).contiguous()
+        scale, tie_shift = cascade_coarse_scale(p, c)
+        tie = torch.where(tie >= 0, tie >> tie_shift, tie)
+        kw = dict(group=64, scale=scale, num_perm=p)
+    else:
+        qb = torch.randint(-qmax, qmax + 1, (q, p), generator=gen, device=dev).to(torch.int8)
+        kw = dict(group=64, scale=key_scale(c), num_perm=p, offset=p * qmax,
+                  shift=asymmetric_shift(p, c, qmax=qmax))
+    return planes, tie, qb, kw
+
+
+def cascade_path_queries(c: int) -> list[int]:
+    """Query counts of the coarse B2 launches that one QPS_BATCH_1M batch
+    makes on a ``c``-slot cascade store: its full slices and the ragged
+    last one (the store's slicing, with the narrow refine rows it keeps
+    at 16 x 16)."""
+    from lshrs_tpu_torch.ops.bitpack import narrow_words_count
+    from lshrs_tpu_torch.ops.hamming import cascade_slice_queries
+
+    step = cascade_slice_queries(c, group=64, pool_groups=CASCADE_REFINE // 64,
+                                 words=narrow_words_count(NUM_BANDS, ROWS))
+    return sorted({min(step, QPS_BATCH_1M), QPS_BATCH_1M % step} - {0})
+
+
 def b3_inputs(rng, *, bw, c, q, dev):
     """Full 32-bit store words (so num_perm = 32 * BW), ~10% dead slots;
     half the queries are stored slots with ~10% of their bits flipped."""
@@ -271,6 +399,48 @@ def b3_inputs(rng, *, bw, c, q, dev):
         global_tie_core(torch.from_numpy(ids).to(dev)),
         torch.from_numpy(qw).to(dev),
     )
+
+
+def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
+    """Phase 2's B2 checks at phase 10's key packings; adds to ``err`` and
+    ``timed`` as :func:`phase_kernels` does."""
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, hamming_group_max_keys_ref
+
+    # Phase 10's packings: the asymmetric int8 and int4 wires at 2**20
+    # slots, and the cascade's coarse pass at 2**22 and 2**23 slots (drawn
+    # on the card: 1 GiB of planes at 2**23), each at the timed Q=512 and at
+    # the query counts its path launches: the whole serving batch for the
+    # asymmetric wires, the store's query slices (and the last, ragged one)
+    # for the coarse pass. The plain version runs over 256-query slices.
+    for c, p, qmax in [(N_1M, NUM_PERM, 127), (N_1M, NUM_PERM, 7),
+                       (N_4M, CASCADE_BITS, None), (N_8M, CASCADE_BITS, None)]:
+        qs = [512, QPS_BATCH_1M] if qmax else [512, *cascade_path_queries(c)]
+        planes, tie, qb, kw = b2_inputs_on_card(gen, c=c, p=p, q=max(qs), qmax=qmax, dev=dev)
+        for q in qs:
+            got = hamming_group_max_keys(planes, tie, qb[:q], **kw)
+            diff, ok = 0, True
+            for s in range(0, q, 256):
+                want = hamming_group_max_keys_ref(planes, tie, qb[s : min(q, s + 256)], **kw)
+                diff = max(diff, int((got[s : s + 256].long() - want.long()).abs().max()))
+                ok = ok and torch.equal(got[s : s + 256], want)
+            torch.cuda.synchronize()
+            err["hamming_group_max_keys"] = max(err["hamming_group_max_keys"], diff)
+            emit("kernel_check", kernel="hamming_group_max_keys", C=c, P=p, Q=q, group=64,
+                 qmax=qmax, offset=kw.get("offset"), shift=kw.get("shift", 1),
+                 scale=kw["scale"], equal=ok, max_abs_err=diff)
+            if not ok:
+                raise AssertionError(f"B2 kernel != plain at C={c}, P={p}, Q={q}, qmax={qmax}")
+            del got, want
+        name = B2_TIMED_NEW.get((c, p, qmax))
+        if name:
+            q512 = qb[:512]
+            timed[name] = (
+                lambda a=(planes, tie, q512), kw=kw: hamming_group_max_keys(*a, **kw),
+                lambda a=(planes, tie, q512), kw=kw: hamming_group_max_keys_ref(*a, **kw),
+                dict(C=c, Q=512, P=p, group=64),
+                lambda planes=planes, qb=q512: torch._int_mm(qb, planes.t()),
+            )
+        del planes, tie, qb
 
 
 def phase_kernels(rng, dev) -> dict:
@@ -387,6 +557,9 @@ def phase_kernels(rng, dev) -> dict:
                 shape, None,
             )
         del planes, qb, got, want
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    check_b2_packings(gen, dev, err, timed)
 
     b3_cases = [  # (BW, C, Q, group)
         (16, 1 << 20, 512, 64),
@@ -591,7 +764,7 @@ def phase_1m(seed: int) -> dict:
     emit("carry_1m", queries=CARRY_QUERIES, equal=equal)
     assert equal, "1M: card and CPU ids differ on the same words"
     queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(4)]
-    return {"lsh": lsh, "serve": serve, "queries": queries}
+    return {"lsh": lsh, "serve": serve, "queries": queries, "keep": keep}
 
 
 def _assert_same_topk(name, got, want) -> None:
@@ -599,6 +772,33 @@ def _assert_same_topk(name, got, want) -> None:
     equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
     emit("packed_vs", other=name, queries=int(got[1].shape[0]), equal=equal)
     assert equal, f"4M: packed path != {name} on the same words"
+
+
+def draw_clustered(lsh, n: int, seed: int, *, planted_depth: int) -> tuple:
+    """Index ``n`` clustered vectors (4096 centres, 0.35 noise, as the 1M
+    slice) drawn on the card in ``INGEST_BATCH`` batches, through the host
+    as a user's batches would come. Returns the first ``QPS_BATCH_1M``
+    rows, the build seconds, and the planted queries (``PLANTED`` stored
+    rows moved to ~0.8 cosine) with their exact-cosine top
+    ``planted_depth`` over all ``n`` rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    centers = torch.randn((4096, DIM), generator=gen, device=DEVICE)
+    keep = exact = queries = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, n, INGEST_BATCH):
+        pick = torch.randint(0, 4096, (INGEST_BATCH,), generator=gen, device=DEVICE)
+        xd = centers[pick] + 0.35 * torch.randn((INGEST_BATCH, DIM), generator=gen, device=DEVICE)
+        xb = xd.cpu().numpy()
+        if keep is None:
+            keep = xb[:QPS_BATCH_1M].copy()
+            queries = planted_queries(keep[:PLANTED], np.random.default_rng(seed))
+            exact = RunningTruth(queries, depth=planted_depth)
+        exact.add(xd, off)
+        lsh.index(np.arange(off, off + INGEST_BATCH), xb)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0 - exact.seconds
+    return keep, build_s, (queries, exact.truth())
 
 
 def phase_packed_4m(seed: int) -> dict:
@@ -617,21 +817,11 @@ def phase_packed_4m(seed: int) -> dict:
                 hamming_storage="packed", device=DEVICE)
     # Clustered data as in the 1M slice (4096 centres, 0.35 noise), drawn
     # on the card: 12 GB of float32 would take minutes on the host.
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
-    centers = torch.randn((4096, DIM), generator=gen, device=DEVICE)
-    keep = None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for off in range(0, N_4M, INGEST_BATCH):
-        pick = torch.randint(0, 4096, (INGEST_BATCH,), generator=gen, device=DEVICE)
-        xb = centers[pick] + 0.35 * torch.randn((INGEST_BATCH, DIM), generator=gen, device=DEVICE)
-        xb = xb.cpu().numpy()
-        if keep is None:
-            keep = xb[:QPS_BATCH_1M].copy()
-        lsh.index(np.arange(off, off + INGEST_BATCH), xb)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    del centers
+    # Phase 10 holds the cascade to the exact cosine of planted queries on
+    # these vectors: their truth is merged as the batches are drawn (and
+    # left out of the build time). Deeper than 10: the ids deleted below
+    # drop out of it.
+    keep, build_s, planted = draw_clustered(lsh, N_4M, seed + 2, planted_depth=2 * TOP_K)
 
     store = lsh._storage
     serve = lsh.serving_fn(top_k=TOP_K)
@@ -711,7 +901,7 @@ def phase_packed_4m(seed: int) -> dict:
 
     queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
     return {"lsh": lsh, "serve": serve, "serve_planes": serve_planes, "queries": queries,
-            "build_s": build_s}
+            "build_s": build_s, "keep": keep, "deleted": deleted, "planted": planted}
 
 
 def phase_lifecycle(s100: dict, seed: int) -> None:
@@ -883,18 +1073,11 @@ def phase_topp_1m(seed: int) -> dict:
     qx += 0.35 * rng.standard_normal((TOPP_QUERIES, DIM), dtype=np.float32)
 
     # Exact float32 cosine top-10 over the 2**20 vectors (TF32 is off).
-    xn = exact_x / torch.linalg.vector_norm(exact_x, dim=1, keepdim=True)
-    qt = torch.from_numpy(qx).to(DEVICE)
-    qn = qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)
-    best = torch.full((TOPP_QUERIES, TOP_K), -2.0, device=DEVICE)
-    best_ids = torch.zeros((TOPP_QUERIES, TOP_K), dtype=torch.int64, device=DEVICE)
+    exact = RunningTruth(qx)
     for s in range(0, N_1M, 1 << 18):
-        v, i = torch.topk(qn @ xn[s : s + (1 << 18)].T, TOP_K, dim=1)
-        v, j = torch.topk(torch.cat([best, v], 1), TOP_K, dim=1)
-        best_ids = torch.cat([best_ids, i + s], 1).gather(1, j)
-        best = v
-    truth = best_ids.cpu().numpy()
-    del exact_x, xn
+        exact.add(exact_x[s : s + (1 << 18)], s)
+    truth = exact.truth()
+    del exact_x, exact
 
     # Each engine pinned through the store's batch entry point.
     qw = lsh._hasher.hash_batch_words(qx)
@@ -1479,6 +1662,280 @@ def phase_family_lifecycle(seed: int) -> None:
         assert back.stats()["multiprobe"] == probes and back.stats()["hash_family"] == family
 
 
+# ---------------------------------------------------------------------------
+# phase 10: asymmetric ranking, the refinement cascade
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_b2(*modules):
+    """Inside the block the given modules call kernel B2's plain version on
+    the same tensors on the card: the rest of their path is unchanged."""
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys_ref
+
+    saved = [m.hamming_group_max_keys for m in modules]
+    for m in modules:
+        m.hamming_group_max_keys = hamming_group_max_keys_ref
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, saved):
+            m.hamming_group_max_keys = f
+
+
+def planted_queries(x: np.ndarray, rng) -> np.ndarray:
+    """Stored vectors moved to ~0.8 cosine: ``0.8 x^ + 0.6 n^`` (the
+    reference's capacity-bench probe)."""
+    noise = rng.standard_normal(x.shape, dtype=np.float32)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    return (0.8 * xn + 0.6 * noise / np.linalg.norm(noise, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+def planted_recall(ids: np.ndarray, planted: np.ndarray) -> float:
+    return float((ids == planted[:, None]).any(axis=1).mean())
+
+
+def planted_quality(got: np.ndarray, planted, alive=None) -> dict:
+    """Planted recall@10 of ``got`` beside that of the exact cosine ranking
+    (the ceiling: on clustered data a 0.8-cosine plant can trail its own
+    cluster's points), and recall@10 against the exact top-10. ``alive``
+    drops deleted ids from the exact ranking and their queries."""
+    queries, ranked = planted
+    ids = np.arange(len(queries))
+    keep = np.ones(len(ids), bool) if alive is None else alive(ids)
+    truth = np.array([row[alive(row)][:TOP_K] if alive else row[:TOP_K] for row in ranked])
+    return {"planted_recall_at_10": planted_recall(got[keep], ids[keep]),
+            "exact_cosine_planted_recall_at_10": planted_recall(truth[keep], ids[keep]),
+            "recall_at_10_vs_exact_cosine": recall_at_10(got[keep], truth[keep]),
+            "planted_queries": int(keep.sum())}
+
+
+def agreement_at_10(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.mean([len(set(x[x >= 0]) & set(y[y >= 0])) / TOP_K for x, y in zip(a, b)]))
+
+
+def brute_asymmetric(store, qc: np.ndarray, flt) -> tuple[np.ndarray, np.ndarray]:
+    """Exact (dots desc, id asc) top-10 over the slots ``flt`` admits: every
+    admitted slot's dot on the card (a float32 product of small integers,
+    exact), one int64 key per (dot, id)."""
+    p = NUM_PERM
+    ids = store._ids.cpu().numpy()
+    slots = np.flatnonzero((ids >= 0) & flt.admits(ids))
+    sel = torch.from_numpy(slots).to(DEVICE)
+    planes = store._planes[sel, :p].to(torch.float32)
+    q = torch.from_numpy(qc).to(DEVICE, torch.float32)
+    dots = (q @ planes.T).to(torch.int64)
+    key = (-dots << 32) | store._ids[sel].to(torch.int64)[None, :]
+    top = torch.topk(key, TOP_K, dim=1, largest=False).values
+    return (-(top >> 32)).to(torch.int32).cpu().numpy(), (top & 0xFFFFFFFF).to(torch.int32).cpu().numpy()
+
+
+def phase_asymmetric_1m(s1m: dict, t1m: dict, seed: int, label: str) -> dict:
+    """Asymmetric ranking on the 1M planes index (kernel B2 at offset P*127,
+    shift 5, and at the int4 wire's P*7, shift 1)."""
+    from lshrs_tpu_torch.ops import asymmetric as asym_mod
+    from lshrs_tpu_torch.ops.asymmetric import asymmetric_shift, quantize_coords_np
+
+    lsh, keep = s1m["lsh"], s1m["keep"]
+    store = lsh._storage
+    rng = np.random.default_rng(seed + 12)
+    assert lsh.stats()["engine_resolved"] == "hamming" and store.hamming_storage == "planes"
+    shift = asymmetric_shift(NUM_PERM, store._capacity)
+    serves = {w: lsh.serving_fn(top_k=TOP_K, mode="asymmetric", coords_wire=w)
+              for w in ("int8", "int4")}
+    sm = {w: self_match(serves[w], [(np.arange(QPS_BATCH_1M), keep)], N_1M) for w in serves}
+
+    # The card against a CPU copy of the store, and kernel B2 against its
+    # plain version under the same refine, on the same coordinates.
+    qx = keep[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    qc = quantize_coords_np(lsh._hasher.hash_batch_coords_host(qx))[0]
+    dots, ids = store.query_asymmetric(qc, TOP_K)
+    cpu_s, cpu = host_seconds(lambda: carry_to_cpu(store))
+    query_s, (dots_c, ids_c) = host_seconds(lambda: cpu.query_asymmetric(qc, TOP_K))
+    card_eq_cpu = bool(np.array_equal(ids, ids_c) and np.array_equal(dots, dots_c))
+    with plain_b2(asym_mod):
+        plain = store.query_asymmetric(qc[:PLAIN_QUERIES], TOP_K)
+    kernel_eq_plain = bool(np.array_equal(ids[:PLAIN_QUERIES], plain[1])
+                           and np.array_equal(dots[:PLAIN_QUERIES], plain[0]))
+
+    # where=: phase 9's allowlist, equal to the CPU copy under the same
+    # filter, and against brute force over the admitted subset. The
+    # shifted key selects groups at 2**shift granularity, so a row may
+    # swap a slot for one whose dot is within 2**shift of it.
+    flt = make_filter(N_1M, rng)
+    served_f = lsh.serving_fn(top_k=TOP_K, mode="asymmetric", where=flt)(qx)
+    inadmissible = int((~flt.admits(served_f[served_f >= 0])).sum())
+    dots_f, ids_f = store.query_asymmetric(qc, TOP_K, where=flt)
+    dots_fc, ids_fc = cpu.query_asymmetric(qc, TOP_K, where=flt)
+    del cpu
+    filtered_eq_cpu = bool(np.array_equal(ids_f, ids_fc) and np.array_equal(dots_f, dots_fc))
+    bf_dots, bf_ids = brute_asymmetric(store, qc, flt)
+    rows_equal = int(((ids_f == bf_ids) & (dots_f == bf_dots)).all(axis=1).sum())
+    within = bool((np.abs(bf_dots.astype(np.int64) - dots_f) < (1 << shift)).all())
+
+    # Quality: recall@10 against phase 8's exact-cosine truth, beside
+    # symmetric Hamming on the same data and queries.
+    qt, truth = t1m["qx"], t1m["truth"]
+    recall = {"asymmetric_int8": recall_at_10(serves["int8"](qt), truth),
+              "asymmetric_int4": recall_at_10(serves["int4"](qt), truth),
+              "hamming": recall_at_10(s1m["serve"](qt), truth)}
+    qps = {w: serving_qps(serves[w], s1m["queries"][:2], trials=2) for w in serves}
+    qps["hamming"] = serving_qps(s1m["serve"], s1m["queries"][:2], trials=2)
+    emit("slice_asymmetric_1m", card=label, capacity=store._capacity, shift=shift,
+         self_match=sm, card_equals_cpu=card_eq_cpu, cpu_queries=CARRY_QUERIES,
+         cpu_copy_s=cpu_s, cpu_query_s=query_s, kernel_equals_plain=kernel_eq_plain,
+         plain_queries=PLAIN_QUERIES, inadmissible_ids_returned=inadmissible,
+         filtered_equals_cpu=filtered_eq_cpu, filtered_rows_equal_brute_force=rows_equal, filtered_rows=CARRY_QUERIES,
+         filtered_within_granularity=within, served_filtered_equals_query=bool(
+             np.array_equal(served_f, ids_f)),
+         recall_queries=len(qt), **{f"recall_{k}": v for k, v in recall.items()},
+         **{f"qps_{k}": v for k, v in qps.items()}, batch=QPS_BATCH_1M)
+    assert sm["int8"] == 1.0 and sm["int4"] == 1.0, sm
+    assert card_eq_cpu and kernel_eq_plain, (card_eq_cpu, kernel_eq_plain)
+    assert inadmissible == 0 and filtered_eq_cpu and within and np.array_equal(served_f, ids_f)
+    assert recall["asymmetric_int8"] >= recall["hamming"], recall
+    emit("profile", card=label, rows=N_1M, batch=QPS_BATCH_1M, mode="asymmetric",
+         coords_wire="int8", **serving_profile(serves["int8"], s1m["queries"][:2]))
+    return {"recall": recall, "qps": qps}
+
+
+def cascade_lsh(capacity: int):
+    from lshrs_tpu_torch import LSHRS
+
+    return LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                 engine="hamming", hamming_cascade=CASCADE_BITS,
+                 hamming_cascade_refine=CASCADE_REFINE, initial_capacity=capacity,
+                 device=DEVICE)
+
+
+def cascade_checks(lsh, qwords) -> bool:
+    """Ids and distances of the cascade through kernel B2 == through B2's
+    plain version with the same refine, on the card. The store must slice
+    a batch as phase 2 assumed when it held B2 at the path's shapes."""
+    from lshrs_tpu_torch.ops import hamming as hamming_mod
+    from lshrs_tpu_torch.ops.bitpack import narrow_words_count
+
+    store = lsh._storage
+    nw = store._refine_rows().shape[1] // store._group() - 2
+    assert (store._group(), store._cascade_groups(TOP_K), nw) == (
+        64, CASCADE_REFINE // 64, narrow_words_count(NUM_BANDS, ROWS)), (store._group(), nw)
+    got = store.query_hamming(qwords, TOP_K)
+    with plain_b2(hamming_mod):
+        plain = store.query_hamming(qwords, TOP_K)
+    return bool(np.array_equal(got[0], plain[0]) and np.array_equal(got[1], plain[1]))
+
+
+def phase_cascade_4m(s4m: dict, seed: int, label: str) -> dict:
+    """The cascade on the packed_4m store's words (no second hash), beside
+    the exact planes engine on the same words."""
+    from lshrs_tpu_torch import DeviceStore
+    from lshrs_tpu_torch.ops.hamming import plane_width
+
+    src = s4m["lsh"]._storage
+    rng = np.random.default_rng(seed + 13)
+    alive = torch.nonzero(src._ids[:N_4M] >= 0).flatten()
+    ids_alive = src._ids[alive].cpu().numpy()
+    lsh = cascade_lsh(N_4M)
+    for s in range(0, alive.numel(), N_1M):
+        pick = alive[s : s + N_1M]
+        lsh._storage.add_signature_batch(ids_alive[s : s + N_1M], src._sig_rows[pick])
+    store = lsh._storage
+    keep, deleted = s4m["keep"], s4m["deleted"]
+    stored = np.setdiff1d(np.arange(QPS_BATCH_1M), deleted)
+    serve = lsh.serving_fn(top_k=TOP_K)
+    sm = self_match(serve, [(stored, keep[stored])], N_4M)
+    stats = lsh.stats()["index"]
+
+    # Kernel vs plain on 64 noisy queries; planted queries against the exact
+    # planes engine on the same words.
+    qx = keep[:PLAIN_QUERIES] + 0.5 * rng.standard_normal((PLAIN_QUERIES, DIM), dtype=np.float32)
+    plain_eq = cascade_checks(lsh, lsh._hasher.hash_batch_words(qx))
+    pq = s4m["planted"][0]
+    got, exact = serve(pq), s4m["serve_planes"](pq)
+    not_deleted = lambda x: ~np.isin(x, deleted)  # noqa: E731
+    quality = {name: planted_quality(out, s4m["planted"], not_deleted)
+               for name, out in (("cascade", got), ("planes", exact))}
+    agree = agreement_at_10(got, exact)
+
+    # Where the pool covers every group, the cascade is the exact engine
+    # (2**16 slots of the same words, a pool of all 1,024 groups).
+    small = 1 << 16
+    kw = dict(num_bands=NUM_BANDS, rows_per_band=ROWS, initial_capacity=small,
+              enable_hamming=True, device=DEVICE)
+    full = DeviceStore(hamming_cascade=CASCADE_BITS, hamming_cascade_refine=small, **kw)
+    exact_small = DeviceStore(**kw)
+    for st in (full, exact_small):
+        st.add_signature_batch(ids_alive[:small], src._sig_rows[alive[:small]])
+    qw = lsh._hasher.hash_batch_words(pq[:CARRY_QUERIES])
+    a, b = full.query_hamming(qw, TOP_K), exact_small.query_hamming(qw, TOP_K)
+    full_pool_exact = bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+    del full, exact_small
+
+    planes_bytes = N_4M * plane_width(NUM_PERM)
+    emit("slice_cascade_4m", card=label, capacity=stats["capacity"], alive=stats["alive"],
+         hamming_cascade=stats["hamming_cascade"], refine=CASCADE_REFINE,
+         prefix_plane_bytes=stats["hamming_plane_bytes"], full_plane_bytes=planes_bytes,
+         self_match=sm, kernel_equals_plain=plain_eq, plain_queries=PLAIN_QUERIES,
+         full_pool_equals_exact=full_pool_exact, full_pool_slots=small,
+         cascade=quality["cascade"], planes=quality["planes"],
+         agreement_at_10_with_planes=agree)
+    assert stats["capacity"] == N_4M and stats["hamming_plane_bytes"] == N_4M * CASCADE_BITS
+    assert stats["hamming_plane_bytes"] * 2 == planes_bytes
+    assert sm == 1.0 and plain_eq and full_pool_exact, (sm, plain_eq, full_pool_exact)
+    qps = {}
+    for name in ("cascade", "planes", "planes", "cascade"):  # in turns
+        fn = serve if name == "cascade" else s4m["serve_planes"]
+        qps.setdefault(name, []).append(serving_qps(fn, s4m["queries"], trials=2))
+    emit("serving", card=label, rows=N_4M, batch=QPS_BATCH_1M, engine="hamming",
+         qps_cascade=qps["cascade"], qps_planes=qps["planes"])
+    return {"lsh": lsh, "quality": quality, "agreement": agree, "qps": qps}
+
+
+def phase_cascade_8m(seed: int, label: str) -> dict:
+    """2**23 clustered vectors drawn on the card, served by the cascade:
+    past the single-pass engines' int32 key ceiling."""
+    from lshrs_tpu_torch.ops.hamming import supports_hamming_grouped
+
+    lsh = cascade_lsh(N_8M)
+    keep, build_s, planted = draw_clustered(lsh, N_8M, seed + 14, planted_depth=TOP_K)
+    rng = np.random.default_rng(seed + 15)
+    stats = lsh.stats()["index"]
+    assert not supports_hamming_grouped(NUM_PERM, stats["capacity"])  # past the ceiling
+    serve = lsh.serving_fn(top_k=TOP_K)
+    t0 = time.perf_counter()
+    sm = self_match(serve, [(np.arange(QPS_BATCH_1M), keep)], N_8M)
+    first_s = time.perf_counter() - t0  # builds the prefix planes and refine table
+    qx = keep[:PLAIN_QUERIES] + 0.5 * rng.standard_normal((PLAIN_QUERIES, DIM), dtype=np.float32)
+    plain_eq = cascade_checks(lsh, lsh._hasher.hash_batch_words(qx))
+    quality = planted_quality(serve(planted[0]), planted)
+    queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
+    qps = serving_qps(serve, queries, trials=2)
+    stats = lsh.stats()["index"]
+    emit("slice_cascade_8m", card=label, capacity=stats["capacity"], alive=stats["alive"],
+         hamming_cascade=stats["hamming_cascade"], refine=CASCADE_REFINE,
+         prefix_plane_bytes=stats["hamming_plane_bytes"], self_match=sm,
+         kernel_equals_plain=plain_eq, plain_queries=PLAIN_QUERIES, **quality,
+         qps=qps, batch=QPS_BATCH_1M,
+         build_vectors_per_s=N_8M / build_s, build_s=build_s, first_batch_s=first_s)
+    assert stats["capacity"] == N_8M and stats["alive"] == N_8M
+    assert sm == 1.0 and plain_eq, (sm, plain_eq)
+    emit("profile", card=label, rows=N_8M, batch=QPS_BATCH_1M, engine="hamming",
+         hamming_cascade=CASCADE_BITS, **serving_profile(serve, queries[:1]))
+
+    deleted = rng.choice(N_8M, N_8M // 100, replace=False)
+    lsh.delete(deleted.tolist())
+    out = lsh.serving_fn(top_k=TOP_K)(keep)
+    kept = ~np.isin(np.arange(QPS_BATCH_1M), deleted)
+    leaked = int(np.isin(out, deleted).sum())
+    sm_after = float((out[kept, 0] == np.arange(QPS_BATCH_1M)[kept]).mean())
+    stats = lsh.stats()["index"]
+    emit("delete_cascade_8m", deleted=int(deleted.size), deleted_queried=int((~kept).sum()),
+         tombstones=stats["tombstones"], deleted_ids_returned=leaked,
+         survivor_self_match=sm_after)
+    assert leaked == 0 and sm_after == 1.0 and stats["tombstones"] == deleted.size
+    return {"quality": quality, "qps": qps, "build_s": build_s}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1492,6 +1949,7 @@ def main() -> int:
 
     from lshrs_tpu_torch.ops import _build
 
+    start = time.perf_counter()
     dev = torch.device(DEVICE)
     label = card_label()
     kind = torch.cuda.get_device_name(0)
@@ -1510,25 +1968,38 @@ def main() -> int:
     launches = {name: 0 for name in KERNELS}
 
     b1_by_shape = {}
+    b2_by_packing = {}
+    packings = b2_packings()
 
-    def drive(path: str, kernel, run, *, b1_shapes=()):
+    def drive(path: str, kernel, run, *, b1_shapes=(), b2_packings=()):
         """Run one path with every launch counter at 0 just before it and
         read just after: each kernel named (one name or several) must have
-        been launched, and B1 at each ``(BW, probes)`` of ``b1_shapes``."""
+        been launched, B1 at each ``(BW, probes)`` of ``b1_shapes`` and B2
+        at each ``(width, offset, shift)`` of ``b2_packings``."""
         for w in wrappers.values():
             w.launches = 0
         wrappers[B1].launches_by_shape.clear()
+        wrappers[B2].launches_by_packing.clear()
+        t0 = time.perf_counter()
         out = run()
+        seconds = time.perf_counter() - t0
         counts = {name: w.launches for name, w in wrappers.items()}
         shapes = dict(wrappers[B1].launches_by_shape)
-        emit("launches", path=path, **counts,
-             b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())})
+        by_packing = dict(wrappers[B2].launches_by_packing)
+        emit("launches", path=path, seconds=seconds, **counts,
+             b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())},
+             b2_by_width_offset_shift={f"{w}/{o}/{h}": n for (w, o, h), n in sorted(by_packing.items())})
         for name in ([kernel] if isinstance(kernel, str) else kernel):
             if counts[name] == 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
         for shape in b1_shapes:
             if shapes.get(shape, 0) == 0:
                 raise AssertionError(f"B1 was not launched at (BW, probes)={shape} on the {path} path")
+        for packing in b2_packings:
+            if by_packing.get(packing, 0) == 0:
+                raise AssertionError(f"B2 was not launched at (width, offset, shift)={packing} "
+                                     f"on the {path} path")
+            b2_by_packing[path, packing] = by_packing[packing]
         for name, n in counts.items():
             launches[name] += n
         for shape, n in shapes.items():
@@ -1571,7 +2042,17 @@ def main() -> int:
     emit("build", card=label, rows=N_4M, batch=INGEST_BATCH, vectors_per_s=N_4M / s4m["build_s"],
          seconds=s4m["build_s"], note="packed store; includes drawing the data on the card "
          "and its round trip through the host")
-    del s4m, s1m
+
+    # Phase 10 (the cascade half): the 4M words, then 2**23 slots.
+    c4m = drive("cascade_4m", B2, lambda: phase_cascade_4m(s4m, args.seed, label),
+                b2_packings=[packings["cascade_coarse"]])
+    del s4m, c4m
+    c8m = drive("cascade_8m", B2, lambda: phase_cascade_8m(args.seed, label),
+                b2_packings=[packings["cascade_coarse"]])
+    emit("build", card=label, rows=N_8M, batch=INGEST_BATCH, vectors_per_s=N_8M / c8m["build_s"],
+         seconds=c8m["build_s"], note="cascade store; includes drawing the data on the card "
+         "and its round trip through the host")
+    del c8m
 
     drive("lifecycle_100k", "group_max_keys", lambda: phase_lifecycle(s100, args.seed))
 
@@ -1602,6 +2083,11 @@ def main() -> int:
              **serving_profile(serves[eng, TOPP_QPS_BATCHES_1M[-1]],
                                t1m["queries"][TOPP_QPS_BATCHES_1M[-1]][:1]))
     del lsh1m, store1m, serves
+    # Phase 10 (the asymmetric half): the 1M planes index, scored against
+    # phase 8's exact-cosine truth on the same data.
+    drive("asymmetric_1m", B2, lambda: phase_asymmetric_1m(s1m, t1m, args.seed, label),
+          b2_packings=[packings["asymmetric_int8"], packings["asymmetric_int4"]])
+    del s1m
 
     # Phase 9: hash families, multi-probe, filters.
     drive("hash_parity", (), lambda: phase_hash_parity(args.seed, label))
@@ -1640,6 +2126,17 @@ def main() -> int:
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, rep) in sources.items()
     ]
+    # B2 once more per phase-10 packing: its launches at that packing on
+    # that path (not the symmetric launches the path makes to compare).
+    src, rep = sources[B2]
+    for (c, p, qmax), variant in B2_TIMED_NEW.items():
+        path = variant.split("@")[1].replace("_coarse", "")
+        packing = packings["cascade_coarse" if qmax is None else "asymmetric_int8"]
+        kernels.append(
+            {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+             "launches": b2_by_packing[path, packing], "max_abs_err": kern["max_abs_err"][B2],
+             **{key: times[variant][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # B1 once more per timed multi-probe / 32-word instantiation: the same
     # source, its launches on the main path at that (BW, probes).
     src, rep = sources[B1]
@@ -1650,6 +2147,7 @@ def main() -> int:
              "launches": b1_by_shape[t["bands"], t["probes"]],
              "max_abs_err": kern["max_abs_err"][B1],
              **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    emit("done", script_s=time.perf_counter() - start)
     print(label)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

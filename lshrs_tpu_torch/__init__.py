@@ -11,12 +11,34 @@ band-collision ranking (kernel B1) and full-signature Hamming ranking on
 int8 bitplanes (kernel B2) or on the packed words (kernel B3) — top-p
 cosine rerank over a resident payload, the gaussian, structured (FWHT,
 with a native C host path), learned and cross-polytope hash families,
-multi-probe querying, ``where=`` id filters, delete and compact, and
+multi-probe querying, ``where=`` id filters, asymmetric ranking of
+quantised query coordinates and the Hamming refinement cascade (which
+serves stores past the int32 key ceiling), delete and compact, and
 checkpoints in the reference package's format. CUDA kernels build with
 ``nvcc`` at first use; on CPU tensors their plain PyTorch versions run.
 """
 
-from lshrs_tpu_torch.core.main import LSHRS
+import importlib.metadata
+from typing import Final
+
+from lshrs_tpu_torch.core.main import LSHRS, lshrs
 from lshrs_tpu_torch.storage import BaseStorage, DeviceStore, IdFilter, MemoryStorage
 
-__all__ = ["LSHRS", "BaseStorage", "DeviceStore", "IdFilter", "MemoryStorage"]
+# The installed distribution's version (both packages ship in it), or
+# "0.0.0" in a checkout that is not installed.
+try:
+    _version = importlib.metadata.version("lshrs-tpu")
+except importlib.metadata.PackageNotFoundError:  # pragma: no cover
+    _version = "0.0.0"
+__version__: Final[str] = _version
+del _version
+
+__all__ = [
+    "LSHRS",
+    "lshrs",
+    "BaseStorage",
+    "DeviceStore",
+    "IdFilter",
+    "MemoryStorage",
+    "__version__",
+]

@@ -12,9 +12,13 @@ persistence.
                     store_vectors the payload rows too)
     query        -> hash (with multiprobe=T: T probe signatures per
                     query for collision counting and top-p) -> kernel B1
-                    (collision), B2 (Hamming on bitplanes) or B3 (Hamming
-                    on packed words) group max -> exact top-k groups ->
-                    refine -> ids; where= ranks only the admitted ids
+                    (collision), B2 (Hamming on bitplanes, or on a prefix
+                    of them: the refinement cascade) or B3 (Hamming on
+                    packed words) group max -> top-k groups -> refine ->
+                    ids; where= ranks only the admitted ids
+    asymmetric   -> host projection coordinates, quantised to int8 (or
+                    the int4 wire) -> kernel B2 with a shifted key -> exact
+                    (dot, id) re-rank from the packed words
     top-p        -> hash -> collision counts (full engine) or kernel B1's
                     candidate gather -> cosine rerank over the resident
                     payload -> (id, cosine); or, without a payload, the
@@ -32,9 +36,11 @@ rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 ``_AUTO_HAMMING_CAPACITY`` slots (pinned and persisted), and
 buffer-restore-on-failed-flush semantics.
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP Queue A):
-MIPS, the asymmetric and cascade modes, the bucketed engine, bucket
-backends, sharding and retuning (``rehash`` / ``retrain``).
+Not ported yet (the argument that asks for one raises
+``NotImplementedError`` naming its ROADMAP Queue A item): MIPS, the
+bucketed engine, bucket backends and custom storages, sharding and
+``serving_fn(auto_refresh=True)``. Retuning (``rehash`` / ``retrain``,
+Queue A item 5) has no method here yet.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import numpy as np
 import torch
 
 from lshrs_tpu_torch.hash.hasher import LSHHasher
-from lshrs_tpu_torch.storage.device import DeviceStore
+from lshrs_tpu_torch.ops.asymmetric import QMAX4, pack_coords_int4_np, quantize_coords_np
+from lshrs_tpu_torch.storage.device import DeviceStore, _not_ported
 from lshrs_tpu_torch.storage.filter import as_filter
 from lshrs_tpu_torch.utils.br import get_optimal_config
 from lshrs_tpu_torch.utils.cp import get_optimal_cp_config
@@ -61,7 +68,7 @@ logger = logging.getLogger(__name__)
 
 VectorFetchFn = Callable[[Sequence[int]], np.ndarray]
 
-__all__ = ["LSHRS", "VectorFetchFn"]
+__all__ = ["LSHRS", "VectorFetchFn", "lshrs"]
 
 CandidateScores = list[tuple[int, float]]
 
@@ -79,10 +86,6 @@ _REDIS_CONFIG_DEFAULTS = {
     "decode_responses": False,
     "max_connections": 50,
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A)")
 
 
 class LSHRS:
@@ -120,6 +123,13 @@ class LSHRS:
             over the stored words, kernel B3, zero extra bytes); ``None``
             (default) means ``"planes"``. An explicit ``"packed"`` is kept
             when the auto/hamming engine turns Hamming ranking on.
+        hamming_cascade / hamming_cascade_refine: the two-pass refinement
+            cascade (``DeviceStore``): Hamming ranking scans only the first
+            ``hamming_cascade`` bits' planes with kernel B2 and re-ranks
+            the top ``hamming_cascade_refine`` slots per query at full
+            width. Approximate; it serves capacities past the single-pass
+            engines' int32 key ceiling (2^22 slots at 256 bits). 0
+            (default) is off; needs Hamming ranking.
         hash_mode: ``"device"`` (hash on the device) or ``"host"`` (NumPy
             sgemm or the native C FWHT; ships the dense signature wire).
             One path per instance, so stored and query signatures agree
@@ -144,8 +154,10 @@ class LSHRS:
         device: where the store and the device hash live (``"cuda"`` by
             default; ``"cpu"`` runs the kernels' plain PyTorch versions).
 
-    ``backend``, ``shards`` and ``similarity`` are accepted only at their
-    defaults.
+    ``backend``, ``storage``, the ``redis_*`` arguments,
+    ``decode_responses``, ``shards``, ``query_mode``, ``bucket_cap``,
+    ``similarity`` and ``max_norm`` are accepted only at their defaults
+    (ROADMAP Queue A items 4, 6 and 7).
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -163,8 +175,16 @@ class LSHRS:
         similarity_threshold: float = 0.5,
         buffer_size: int = 10_000,
         vector_fetch_fn: Optional[VectorFetchFn] = None,
+        storage: Optional[Any] = None,
         backend: str = "device",
         store_vectors: bool = False,
+        redis_host: str = "localhost",
+        redis_port: int = 6379,
+        redis_db: int = 0,
+        redis_password: Optional[str] = None,
+        redis_prefix: str = "lsh",
+        redis_max_connections: int = 50,
+        decode_responses: bool = False,
         seed: int = 42,
         initial_capacity: int = 1 << 14,
         chunk_size: int = 2048,
@@ -172,15 +192,20 @@ class LSHRS:
         enable_hamming: bool = False,
         group_size: int = 64,
         dedupe: bool = True,
-        hamming_storage: Optional[str] = None,
+        query_mode: str = "scan",
+        bucket_cap: int = 128,
         hash_mode: str = "device",
         hash_family: str = "gaussian",
+        hamming_storage: Optional[str] = None,
+        hamming_cascade: int = 0,
+        hamming_cascade_refine: int = 2048,
         payload_dtype: str = "float32",
         rerank_engine: str = "auto",
         rerank_candidates: int = 1024,
         engine: str = "auto",
         multiprobe: int = 1,
         similarity: str = "cosine",
+        max_norm: Optional[float] = None,
         device: str | torch.device = "cuda",
     ) -> None:
         if dim <= 0:
@@ -219,12 +244,31 @@ class LSHRS:
             engine = "collision"
         if not isinstance(multiprobe, int) or multiprobe < 1:
             raise ValueError("multiprobe must be an integer >= 1")
+        if similarity not in ("cosine", "dot"):
+            raise ValueError("similarity must be 'cosine' or 'dot'")
+        if query_mode not in ("scan", "bucket"):
+            raise ValueError("query_mode must be 'scan' or 'bucket'")
+        if storage is not None:
+            raise _not_ported("storage= (custom storage backends)", 6)
         if backend != "device":
-            raise _not_ported(f"backend={backend!r} (bucket backends: I/O and Redis)")
+            raise _not_ported(f"backend={backend!r} (bucket backends: I/O and Redis)", 6)
+        redis = (redis_host, redis_port, redis_db, redis_password, redis_prefix,
+                 redis_max_connections, decode_responses)
+        if redis != ("localhost", 6379, 0, None, "lsh", 50, False):
+            raise _not_ported("redis_* / decode_responses (the Redis bucket backend)", 6)
         if shards is not None and shards > 1:
-            raise _not_ported("shards (sharding)")
-        if similarity != "cosine":
-            raise _not_ported(f"similarity={similarity!r} (MIPS)")
+            raise _not_ported("shards (sharding)", 7)
+        if query_mode != "scan" or bucket_cap != 128:
+            raise _not_ported(
+                f"query_mode={query_mode!r}, bucket_cap={bucket_cap} (the bucketed engine)", 4
+            )
+        if similarity != "cosine" or max_norm is not None:
+            raise _not_ported(f"similarity={similarity!r}, max_norm={max_norm} (MIPS)", 6)
+        if hamming_cascade and engine == "collision" and not enable_hamming:
+            raise ValueError(
+                "hamming_cascade requires Hamming ranking: construct "
+                "with enable_hamming=True or engine='auto'/'hamming'"
+            )
         # None means "planes"; an explicit "packed" (zero extra memory)
         # stays when the auto/hamming engine turns Hamming ranking on.
         if hamming_storage is None:
@@ -282,6 +326,8 @@ class LSHRS:
             chunk_size=chunk_size,
             enable_hamming=enable_hamming,
             hamming_storage=hamming_storage,
+            hamming_cascade=hamming_cascade,
+            hamming_cascade_refine=hamming_cascade_refine,
             group_size=group_size,
             dedupe=dedupe,
             store_vectors=store_vectors,
@@ -323,19 +369,50 @@ class LSHRS:
             "enable_hamming": enable_hamming,
             "group_size": group_size,
             "dedupe": dedupe,
-            "query_mode": "scan",
-            "bucket_cap": 128,
+            "query_mode": query_mode,
+            "bucket_cap": bucket_cap,
             "hash_mode": hash_mode,
             "hash_family": hash_family,
             "hamming_storage": hamming_storage,
-            "hamming_cascade": 0,
-            "hamming_cascade_refine": 2048,
+            "hamming_cascade": hamming_cascade,
+            "hamming_cascade_refine": hamming_cascade_refine,
             "payload_dtype": payload_dtype,
             "rerank_engine": rerank_engine,
             "rerank_candidates": rerank_candidates,
             "engine": engine,
             "multiprobe": multiprobe,
         }
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def close(self) -> None:
+        """Flush pending operations and release the store's device tensors."""
+        self.flush()
+        self._storage.close()
+
+    def __enter__(self) -> "LSHRS":
+        return self
+
+    def __exit__(self, exc_type, exc_value, traceback) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        engine = self._engine
+        resolved = self._tpu_config.get("engine_resolved")
+        if resolved:
+            engine = f"{engine}->{resolved}"
+        return (
+            "LSHRS("
+            f"dim={self._dim}, "
+            f"num_perm={self._config['num_perm']}, "
+            f"num_bands={self._config['num_bands']}, "
+            f"rows_per_band={self._config['rows_per_band']}, "
+            f"engine='{engine}', "
+            f"backend='{self._tpu_config['backend']}'"
+            ")"
+        )
 
     # ------------------------------------------------------------------
     # ingestion
@@ -741,6 +818,39 @@ class LSHRS:
             for row_ids, row_h in zip(ids, hamming)
         ]
 
+    def query_asymmetric(
+        self, vector: np.ndarray, *, top_k: int = 10, where=None
+    ) -> CandidateScores:
+        """Rank by the asymmetric SimHash estimator.
+
+        Like :meth:`query_hamming`, but the query keeps its projection
+        coordinates (quantised to int8) where Hamming ranking keeps their
+        signs: a better rank correlation with cosine at the same store
+        memory. Requires ``enable_hamming=True`` (or an auto/hamming
+        engine) with ``hamming_storage="planes"`` and no cascade. Returns
+        ``(id, estimated_cosine)`` tuples, the estimate being
+        ``dots / sum|q|``.
+        """
+        return self.query_asymmetric_batch(
+            self._prepare_vector(vector)[None, :], top_k=top_k, where=where
+        )[0]
+
+    def query_asymmetric_batch(
+        self, vectors: np.ndarray, *, top_k: int = 10, where=None
+    ) -> list[CandidateScores]:
+        """Batched :meth:`query_asymmetric` (one scan through kernel B2)."""
+        if top_k is None or top_k <= 0:
+            raise ValueError("top_k must be greater than zero when provided")
+        arr = self._validate_batch(vectors)
+        self._count("queries_served", arr.shape[0])
+        qi8, sumabs = quantize_coords_np(self._hasher.hash_batch_coords_host(arr))
+        dots, ids = self._storage.query_asymmetric(qi8, top_k, where=as_filter(where))
+        denom = np.maximum(sumabs, 1).astype(np.float64)
+        return [
+            [(int(i), float(d / denom[r])) for i, d in zip(ids[r], dots[r]) if i >= 0]
+            for r in range(arr.shape[0])
+        ]
+
     def get_top_k(self, vector: np.ndarray, topk: int = 10, *, where=None) -> list[int]:
         """Top ``topk`` candidate ids (see :meth:`query`)."""
         return self.query(vector, top_k=topk, where=where)
@@ -751,6 +861,8 @@ class LSHRS:
         *,
         mode: Optional[str] = None,
         wire_dtype: str = "float32",
+        coords_wire: str = "int8",
+        auto_refresh: bool = False,
         batch_hint: int = 1024,
         where=None,
     ):
@@ -765,13 +877,21 @@ class LSHRS:
         Args:
             top_k: result depth per query.
             mode: ``"collision"``, ``"hamming"`` (requires Hamming ranking
-                to be available), ``"topp"`` (cosine rerank against the
-                resident payload; requires ``store_vectors=True``) or
-                ``None`` (default): the instance's resolved ranking engine.
+                to be available), ``"asymmetric"`` (quantised query
+                coordinates against the bitplanes, kernel B2; requires
+                Hamming ranking on planes, no cascade), ``"topp"`` (cosine
+                rerank against the resident payload; requires
+                ``store_vectors=True``) or ``None`` (default): the
+                instance's resolved ranking engine.
             wire_dtype: ``"topp"`` only — ``"bfloat16"`` rounds the query
                 vectors to bf16 for the rerank (half the upload bytes in
                 host hash mode; ~1e-2 relative cosine rounding);
                 ``"float32"`` is value-exact.
+            coords_wire: ``"asymmetric"`` only — ``"int8"`` (``num_perm``
+                bytes per query) or ``"int4"`` (coordinates quantised to
+                ``[-7, 7]``, two per byte: half the upload).
+            auto_refresh: serving through mutations; only ``False`` is
+                ported (ROADMAP Queue A item 5).
             batch_hint: ``"topp"`` only — the batch size the closure will
                 serve; the auto rerank engine sizes the full engine's
                 ``(Q, capacity)`` temporaries from it.
@@ -783,18 +903,19 @@ class LSHRS:
         the dense probe wire from the host); ``"hamming"`` uses probe 0.
 
         Returns:
-            ``"collision"`` / ``"hamming"``: callable ``(vectors (Q, dim))
-            -> (Q, top_k) int32 ndarray`` of ids, -1 padded. ``"topp"``:
+            ``"collision"`` / ``"hamming"`` / ``"asymmetric"``: callable
+            ``(vectors (Q, dim)) -> (Q, top_k) int32 ndarray`` of ids, -1
+            padded. ``"topp"``:
             callable returning ``(ids (Q, top_k) int32, cosines (Q, top_k)
             float32, n_candidates (Q,) int32)`` ndarrays.
         """
-        if mode == "asymmetric":
-            raise _not_ported(f"mode={mode!r}")
+        if auto_refresh:
+            raise _not_ported("serving_fn(auto_refresh=True) (serving through mutations)", 5)
         if mode is None:
             mode = "hamming" if self._use_hamming_ranking() else "collision"
-        if mode not in ("collision", "hamming", "topp"):
+        if mode not in ("collision", "hamming", "asymmetric", "topp"):
             raise ValueError("mode must be 'collision', 'hamming', 'asymmetric' or 'topp'")
-        if mode == "hamming" and self._hasher.hash_family == "crosspolytope":
+        if mode in ("hamming", "asymmetric") and self._hasher.hash_family == "crosspolytope":
             raise ValueError(
                 f"mode='{mode}' requires sign-bit signatures; the "
                 "cross-polytope family serves mode='collision' or 'topp'"
@@ -807,6 +928,8 @@ class LSHRS:
         if mode == "topp":
             return self._serving_topp(top_k, wire_dtype=wire_dtype, batch_hint=batch_hint,
                                       where=where)
+        if mode == "asymmetric":
+            return self._serving_asymmetric(top_k, coords_wire=coords_wire, where=where)
         # Collision-mode serving honours the instance's multi-probe depth;
         # the probe wire grows a T axis (T times the bytes per query).
         probes = self._multiprobe if mode == "collision" else 1
@@ -827,6 +950,33 @@ class LSHRS:
             return out
 
         return run
+
+    def _serving_asymmetric(self, top_k: int, *, coords_wire: str, where):
+        """``serving_fn(mode="asymmetric")``: the wire is the quantised
+        projection coordinates, computed on the host for both hash modes
+        (as :meth:`query_asymmetric_batch`): ``num_perm`` int8 bytes per
+        query, or half that on the int4 wire."""
+        if coords_wire not in ("int8", "int4"):
+            raise ValueError("coords_wire must be 'int8' or 'int4'")
+        int4 = coords_wire == "int4"
+        serve = self._storage.snapshot_query_fn(
+            top_k, mode="asymmetric", wire="coords4" if int4 else "words", where=where
+        )
+
+        def run_asym(vectors) -> np.ndarray:
+            arr = self._validate_batch(vectors)
+            coords = self._hasher.hash_batch_coords_host(arr)
+            if int4:
+                sig = pack_coords_int4_np(quantize_coords_np(coords, qmax=QMAX4)[0])
+            else:
+                sig = quantize_coords_np(coords)[0]
+            out = serve(sig).cpu().numpy()
+            # Count after the dispatch: stale-snapshot calls raise and must
+            # not inflate queries_served.
+            self._count("queries_served", arr.shape[0])
+            return out
+
+        return run_asym
 
     def _serving_topp(self, top_k: int, *, wire_dtype: str, batch_hint: int, where):
         """``serving_fn(mode="topp")``: one upload of the batch. With the
@@ -983,10 +1133,6 @@ class LSHRS:
         """Constructor kwargs reproducing a saved instance (the reference's
         defaults for absent keys). Capabilities the port lacks raise here
         or in the constructor, never silently dropped."""
-        if tpu_config.get("query_mode", "scan") != "scan":
-            raise _not_ported(f"query_mode={tpu_config['query_mode']!r} (the bucketed engine)")
-        if tpu_config.get("hamming_cascade", 0):
-            raise _not_ported("hamming_cascade (the refinement cascade)")
         return {
             "dim": config["dim"],
             "num_perm": config["num_perm"],
@@ -996,6 +1142,7 @@ class LSHRS:
             "buffer_size": config["buffer_size"],
             "seed": config["seed"],
             "similarity": config.get("similarity", "cosine"),
+            "max_norm": config.get("max_norm"),
             "backend": tpu_config.get("backend", "device"),
             "store_vectors": tpu_config.get("store_vectors", False),
             "initial_capacity": tpu_config.get("initial_capacity", 1 << 14),
@@ -1004,9 +1151,13 @@ class LSHRS:
             "enable_hamming": tpu_config.get("enable_hamming", False),
             "group_size": tpu_config.get("group_size", 32),
             "dedupe": tpu_config.get("dedupe", True),
+            "query_mode": tpu_config.get("query_mode", "scan"),
+            "bucket_cap": tpu_config.get("bucket_cap", 128),
             "hash_mode": tpu_config.get("hash_mode", "device"),
             "hash_family": tpu_config.get("hash_family", "gaussian"),
             "hamming_storage": tpu_config.get("hamming_storage", "planes"),
+            "hamming_cascade": tpu_config.get("hamming_cascade", 0),
+            "hamming_cascade_refine": tpu_config.get("hamming_cascade_refine", 2048),
             "payload_dtype": tpu_config.get("payload_dtype", "float32"),
             "rerank_engine": tpu_config.get("rerank_engine", "auto"),
             "rerank_candidates": tpu_config.get("rerank_candidates", 1024),
@@ -1127,3 +1278,7 @@ class LSHRS:
                 "Cannot index zero vector - norm undefined. Check embeddings for corruption."
             )
         return arr
+
+
+# The reference package's lower-case alias.
+lshrs = LSHRS

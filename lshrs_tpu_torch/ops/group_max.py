@@ -25,7 +25,8 @@ Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
 kernel launches it makes in its ``launches`` attribute (B1 also by
-``(BW, probes)`` in ``launches_by_shape``).
+``(BW, probes)`` in ``launches_by_shape``, B2 by its key packing
+``(width, offset, shift)`` in ``launches_by_packing``).
 
 Key packing requires ``(num_bands + 1) * S < 2**31`` (B1),
 ``(maxscaled + 2) * S < 2**31`` (B2) and ``(P + 2) * S < 2**31`` (B3)
@@ -360,10 +361,15 @@ def hamming_group_max_keys(
         q, c, p, group, scale, off, shift, -((2 * off) >> shift) * scale,
     )
     hamming_group_max_keys.launches += 1
+    hamming_group_max_keys.launches_by_packing[p, off, shift] += 1
     return out
 
 
 hamming_group_max_keys.launches = 0
+# The same launches, by (operand width, offset, shift): which key packing
+# a path reached (symmetric, asymmetric per coordinate wire, the
+# cascade's coarse pass).
+hamming_group_max_keys.launches_by_packing = collections.Counter()
 
 
 def hamming_packed_group_max_keys_ref(

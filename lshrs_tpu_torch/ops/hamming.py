@@ -19,8 +19,11 @@ alive keys are distinct, and the top-k groups by max hold every true
 top-k slot. The refine stage recomputes those candidates' distances from
 the packed words (XOR + popcount), gathered from the grouped refine table.
 
-Not ported yet: the refinement cascade, the chunked fallbacks and the
-two-key selection past the int32 key ceiling (ROADMAP Queue A).
+The refinement cascade (:func:`hamming_topk_cascade_core`) runs B2 on a
+prefix of the bitplanes, refines a deep pool of groups at full width, and
+keys its refine in int64 past the int32 ceiling: it serves stores the
+single-pass engines cannot. Not ported yet: the single-pass engines'
+chunked fallbacks past that ceiling (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from lshrs_tpu_torch.ops.group_max import (
 from lshrs_tpu_torch.ops.scan import gather_refine_group_rows, gather_refine_slots
 
 __all__ = [
+    "cascade_coarse_scale",
+    "cascade_slice_queries",
+    "hamming_topk_cascade_core",
     "hamming_topk_core",
     "hamming_topk_packed_core",
     "plane_width",
@@ -48,6 +54,23 @@ __all__ = [
 def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
     """True when the (scaled-dot, tie) key packs into a positive int32."""
     return (num_perm + 2) * key_scale(capacity) < 2**31
+
+
+def cascade_coarse_scale(p_pre: int, capacity: int) -> tuple[int, int]:
+    """``(scale, tie_shift)`` of the cascade's coarse group-max key.
+
+    The coarse key ``scaled * scale + (tie >> tie_shift)`` must pack into
+    a positive int32 with ``scaled`` in ``[0, p_pre + 1]``. Below the
+    ceiling the shift is 0 (the exact-selection format); past it the tie
+    term is right-shifted, which only merges ties within ``2**tie_shift``
+    id ranks when the coarse pass picks groups: the refine re-ranks with
+    the true tie.
+    """
+    scale = key_scale(capacity)
+    tie_shift = 0
+    while (p_pre + 2) * (scale >> tie_shift) >= 2**31:
+        tie_shift += 1
+    return scale >> tie_shift, tie_shift
 
 
 def plane_width(num_perm: int) -> int:
@@ -170,7 +193,8 @@ def hamming_topk_packed_core(
 
 
 def _select_refine(
-    gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None
+    gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
+    m_groups=None,
 ):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order.
@@ -180,15 +204,23 @@ def _select_refine(
     only the word count and the query packing change. Without
     ``sig_rows`` the candidates' words, ties and ids are gathered slot by
     slot from ``sig_t``, ``tie`` and ``ids`` (word-aligned).
+
+    ``m_groups``: refine the top ``max(k, m_groups)`` groups (the
+    cascade's deep pool, whose coarse keys rank a prefix of the bits).
+    There the refine key is int64 once ``(p + 2) * key_scale(C)`` passes
+    int32 — the same ``(hamming asc, id asc)`` order. The single-pass
+    engines (``m_groups=None``) refuse that regime: their kernels' keys
+    are int32.
     """
     q, ng = gmax.shape
     scale = key_scale(ng * group)
-    if (p + 2) * scale >= 2**31:
+    wide = (p + 2) * scale >= 2**31
+    if wide and m_groups is None:
         raise NotImplementedError(
-            "Hamming ranking past the int32 key ceiling needs the two-key "
-            "selector or int64 keys (ROADMAP Queue A)"
+            "Hamming ranking past the int32 key ceiling needs the chunked "
+            "fallback or int64 keys (ROADMAP Queue A item 8)"
         )
-    m = min(k, ng)
+    m = min(k if m_groups is None else max(k, m_groups), ng)
     top_groups = torch.topk(gmax, m, dim=1).indices
     bw = qwords.shape[1]
     if sig_rows is None:
@@ -214,10 +246,12 @@ def _select_refine(
     hamming = hamming.reshape(q, mg)
     cand_tie = cand_tie.reshape(q, mg)
     scaled = torch.where(cand_tie >= 0, p + 1 - hamming, 0)
+    if wide:
+        scaled = scaled.to(torch.int64)
     key = scaled * scale + cand_tie.clamp(min=0)
     k_eff = min(k, mg)
     top_key, top_pos = torch.topk(key, k_eff, dim=1)
-    sel_scaled = top_key // scale
+    sel_scaled = (top_key // scale).to(torch.int32)
     picked = cand_ids.reshape(q, mg).gather(1, top_pos)
     sel_ids = torch.where(sel_scaled > 0, picked, -1)
     out_h = torch.where(sel_scaled > 0, p + 1 - sel_scaled, p + 1)
@@ -225,3 +259,74 @@ def _select_refine(
         out_h = torch.nn.functional.pad(out_h, (0, k - k_eff), value=p + 1)
         sel_ids = torch.nn.functional.pad(sel_ids, (0, k - k_eff), value=-1)
     return out_h, sel_ids
+
+
+# A cascade batch goes through in query slices that keep the coarse
+# pass's (Q, C / group) int32 keys plus the refine's int64 (Q, pool, words)
+# popcount temporaries near this many bytes.
+_CASCADE_SLICE_BYTES = 1 << 31
+
+
+def cascade_slice_queries(capacity: int, *, group: int, pool_groups: int, words: int) -> int:
+    """Queries per slice of a cascade batch (2,048 at 2**23 slots, group
+    64 and a 128-group pool of 8-word rows). ``pool_groups`` is the
+    refined groups per query, ``words`` the refine's words per slot. No
+    128-query floor: it would overshoot the bound."""
+    per_query = 4 * (capacity // group) + 8 * pool_groups * group * words
+    return max(1, _CASCADE_SLICE_BYTES // per_query)
+
+
+def hamming_topk_cascade_core(
+    planes_prefix: torch.Tensor,
+    tie: torch.Tensor,
+    qbits_prefix: torch.Tensor,
+    qwords: torch.Tensor,
+    sig_rows: torch.Tensor | None,
+    *,
+    num_perm: int,
+    k: int,
+    refine_groups: int,
+    group: int,
+    narrow_r: int = 0,
+    sig_t: torch.Tensor | None = None,
+    ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass refinement-cascade Hamming top-k.
+
+    Pass 1 runs kernel B2 over the first ``cb = planes_prefix.shape[1]``
+    bitplane columns (``cb / num_perm`` of the full product) with the
+    coarse key of :func:`cascade_coarse_scale`; the top ``max(k,
+    refine_groups)`` groups by max form the pool, selected exactly (the
+    integer keys are distinct among groups holding an alive slot). Pass 2
+    re-ranks every slot of the pool by the full ``num_perm``-bit popcount
+    of the packed words (:func:`_select_refine`).
+
+    Contract: the exact ``(hamming asc, id asc)`` top-k WITHIN the pool
+    (``refine_groups * group`` slots) — the full-width ranking whenever
+    the pool covers the store; otherwise the prefix can exclude a true
+    top-k slot.
+
+    It runs the whole batch at once: callers slice large batches by
+    :func:`cascade_slice_queries`.
+
+    Args:
+        planes_prefix: ``(C, cb)`` int8 ±1 prefix planes, ``cb`` a multiple
+            of 32 below ``num_perm``.
+        tie: ``(C,)`` int32 global tie keys (-1 dead).
+        qbits_prefix: ``(Q, cb)`` int8 query prefix bits (contiguous).
+        qwords: ``(Q, BW)`` int32 query words (the refine's operand).
+        sig_rows / narrow_r / sig_t / ids: the refine's table, as for
+            :func:`hamming_topk_core`.
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
+        id -1 and hamming ``num_perm + 1``.
+    """
+    c, p_pre = planes_prefix.shape
+    scale, tie_shift = cascade_coarse_scale(p_pre, c)
+    tie_coarse = torch.where(tie >= 0, tie >> tie_shift, tie) if tie_shift else tie
+    gmax = hamming_group_max_keys(planes_prefix, tie_coarse, qbits_prefix, group=group, scale=scale)
+    return _select_refine(
+        gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
+        sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups,
+    )

@@ -13,7 +13,8 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily); Pp is num_perm
-                                                   rounded up to 32, zero-padded
+                                                   rounded up to 32, zero-padded,
+                                                   or the cascade's prefix width
         payload  (capacity, dim)   f32/bf16/int8   raw vectors (store_vectors)
         pnorm    (capacity,)                f32    norms of the stored rows
         pscale   (capacity,)                f32    int8 per-row scales
@@ -23,16 +24,20 @@ Words are int32 bit-views of the uint32 signature words (see
 
 Query engines: grouped collision counting (kernel B1) and grouped
 Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
-themselves (kernel B3), all exact against the reference ordering; and,
+themselves (kernel B3), all exact against the reference ordering;
+asymmetric ranking of quantised query coordinates against the bitplanes
+(B2 with a shifted key, exact re-rank); the refinement cascade (B2 on a
+bitplane prefix, a deep full-width refine with int64 keys), which serves
+capacities past the int32 key ceiling; and,
 with ``store_vectors``, top-p cosine rerank over the resident payload by
 the full or the gather engine (`lshrs_tpu_torch.ops.rerank`, the gather
 engine on kernel B1). Collision counting and top-p take multi-probe query
 words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
 every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
 the kernels read the filtered tie column, refinement gathers per slot).
-Stores those engines cannot take — a selection key
-past int32, more than 64 bands — raise ``NotImplementedError`` (ROADMAP:
-the chunked fallback or int64 keys).
+Stores the single-pass engines cannot take — a selection key
+past int32, more than 64 bands — raise ``NotImplementedError`` (ROADMAP
+Queue A item 8: the chunked fallback or int64 keys).
 
 Mutation model: appends write the tail in place; re-ingesting an id
 overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
@@ -61,7 +66,16 @@ from lshrs_tpu_torch.ops.bitpack import (
     words_per_band,
     words_to_numpy,
 )
+from lshrs_tpu_torch.ops.asymmetric import (
+    QMAX,
+    QMAX4,
+    asymmetric_shift,
+    asymmetric_topk_core,
+    unpack_coords_int4,
+)
 from lshrs_tpu_torch.ops.hamming import (
+    cascade_slice_queries,
+    hamming_topk_cascade_core,
     hamming_topk_core,
     hamming_topk_packed_core,
     plane_width,
@@ -95,8 +109,8 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A)")
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
 
 
 def _cast_payload_rows(
@@ -143,6 +157,18 @@ class DeviceStore(BaseStorage):
             lazily on the first Hamming use; ``"packed"`` ranks by XOR +
             popcount over the packed words the store already holds
             (kernel B3), zero extra bytes. Results are identical.
+        hamming_cascade: prefix width (bits) of the two-pass refinement
+            cascade; 0 (default) is off. The store then holds only the
+            first ``hamming_cascade`` bitplane columns, ranks them with
+            kernel B2 and re-ranks the top ``hamming_cascade_refine``
+            slots per query by the exact full-width popcount. Approximate
+            (the prefix can exclude a true top-k slot), and the Hamming
+            engine that serves past the int32 key ceiling. Needs
+            ``enable_hamming`` with planes, a multiple of 32 below
+            ``num_perm``; asymmetric queries are refused (they rank
+            against full-width planes).
+        hamming_cascade_refine: the cascade's refine pool per query, in
+            slots (rounded up to whole groups, at least ``k`` groups).
         store_vectors: keep the raw vectors resident (the payload), so
             top-p cosine rerank runs on the device; requires ``dim``.
         payload_dtype: payload precision — ``"float32"`` (value-exact
@@ -159,8 +185,8 @@ class DeviceStore(BaseStorage):
         device: where the store's tensors live (``"cuda"`` by default; the
             CPU runs the kernels' plain PyTorch versions).
 
-    ``query_mode="bucket"`` and ``hamming_cascade`` are accepted only at
-    their defaults (ROADMAP Queue A: the bucketed engine, the cascade).
+    ``query_mode="bucket"`` is accepted only at its default (ROADMAP
+    Queue A item 4: the bucketed engine).
     """
 
     supports_signature_batches = True
@@ -180,6 +206,7 @@ class DeviceStore(BaseStorage):
         enable_hamming: bool = False,
         hamming_storage: str = "planes",
         hamming_cascade: int = 0,
+        hamming_cascade_refine: int = 2048,
         payload_dtype: str = "float32",
         rerank_engine: str = "auto",
         rerank_candidates: int = 1024,
@@ -198,11 +225,24 @@ class DeviceStore(BaseStorage):
         if group_size <= 0 or group_size & (group_size - 1):
             raise ValueError("group_size must be a power of two")
         if query_mode != "scan":
-            raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)")
+            raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)", 4)
         if hamming_storage not in ("planes", "packed"):
             raise ValueError("hamming_storage must be 'planes' or 'packed'")
         if hamming_cascade:
-            raise _not_ported("hamming_cascade (the refinement cascade)")
+            num_perm = num_bands * rows_per_band
+            if not enable_hamming or hamming_storage != "planes":
+                raise ValueError(
+                    "hamming_cascade requires enable_hamming=True with "
+                    'hamming_storage="planes" (the coarse pass scans a '
+                    "bitplane prefix)"
+                )
+            if hamming_cascade % 32 or not 0 < hamming_cascade < num_perm:
+                raise ValueError(
+                    "hamming_cascade must be a positive multiple of 32 "
+                    f"below num_perm (= {num_perm}); received {hamming_cascade}"
+                )
+            if hamming_cascade_refine <= 0:
+                raise ValueError("hamming_cascade_refine must be greater than zero")
 
         self.num_bands = num_bands
         self.rows_per_band = rows_per_band
@@ -216,6 +256,8 @@ class DeviceStore(BaseStorage):
         self.dedupe = dedupe
         self.enable_hamming = enable_hamming
         self.hamming_storage = hamming_storage
+        self.hamming_cascade = hamming_cascade
+        self.hamming_cascade_refine = hamming_cascade_refine
         self.store_vectors = store_vectors
         self.payload_dtype = payload_dtype
         self.rerank_engine = rerank_engine
@@ -354,16 +396,30 @@ class DeviceStore(BaseStorage):
     # Bound the unpack intermediates to ~1 GB per step.
     _PLANES_MATERIALIZE_STEP = 1 << 17
 
+    def _plane_bits(self) -> int:
+        """Stored bitplane columns: the cascade prefix, or ``num_perm``
+        padded to ``plane_width``."""
+        return self.hamming_cascade or plane_width(self.num_bands * self.rows_per_band)
+
+    def _cascade_groups(self, k: int) -> int:
+        """The cascade's refine pool in groups: ``hamming_cascade_refine``
+        slots rounded up to whole groups, at least ``k``."""
+        return max(k, -(-self.hamming_cascade_refine // self._group()))
+
     def _planes_rows(self, words: torch.Tensor) -> torch.Tensor:
-        """Bitplane rows of ``words``, zero-padded to ``plane_width(P)``
-        columns (stores and queries alike; kernel B2 takes the true P)."""
-        return unpack_bitplanes(
+        """Bitplane rows of ``words`` at the stored width (stores and
+        queries alike): zero-padded to ``plane_width(P)`` columns (kernel
+        B2 takes the true P), or the cascade's first columns, contiguous."""
+        rows = unpack_bitplanes(
             words, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
             width=plane_width(self.num_bands * self.rows_per_band),
         )
+        if self.hamming_cascade:
+            return rows[:, : self.hamming_cascade].contiguous()
+        return rows
 
     def _materialize_planes(self) -> torch.Tensor:
-        p = plane_width(self.num_bands * self.rows_per_band)
+        p = self._plane_bits()
         planes = torch.empty((self._capacity, p), dtype=torch.int8, device=self.device)
         step = min(self._PLANES_MATERIALIZE_STEP, self._capacity)
         for off in range(0, self._capacity, step):
@@ -696,7 +752,7 @@ class DeviceStore(BaseStorage):
         if not self._use_grouped():
             raise _not_ported(
                 f"collision ranking at {self.num_bands} bands x "
-                f"{self._capacity} slots (the chunked fallback or int64 keys)"
+                f"{self._capacity} slots (the chunked fallback or int64 keys)", 8
             )
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
@@ -756,13 +812,22 @@ class DeviceStore(BaseStorage):
     def _query_hamming_dev(self, qw: torch.Tensor, k: int, where=None):
         """Device-resident Hamming top-k (call under the lock)."""
         p = self.num_bands * self.rows_per_band
+        if self.hamming_cascade:
+            # The coarse key packs at any capacity (its tie is shifted past
+            # the ceiling) and the refine keys in int64.
+            if self._capacity % self.group:
+                raise _not_ported(
+                    f"the cascade at {self._capacity} slots (group {self.group}): "
+                    "the packed-words chunked fallback", 8
+                )
+            return self._query_cascade_dev(qw, k, where)
         if not (
             supports_hamming_grouped(p, self._capacity)
             and self._capacity % self.group == 0
         ):
             raise _not_ported(
                 f"Hamming ranking at {p} bits x {self._capacity} slots (the "
-                "chunked fallback or int64 keys)"
+                "chunked fallback or int64 keys)", 8
             )
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
@@ -782,6 +847,41 @@ class DeviceStore(BaseStorage):
             self._planes, tie_x, self._planes_rows(qw), qw, rows,
             num_perm=p, sig_t=self._sig_t, **kw
         )
+
+    def _query_cascade_dev(self, qw: torch.Tensor, k: int, where=None):
+        """The refinement cascade's top-k, in query slices of
+        :func:`cascade_slice_queries` (call under the lock)."""
+        self._ensure_ranks()
+        self._ensure_planes()
+        ids_x, tie_x = self._filtered_ids_tie(where)
+        k_eff = max(1, min(k, self._capacity))
+        group = self._group()
+        refine_groups = self._cascade_groups(k_eff)
+        rows = self._refine_rows() if where is None else None
+        step = cascade_slice_queries(
+            self._capacity, group=group,
+            pool_groups=min(refine_groups, self._capacity // group),
+            words=qw.shape[1] if rows is None else rows.shape[1] // group - 2,
+        )
+        kw = dict(
+            num_perm=self.num_bands * self.rows_per_band,
+            k=k_eff,
+            refine_groups=refine_groups,
+            group=group,
+            narrow_r=self._refine_narrow_r if where is None else 0,
+            sig_t=self._sig_t,
+            ids=ids_x,
+        )
+        parts = [
+            hamming_topk_cascade_core(
+                self._planes, tie_x, self._planes_rows(qw[s : s + step]), qw[s : s + step],
+                rows, **kw,
+            )
+            for s in range(0, qw.shape[0], step)
+        ]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([h for h, _ in parts]), torch.cat([i for _, i in parts])
 
     def query_hamming(self, qwords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
         """Top-k by full-signature Hamming distance (kernel B2 on
@@ -816,6 +916,92 @@ class DeviceStore(BaseStorage):
                 return torch.full((qw.shape[0], k), -1, dtype=torch.int32, device=self.device)
             return self._query_hamming_dev(qw, k, where)[1]
 
+    def _check_asymmetric(self) -> None:
+        if not self.enable_hamming:
+            raise RuntimeError(
+                "enable_hamming=False: construct the store with "
+                "enable_hamming=True for asymmetric-mode queries"
+            )
+        if self.hamming_cascade:
+            raise RuntimeError(
+                "asymmetric ranking is unavailable with hamming_cascade: "
+                "the store holds only the coarse bitplane prefix, and the "
+                "asymmetric estimator ranks against full-width bitplanes"
+            )
+
+    def _require_asymmetric_planes(self) -> None:
+        if self.hamming_storage != "planes":
+            raise RuntimeError(
+                'asymmetric ranking requires hamming_storage="planes": the '
+                "query's quantised coordinates rank against int8 bitplanes "
+                "(kernel B2; the packed words have no bitplane operand)"
+            )
+
+    def _query_coords(self, qcoords) -> torch.Tensor:
+        """Quantised coordinates ``(Q, P)`` -> int8 on the device, zero-padded
+        to the planes' width (contiguous: kernel B2's operand)."""
+        p = self.num_bands * self.rows_per_band
+        if not isinstance(qcoords, torch.Tensor):
+            qcoords = torch.from_numpy(np.ascontiguousarray(qcoords, dtype=np.int8))
+        qc = qcoords.to(self.device, torch.int8)
+        if qc.ndim != 2 or qc.shape[1] != p:
+            raise ValueError(
+                f"query coordinates must have shape (Q, {p}); received {tuple(qc.shape)}"
+            )
+        return torch.nn.functional.pad(qc, (0, plane_width(p) - p)).contiguous()
+
+    def _query_asymmetric_dev(self, qc: torch.Tensor, k: int, where=None, qmax: int = QMAX):
+        """Device-resident asymmetric top-k of padded int8 coordinates
+        (call under the lock)."""
+        self._require_asymmetric_planes()
+        if self._capacity % self._group():
+            raise _not_ported(
+                f"asymmetric ranking at {self._capacity} slots (the chunked fallback)", 8
+            )
+        self._ensure_ranks()
+        self._ensure_planes()
+        ids_x, tie_x = self._filtered_ids_tie(where)
+        p = self.num_bands * self.rows_per_band
+        return asymmetric_topk_core(
+            self._planes, tie_x, qc, self._refine_rows() if where is None else None,
+            num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+            k=max(1, min(k, self._capacity)), group=self._group(),
+            shift=asymmetric_shift(p, self._capacity, qmax=qmax), qmax=qmax,
+            narrow_r=self._refine_narrow_r if where is None else 0,
+            sig_t=self._sig_t, ids=ids_x,
+        )
+
+    def query_asymmetric(self, qcoords, k: int, *, where=None) -> tuple[np.ndarray, np.ndarray]:
+        """Top-k by asymmetric SimHash score (kernel B2 on the bitplanes).
+
+        Args:
+            qcoords: ``(Q, num_perm)`` int8 quantised projection coordinates
+                (`lshrs_tpu_torch.ops.asymmetric.quantize_coords_np`).
+            k: result depth.
+            where: optional id filter (exact ranking over the admitted
+                subset).
+
+        Returns ``(dots (Q, k) int32, ids (Q, k) int32)`` by (dots desc, id
+        asc); empty tail entries carry id -1 and dots ``-(P * 127 + 1)``.
+        ``dots / sum|qcoords_row|`` estimates the cosine. Requires
+        ``enable_hamming=True`` with ``hamming_storage="planes"`` and no
+        cascade.
+        """
+        self._check_asymmetric()
+        qc = self._query_coords(qcoords)
+        empty = -(self.num_bands * self.rows_per_band * QMAX + 1)
+        with self._lock:
+            if self._size == 0:
+                q = qc.shape[0]
+                return np.full((q, k), empty, np.int32), np.full((q, k), -1, np.int32)
+            dots, ids = self._query_asymmetric_dev(qc, k, where)
+        dots, ids = dots.cpu().numpy(), ids.cpu().numpy()
+        if dots.shape[1] < k:
+            pad = k - dots.shape[1]
+            dots = np.pad(dots, ((0, 0), (0, pad)), constant_values=empty)
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        return dots, ids
+
     def snapshot_query_fn(
         self,
         k: int,
@@ -834,10 +1020,16 @@ class DeviceStore(BaseStorage):
             k: result depth.
             wire: ``"words"`` (signature words) or ``"dense"`` (minimal-byte
                 signatures from `LSHHasher.hash_batch_dense_host`, decoded
-                on the device).
-            mode: ``"collision"`` (band-collision counting, kernel B1) or
+                on the device); for ``mode="asymmetric"``, ``"words"`` means
+                ``(Q, num_perm)`` int8 quantised coordinates and
+                ``"coords4"`` the half-size nibble wire of
+                `lshrs_tpu_torch.ops.asymmetric.pack_coords_int4_np` (coords
+                quantised with ``qmax=QMAX4``).
+            mode: ``"collision"`` (band-collision counting, kernel B1),
                 ``"hamming"`` (full-signature ranking, kernel B2 or B3 by
-                ``hamming_storage``; requires ``enable_hamming=True``).
+                ``hamming_storage``, or the cascade; requires
+                ``enable_hamming=True``) or ``"asymmetric"`` (quantised
+                coordinates against the bitplanes, kernel B2).
             probes: multi-probe depth T (collision mode only). The
                 closure's input grows a probe axis —
                 ``(Q, T, num_bands * W)`` words from
@@ -851,27 +1043,30 @@ class DeviceStore(BaseStorage):
         Returns:
             callable ``(signatures) -> (Q, k) int32 device tensor of ids``.
         """
-        if mode == "asymmetric":
-            raise _not_ported("mode='asymmetric' (asymmetric ranking)")
-        if mode not in ("collision", "hamming"):
-            raise ValueError("mode must be 'collision' or 'hamming'")
-        if wire == "coords4":
-            raise _not_ported("wire='coords4' (asymmetric ranking)")
-        if wire not in ("words", "dense"):
-            raise ValueError("wire must be 'words' or 'dense'")
+        if wire not in ("words", "dense", "coords4"):
+            raise ValueError("wire must be 'words', 'dense' or 'coords4'")
+        if wire == "coords4" and mode != "asymmetric":
+            raise ValueError("wire='coords4' applies to mode='asymmetric' only")
+        if mode not in ("collision", "hamming", "asymmetric"):
+            raise ValueError("mode must be 'collision', 'hamming' or 'asymmetric'")
         if probes < 1:
             raise ValueError("probes must be >= 1")
         if probes > 1 and mode != "collision":
             raise ValueError(
                 "multi-probe applies to collision counting only (the "
-                "Hamming estimator ranks every slot already)"
+                "hamming/asymmetric estimators rank every slot already)"
             )
         if mode == "hamming":
             self._require_hamming()
+        if mode == "asymmetric":
+            self._check_asymmetric()
+        qmax = QMAX4 if wire == "coords4" else QMAX
         where = as_filter(where)
         with self._lock:
             if self._size == 0:
                 raise RuntimeError("snapshot_query_fn requires a non-empty store")
+            if mode == "asymmetric":
+                self._require_asymmetric_planes()
             snapshot_gen = self._generation
 
         def serve(q) -> torch.Tensor:
@@ -882,6 +1077,11 @@ class DeviceStore(BaseStorage):
                         "after the snapshot was taken; call snapshot_query_fn "
                         "again"
                     )
+                if mode == "asymmetric":
+                    if wire == "coords4":  # packed nibbles -> int8 coords
+                        q = unpack_coords_int4(torch.as_tensor(q).to(self.device))
+                    qc = self._query_coords(q)
+                    return self._query_asymmetric_dev(qc, k, where, qmax)[1]
                 qw = self._wire_words(q, wire, probes)
                 if mode == "hamming":
                     return self._query_hamming_dev(qw, k, where)[1]
@@ -1181,13 +1381,13 @@ class DeviceStore(BaseStorage):
     # ------------------------------------------------------------------
 
     def batch_add(self, operations: Sequence[BucketOperation]) -> None:
-        raise _not_ported("bucket-level ingestion on the device store")
+        raise _not_ported("bucket-level ingestion on the device store", 4)
 
     def add_to_bucket(self, band_id: int, hash_val: bytes, index: int) -> None:
-        raise _not_ported("bucket-level ingestion on the device store")
+        raise _not_ported("bucket-level ingestion on the device store", 4)
 
     def get_bucket(self, band_id: int, hash_val: bytes) -> set[int]:
-        raise _not_ported("bucket reads on the device store")
+        raise _not_ported("bucket reads on the device store", 4)
 
     def remove_indices(self, indices: Iterable[int]) -> None:
         """Tombstone the slots holding ``indices`` (their id becomes -1).
@@ -1227,6 +1427,13 @@ class DeviceStore(BaseStorage):
             self.load_state_arrays(self.state_arrays())
         return reclaimed
 
+    def close(self) -> None:
+        """Drop the device tensors (the store is unusable afterwards)."""
+        with self._lock:
+            self._sig_t = self._sig_rows = self._ids = self._tie = None
+            self._planes = self._refine = None
+            self._payload = self._pnorm = self._pscale = None
+
     def clear(self) -> None:
         with self._lock:
             self._alloc(self._capacity)
@@ -1253,6 +1460,7 @@ class DeviceStore(BaseStorage):
             "capacity": self._capacity,
             "chunk_size": self.chunk,
             "hamming_storage": self.hamming_storage if self.enable_hamming else None,
+            "hamming_cascade": self.hamming_cascade or None,
             # The bytes held, padding columns included.
             "hamming_plane_bytes": self._planes.numel() if self._planes is not None else 0,
             "fast_path": self._use_grouped(),

@@ -103,13 +103,33 @@ def test_device_hash_serving_self_matches(engine, rng):
     assert tl.stats()["counters"]["queries_served"] == 200
 
 
+# Each unported argument, set to anything but its default, raises
+# NotImplementedError naming its ROADMAP Queue A item.
+UNPORTED_ARGUMENTS = [
+    (dict(backend="memory"), 6),
+    (dict(storage=object()), 6),
+    (dict(redis_host="cache"), 6),
+    (dict(redis_port=6380), 6),
+    (dict(redis_db=1), 6),
+    (dict(redis_password="secret"), 6),
+    (dict(redis_prefix="idx"), 6),
+    (dict(redis_max_connections=8), 6),
+    (dict(decode_responses=True), 6),
+    (dict(shards=2), 7),
+    (dict(query_mode="bucket"), 4),
+    (dict(bucket_cap=64), 4),
+    (dict(similarity="dot"), 6),
+    (dict(similarity="dot", max_norm=5.0), 6),
+    (dict(max_norm=5.0), 6),
+]
+
+
 def test_unported_paths_raise(rng):
-    with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, backend="memory", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchLSHRS(dim=8, similarity="dot", device="cpu")
+    for kw, item in UNPORTED_ARGUMENTS:
+        with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
+            TorchLSHRS(dim=8, device="cpu", **kw)
+    with pytest.raises(ValueError, match="query_mode"):
+        TorchLSHRS(dim=8, query_mode="sorted", device="cpu")
     with pytest.raises(ValueError, match="multiprobe must be <= rows_per_band"):
         TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, multiprobe=5, device="cpu")
     with pytest.raises(ValueError, match="hash_family"):
@@ -118,13 +138,28 @@ def test_unported_paths_raise(rng):
                     device="cpu")
     x = rng.standard_normal(8).astype(np.float32)
     tl.index([0], x[None, :])
-    with pytest.raises(NotImplementedError):
-        tl.serving_fn(top_k=3, mode="asymmetric")
-    # Options ported since: filters answer instead of raising.
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        tl.serving_fn(top_k=3, auto_refresh=True)
+    # Options ported since: filters and asymmetric serving answer instead
+    # of raising.
+    assert tl.serving_fn(top_k=3, mode="asymmetric")(x[None, :])[0, 0] == 0
+    assert tl.serving_fn(top_k=3, mode="asymmetric", coords_wire="int4")(x[None, :])[0, 0] == 0
     assert tl.query(x, where=[0]) == [0] and tl.query(x, where=[1]) == []
     assert [i for i, _ in tl.query(x, top_p=0.5, where=[0])] == [0]
     with pytest.raises(ValueError, match="zero vector"):
         tl.index([1], np.zeros((1, 8), np.float32))
+
+
+def test_every_reference_argument_is_accepted():
+    """The port's constructor and serving_fn take every argument of the
+    reference's, so code written for the reference fails with
+    NotImplementedError, never TypeError."""
+    import inspect
+
+    for name in ("__init__", "serving_fn"):
+        ref = set(inspect.signature(getattr(JaxLSHRS, name)).parameters)
+        port = set(inspect.signature(getattr(TorchLSHRS, name)).parameters)
+        assert ref - port == set(), name
 
 
 def test_import_leaves_jax_out():

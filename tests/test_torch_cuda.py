@@ -432,3 +432,87 @@ def test_multiprobe_lshrs_on_the_gpu_matches_the_cpu(family, nb, r, probes, dev,
     np.testing.assert_array_equal(n_g, n_c)
     np.testing.assert_array_equal(ids_g, ids_c)
     np.testing.assert_allclose(sims_g[ids_c >= 0], sims_c[ids_c >= 0], atol=1e-5)
+
+
+@pytest.mark.parametrize("p,c,q,group,wire", [
+    (256, 8192, 513, 64, "int8_1m"),     # offset 32512, shift 5: asymmetric at 2**20 slots
+    (256, 8192, 300, 64, "int4_1m"),     # offset 1792, shift 1: the int4 wire at 2**20 slots
+    (128, 8192, 513, 64, "coarse"),      # the cascade's coarse pass, tie shift 0
+    (128, 8192, 77, 16, "coarse_shifted"),  # coarse scale and tie of a 2**24-slot store
+])
+def test_b2_kernel_matches_plain_on_asymmetric_and_cascade_keys(p, c, q, group, wire, dev, rng):
+    """Kernel B2 bit for bit against its plain version at the key packings
+    the asymmetric and cascade paths give it."""
+    from lshrs_tpu_torch.ops.hamming import cascade_coarse_scale
+
+    planes = (2 * rng.integers(0, 2, (c, p)) - 1).astype(np.int8)
+    tie = _tie(rng, c, dev)
+    kw = dict(group=group, num_perm=p, scale=gm.key_scale(c))
+    if wire == "int8_1m":
+        qb = rng.integers(-127, 128, (q, p)).astype(np.int8)
+        qb[0], qb[1] = 127, -127
+        kw.update(offset=p * 127, shift=gm.asymmetric_shift(p, 1 << 20))
+        assert kw["offset"] == 32512 and kw["shift"] == 5
+    elif wire == "int4_1m":
+        qb = rng.integers(-7, 8, (q, p)).astype(np.int8)
+        kw.update(offset=p * 7, shift=gm.asymmetric_shift(p, 1 << 20, qmax=7))
+        assert kw["offset"] == 1792 and kw["shift"] == 1
+    else:
+        qb = planes[rng.integers(0, c, q)].copy()
+        qb[q // 2 :] *= np.where(rng.random((q - q // 2, p)) < 0.3, -1, 1).astype(np.int8)
+        scale, tie_shift = cascade_coarse_scale(p, 1 << 24 if wire == "coarse_shifted" else c)
+        assert tie_shift == (1 if wire == "coarse_shifted" else 0)
+        tie = torch.where(tie >= 0, tie >> tie_shift, tie)
+        kw.update(scale=scale)
+    planes_d, qb_d = torch.from_numpy(planes).to(dev), torch.from_numpy(qb).to(dev)
+    packing = (p, kw.get("offset", p), kw.get("shift", 1))  # (width, offset, shift)
+    before = gm.hamming_group_max_keys.launches
+    before_packing = gm.hamming_group_max_keys.launches_by_packing[packing]
+    got = gm.hamming_group_max_keys(planes_d, tie, qb_d, **kw)
+    assert gm.hamming_group_max_keys.launches == before + 1
+    assert gm.hamming_group_max_keys.launches_by_packing[packing] == before_packing + 1
+    assert torch.equal(got, gm.hamming_group_max_keys_ref(planes_d, tie, qb_d, **kw))
+
+
+@pytest.mark.parametrize("coords_wire", ["int8", "int4"])
+def test_asymmetric_lshrs_on_the_gpu_matches_the_cpu(coords_wire, dev, rng):
+    from lshrs_tpu_torch import IdFilter
+
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host", seed=5,
+              engine="hamming")
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(5000), X)
+        lsh.delete(list(range(0, 5000, 40)))
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    before = gm.hamming_group_max_keys.launches
+    out = gpu.serving_fn(top_k=10, mode="asymmetric", coords_wire=coords_wire)(Q)
+    assert gm.hamming_group_max_keys.launches == before + 1
+    np.testing.assert_array_equal(
+        out, cpu.serving_fn(top_k=10, mode="asymmetric", coords_wire=coords_wire)(Q))
+    assert not np.isin(out, np.arange(0, 5000, 40)).any()
+    f = IdFilter(allowed_ids=np.arange(0, 5000, 3))
+    assert gpu.query_asymmetric_batch(Q, top_k=5, where=f) == (
+        cpu.query_asymmetric_batch(Q, top_k=5, where=f))
+
+
+def test_cascade_lshrs_on_the_gpu_matches_the_cpu(dev, rng):
+    from lshrs_tpu_torch import IdFilter
+
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host", seed=5,
+              engine="hamming", hamming_cascade=128, hamming_cascade_refine=1024)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((6000, 64)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(6000), X)
+        lsh.delete(list(range(0, 6000, 30)))
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    before = gm.hamming_group_max_keys.launches
+    out = gpu.serving_fn(top_k=10)(Q)
+    assert gm.hamming_group_max_keys.launches == before + 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    assert gpu._storage._planes.shape[1] == 128
+    f = IdFilter(allowed_ids=np.arange(0, 6000, 4))
+    assert gpu.query_hamming_batch(Q, top_k=5, where=f) == cpu.query_hamming_batch(Q, top_k=5,
+                                                                                     where=f)

@@ -158,9 +158,9 @@ def test_empty_store_and_unported_options(hasher, rng):
         ts.snapshot_query_fn(3)
     c, i = ts.query_topk(q, 3, where=[1, 2])  # a filter on an empty store
     assert (c == 0).all() and (i == -1).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="non-empty"):
         ts.snapshot_query_fn(3, mode="asymmetric")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         TorchStore(query_mode="bucket", device="cpu", **KW)
     with pytest.raises(ValueError, match="hamming_storage"):
         TorchStore(hamming_storage="sparse", device="cpu", **KW)

@@ -125,7 +125,8 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
 # raise NotImplementedError. A hash family swapped in by hand names a file
 # the checkpoint does not hold (diagonals.npz): FileNotFoundError, never a
 # silent gaussian index (cross-polytope at this banding already fails its
-# geometry check: ValueError). A multi-probe depth restores as it is.
+# geometry check: ValueError). A multi-probe depth and a cascade restore as
+# they are.
 @pytest.mark.parametrize("where,change", [
     ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
@@ -151,6 +152,11 @@ def test_unsupported_checkpoint_capabilities_raise(where, change, tmp_path, rng)
         back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
         assert back.stats()["multiprobe"] == 2
         assert back.query(X[3], top_k=1) == [3]
+        return
+    if "hamming_cascade" in change:  # ported: the cascade restores
+        back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
+        assert back.stats()["index"]["hamming_cascade"] == 32
+        assert back.query_hamming(X[3], top_k=1)[0][0] == 3
         return
     expected = {"structured": FileNotFoundError, "crosspolytope": ValueError}.get(
         change.get("hash_family"), NotImplementedError
