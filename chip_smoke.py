@@ -119,7 +119,32 @@ then runs these phases and prints JSON lines as it goes:
       delete (no deleted id returned, survivors' self-match 1.0), planted
       recall@10, build rate, QPS and a profile.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-10
+11. the bucketed engine, in-place retuning and MIPS (no new kernel: the
+    reference computes the bucket search, the rehash and the augmentation
+    in plain ``jnp``):
+    - bucket_100k: ``query_mode="bucket"`` over the 100k words, held to
+      the scan (kernel B1) on the same words: equal ids and counts when no
+      bucket run overflowed (otherwise each rank's count at most the
+      scan's), self-match 1.0, ``query_batch`` QPS of both in turns at
+      Q=1,024 and 16,384, a profile; the same on the 1M clustered words
+      under ``engine="collision"`` (B1 at 2**20 slots), overflows printed;
+    - retune_1m_int8: phase 8's 2**20 int8-payload index rehashed to 32 x 8
+      (seconds, rows/s), then ``retrain()`` (host fit and rehash seconds):
+      top-p gather recall@10 against phase 8's truth beside 16 x 16's,
+      self-match 1.0, top-k through Hamming (B2) on the rebuilt planes;
+    - mips_100k: ``similarity="dot"`` over 100k vectors with norms in
+      [0.5, 2]: top-p scores == float64 inner products (error within 1e-4
+      of ``|q| * max_norm``), == a CPU copy on the same words, recall@10
+      of top-p and top-k (B1) against the brute-force inner-product
+      top-10, QPS beside the cosine 100k top-p in turns;
+    - retune_100k: a 100k float32-payload index rehashed to the structured
+      family (words == the native C and NumPy FWHT of the vectors; a strict
+      closure taken before raises stale, an ``auto_refresh=True`` one
+      serves a fresh closure's ids after the rehash and after a 1,000-id
+      delete), then to 32 x 8: B1 at ``(32, 1)``, top-k and top-p == a CPU
+      copy on the same words, rehash seconds.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-11
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -1936,6 +1961,331 @@ def phase_cascade_8m(seed: int, label: str) -> dict:
     return {"quality": quality, "qps": qps, "build_s": build_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the bucketed engine, in-place retuning, MIPS
+# ---------------------------------------------------------------------------
+
+BUCKET_BATCHES = (1024, 16384)
+RETUNE_DELETE = 1000
+
+
+def bucket_vs_scan(bucket, scan, queries) -> dict:
+    """``query_batch`` ids of a bucketed and a scan index on the same
+    words: equal when no bucket run overflowed; otherwise each rank's
+    count is at most the scan's (the scan's is the exact top-k) and the
+    ids agree at ``agreement_at_10``."""
+    store = bucket._storage
+    before = store.stats()["bucket_overflows"]
+    qw = bucket._hash_query_words(queries)
+    bc, bi = store.query_topk(qw, TOP_K)
+    overflows = store.stats()["bucket_overflows"] - before
+    sc, si = scan._storage.query_topk(qw, TOP_K)
+    out = {"queries": len(queries), "overflows": overflows,
+           "equal": bool(np.array_equal(bi, si) and np.array_equal(bc, sc)),
+           "counts_bounded_by_scan": bool((bc <= sc).all()),
+           "agreement_at_10": agreement_at_10(bi, si)}
+    if overflows == 0:
+        assert out["equal"], out
+    assert out["counts_bounded_by_scan"], out
+    return out
+
+
+def bucket_turns(pair: dict, queries: dict, rows: int, label: str) -> dict:
+    """Bucket and scan in turns at each batch size: ``query_batch`` QPS
+    (the user's entry point, host lists included) and the engine's own ms
+    per batch (CUDA events around ``query_topk_ids`` on the batch's device
+    words: the bucket engine's overflow count synchronises, the scan's
+    launch does not)."""
+    out = {}
+    for q, batch in queries.items():
+        for name in ("bucket", "scan", "scan", "bucket"):
+            lsh = pair[name]
+            rate = serving_qps(lambda x, lsh=lsh: lsh.query_batch(x, top_k=TOP_K), batch,
+                               trials=2)
+            qw = lsh._hash_query_words(batch[0])
+            engine_ms = median_ms(lambda lsh=lsh, qw=qw: lsh._storage.query_topk_ids(qw, TOP_K),
+                                  reps=5)
+            out.setdefault(f"{name}_q{q}", []).append({"qps": rate, "engine_ms": engine_ms})
+            emit("serving", card=label, rows=rows, batch=q, engine="collision", query_mode=name,
+                 entry="query_batch", qps=rate, engine_ms_per_batch=engine_ms)
+    return out
+
+
+def phase_bucket(s100: dict, s1m: dict, seed: int, label: str) -> None:
+    """query_mode="bucket" beside the scan (kernel B1) on the 100k words
+    and on the 1M clustered words under engine="collision"."""
+    from lshrs_tpu_torch import LSHRS
+
+    rng = np.random.default_rng(seed + 11)
+    kw = dict(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS, device=DEVICE)
+    X = s100["X"]
+    bucket = LSHRS(query_mode="bucket", **kw)
+    for i in range(0, N_100K, INGEST_BATCH):
+        bucket.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+    pair = {"bucket": bucket, "scan": s100["lsh"]}
+    assert torch.equal(bucket._storage._sig_t, pair["scan"]._storage._sig_t)
+    noisy = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    held = {"noisy": bucket_vs_scan(bucket, pair["scan"], noisy),
+            "random": bucket_vs_scan(bucket, pair["scan"], s100["queries"][0])}
+    sm = float(np.mean([row[:1] == [i] for i, row in
+                        enumerate(bucket.query_batch(X[:QPS_BATCH_100K], top_k=TOP_K))]))
+    emit("bucket_100k", card=label, rows=N_100K, self_match=sm, held_to_scan=held,
+         bucket_cap=bucket._storage.bucket_cap)
+    assert sm == 1.0, sm
+    queries = {q: [rng.standard_normal((q, DIM), dtype=np.float32) for _ in range(2)]
+               for q in BUCKET_BATCHES}
+    turns = bucket_turns(pair, queries, N_100K, label)
+    emit("profile", card=label, rows=N_100K, batch=BUCKET_BATCHES[-1], engine="collision",
+         query_mode="bucket", entry="query_batch",
+         **serving_profile(lambda x: bucket.query_batch(x, top_k=TOP_K),
+                           queries[BUCKET_BATCHES[-1]][:1]))
+    del bucket, pair
+
+    # The 1M clustered words (phase 4's store) under collision ranking.
+    words = s1m["lsh"]._storage.state_arrays()
+    pair = {}
+    for mode in ("bucket", "scan"):
+        lsh = LSHRS(engine="collision", query_mode=mode, **kw)
+        lsh._storage.load_state_arrays(words)
+        pair[mode] = lsh
+    del words
+    keep = s1m["keep"]
+    noisy = keep[:CARRY_QUERIES] + 0.2 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    held = bucket_vs_scan(pair["bucket"], pair["scan"], noisy)
+    out = pair["bucket"].query_batch(keep[:QPS_BATCH_1M], top_k=TOP_K)
+    sm = float(np.mean([row[:1] == [i] for i, row in enumerate(out)]))
+    queries = {q: [keep[rng.integers(0, len(keep), q)]
+                   + 0.2 * rng.standard_normal((q, DIM), dtype=np.float32) for _ in range(2)]
+               for q in BUCKET_BATCHES}
+    turns_1m = bucket_turns(pair, queries, N_1M, label)
+    emit("bucket_1m", card=label, rows=N_1M, capacity=pair["bucket"]._storage._capacity,
+         held_to_scan=held, self_match_top1=sm,
+         bucket_overflows_total=pair["bucket"].stats()["index"]["bucket_overflows"])
+    emit("bucket_turns", card=label, at_100k=turns, at_1m=turns_1m)
+    assert sm > 0.99, sm  # a run of identical words past the window can hide the vector
+
+
+def retune_serving_checks(lsh, queries) -> dict:
+    """Closures around a rehash and a delete: a strict closure taken
+    before the rehash raises stale; an ``auto_refresh=True`` one serves
+    the ids of a fresh closure after the rehash and after the delete."""
+    strict = lsh.serving_fn(top_k=TOP_K)
+    auto = lsh.serving_fn(top_k=TOP_K, auto_refresh=True)
+    strict(queries)
+    auto(queries)
+    seconds, _ = host_seconds(lambda: (lsh.rehash(hash_family="structured"),
+                                       torch.cuda.synchronize()))
+    try:
+        strict(queries)
+        stale = False
+    except RuntimeError as e:
+        stale = "stale" in str(e)
+    after_rehash = bool(np.array_equal(auto(queries), lsh.serving_fn(top_k=TOP_K)(queries)))
+    deleted = np.random.default_rng(3).choice(N_100K, RETUNE_DELETE, replace=False)
+    lsh.delete(deleted.tolist())
+    served = auto(queries)
+    after_delete = bool(np.array_equal(served, lsh.serving_fn(top_k=TOP_K)(queries)))
+    out = {"strict_closure_stale": stale, "auto_refresh_equals_fresh_after_rehash": after_rehash,
+           "auto_refresh_equals_fresh_after_delete": after_delete,
+           "deleted_ids_returned": int(np.isin(served, deleted).sum()),
+           "structured_rehash_s": seconds}
+    assert stale and after_rehash and after_delete and out["deleted_ids_returned"] == 0, out
+    return out
+
+
+def phase_retune_100k(seed: int, label: str) -> dict:
+    """rehash on a 100k x 768 float32-payload index: to the structured
+    family (words == the native C and NumPy FWHT of the same vectors),
+    serving closures around it, then to 32 x 8 (B1 at 32 band words;
+    top-k and top-p == a CPU copy on the same words)."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.hash.fwht import _structured_coords_numpy
+    from lshrs_tpu_torch.ops.bitpack import pack_bits_to_words_np, words_to_numpy
+
+    rng = np.random.default_rng(seed + 12)
+    X = rng.standard_normal((N_100K, DIM), dtype=np.float32)
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                store_vectors=True, device=DEVICE)
+    for i in range(0, N_100K, INGEST_BATCH):
+        lsh.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+    queries = X[:QPS_BATCH_100K] + 0.3 * rng.standard_normal((QPS_BATCH_100K, DIM),
+                                                           dtype=np.float32)
+    closures = retune_serving_checks(lsh, queries)
+    store = lsh._storage
+    words = words_to_numpy(store._sig_rows[:N_100K])
+    # deleted slots keep their words: the rebuild covers every slot
+    host_words = lsh._hasher.hash_batch_words_host(X)
+    n_np = HASH_ROWS // 4
+    bits = _structured_coords_numpy(X[:n_np], lsh._hasher.diagonals, NUM_PERM) > 0
+    numpy_words = pack_bits_to_words_np(bits, num_bands=NUM_BANDS, rows_per_band=ROWS)
+    parity = {"words_equal_native_c": bool(np.array_equal(words, host_words)),
+              "words_equal_numpy_fwht": bool(np.array_equal(words[:n_np], numpy_words)),
+              "numpy_rows": n_np}
+    assert parity["words_equal_native_c"] and parity["words_equal_numpy_fwht"], parity
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lsh.rehash(num_bands=CP_BANDS, rows_per_band=CP_ROWS)
+    torch.cuda.synchronize()
+    rehash_s = time.perf_counter() - t0
+    assert store.words == CP_BANDS and lsh.stats()["hash_family"] == "structured"
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    before = group_max_keys.launches_by_shape[CP_BANDS, 1]
+    served = lsh.serving_fn(top_k=TOP_K)(queries)
+    launched = group_max_keys.launches_by_shape[CP_BANDS, 1] - before
+    qx = queries[:CARRY_QUERIES]
+    qw = lsh._hasher.hash_batch_words(qx)
+    counts, ids = store.query_topk(qw, TOP_K)
+    topp = store.query_topp_batch(qw, qx, TOP_K)
+    cpu = carry_to_cpu(store)
+    counts_cpu, ids_cpu = cpu.query_topk(qw.cpu(), TOP_K)
+    topp_cpu = cpu.query_topp_batch(qw.cpu(), qx, TOP_K)
+    del cpu
+    agree = compare_rankings(topp, topp_cpu)
+    out = {"b1_launches_32x1": launched, "rehash_32x8_s": rehash_s,
+           "rehash_32x8_rows_per_s": store._capacity / rehash_s,
+           "topk_card_equals_cpu": bool(np.array_equal(ids, ids_cpu)
+                                        and np.array_equal(counts, counts_cpu)),
+           "topp_card_vs_cpu": agree, "served_equals_store": bool(np.array_equal(served[:CARRY_QUERIES], ids)),
+           "colliding_top1": int((counts[:, 0] > 0).sum())}
+    emit("retune_100k", card=label, rows=N_100K, capacity=store._capacity, **closures, **parity,
+         **out)
+    assert launched > 0 and out["topk_card_equals_cpu"] and out["served_equals_store"], out
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    return out
+
+
+def phase_retune_1m_int8(t1m: dict, label: str) -> dict:
+    """rehash to 32 x 8, then retrain, on phase 8's 2**20 int8-payload
+    index: seconds and rows/s; top-p gather recall@10 against phase 8's
+    exact-cosine truth beside 16 x 16's; self-match; top-k through
+    Hamming (kernel B2) on the rebuilt planes."""
+    import lshrs_tpu_torch.core.main as core
+
+    lsh, qx, truth, keep = t1m["lsh"], t1m["qx"], t1m["truth"], t1m["keep"]
+    store = lsh._storage
+    store.rerank_engine = "gather"
+    alive = np.array([i for i in range(TOPP_QUERIES) if i in store._slot_of])
+    recall = {"16x16": t1m["recall"]["gather"]["recall_at_10"]}
+    seconds = {}
+
+    def quality(name: str) -> None:
+        serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES)
+        recall[name] = recall_at_10(serve(qx)[0], truth)
+        ids = serve(keep[alive])[0]
+        sm = float((ids[:, 0] == alive).mean())
+        topk = lsh.serving_fn(top_k=TOP_K)(keep[alive])
+        emit("retune_1m_" + name, card=label, recall_at_10=recall[name], self_match=sm,
+             topk_self_match=float((topk[:, 0] == alive).mean()),
+             ranking=lsh.stats()["ranking"], hash_family=lsh.stats()["hash_family"],
+             planes=list(store._planes.shape) if store._planes is not None else None)
+        assert sm == 1.0 and float((topk[:, 0] == alive).mean()) == 1.0, name
+
+    torch.cuda.synchronize()
+    seconds["rehash_32x8_s"], _ = host_seconds(
+        lambda: (lsh.rehash(num_bands=CP_BANDS, rows_per_band=CP_ROWS), torch.cuda.synchronize()))
+    assert store.words == CP_BANDS and store._planes is None
+    quality("32x8")
+
+    fit = core.fit_itq_projection
+    rehash = store.rehash
+    clock = {"fit_s": 0.0, "rehash_s": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    core.fit_itq_projection = timed("fit_s", fit)
+    store.rehash = timed("rehash_s", rehash)
+    try:
+        seconds["retrain_s"], info = host_seconds(lambda: lsh.retrain())
+    finally:
+        core.fit_itq_projection = fit
+        del store.rehash
+    seconds.update(retrain_fit_s=clock["fit_s"], retrain_rehash_s=clock["rehash_s"])
+    assert lsh.stats()["hash_family"] == "learned"
+    quality("retrained")
+    out = {**seconds, "rows_per_s_32x8": N_1M / seconds["rehash_32x8_s"],
+           "rows_per_s_retrain_rehash": N_1M / clock["rehash_s"],
+           **{f"recall_{k}": v for k, v in recall.items()},
+           "fit_sample_rows": info["sample_rows"]}
+    emit("retune_1m_int8", card=label, rows=N_1M, **out)
+    return out
+
+
+def phase_mips_100k(t100: dict, seed: int, label: str) -> dict:
+    """similarity="dot" on 100k x 768 vectors with norms in [0.5, 2], a
+    float32 payload: top-p scores == float64 host inner products within
+    1e-4 relative, top-p == a CPU copy on the same words, recall@10 of
+    top-p and top-k (B1) against the brute-force inner-product top-10,
+    QPS beside the cosine 100k top-p."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    rng = np.random.default_rng(seed + 13)
+    X = rng.standard_normal((N_100K, DIM), dtype=np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    X *= rng.uniform(0.5, 2.0, (N_100K, 1)).astype(np.float32)
+    max_norm = float(np.linalg.norm(X, axis=1).max()) * 1.001
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                similarity="dot", max_norm=max_norm, store_vectors=True, device=DEVICE)
+    for i in range(0, N_100K, INGEST_BATCH):
+        lsh.index(np.arange(i, min(i + INGEST_BATCH, N_100K)), X[i : i + INGEST_BATCH])
+    store = lsh._storage
+    assert store.dim == DIM + 1 and lsh.stats()["similarity"] == "dot"
+    # Stored vectors plus noise of norm ~0.3 (the vectors' norms are 0.5-2).
+    noise = 0.3 / np.sqrt(DIM)
+    qx = X[:CARRY_QUERIES] + noise * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    serve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)
+    ids, sims, n = serve(qx)
+    exact = np.einsum("qd,qkd->qk", qx.astype(np.float64), X[np.maximum(ids, 0)].astype(np.float64))
+    live = ids >= 0
+    # The error relative to the score's scale |q| * max_norm (a score is
+    # an augmented cosine times it): exact dots near 0 have no relative
+    # digits of their own.
+    scale = np.linalg.norm(qx.astype(np.float64), axis=1, keepdims=True) * max_norm
+    rel = (np.abs(sims - exact) / scale)[live]
+    dots = torch.from_numpy(qx).to(DEVICE).double() @ torch.from_numpy(X).to(DEVICE).double().T
+    truth = torch.topk(dots, TOP_K, dim=1).indices.cpu().numpy()
+    del dots
+    qa = lsh._augment_query(qx)
+    qw = lsh._hash_query_words(qa)
+    cpu = carry_to_cpu(store)
+    want = cpu.query_topp_batch(qw.cpu(), qa, TOP_K)
+    del cpu
+    got = store.query_topp_batch(qw, qa, TOP_K)
+    agree = compare_rankings(got, want)
+    before = group_max_keys.launches
+    topk = np.array([row + [-1] * (TOP_K - len(row)) for row in lsh.query_batch(qx, top_k=TOP_K)])
+    b1 = group_max_keys.launches - before
+    queries = [X[:TOPP_BATCH_100K] + noise * rng.standard_normal((TOPP_BATCH_100K, DIM),
+                                                               dtype=np.float32) for _ in range(4)]
+    qps = {}
+    for name, fn in (("dot", serve), ("cosine", t100["serve"]), ("cosine", t100["serve"]),
+                     ("dot", serve)):
+        qps.setdefault(name, []).append(serving_qps(fn, queries, trials=2))
+    out = {"max_score_err_rel_to_q_norm_x_max_norm": float(rel.max()),
+           "max_abs_score_err": float(np.abs(sims - exact)[live].max()), "scored": int(live.sum()),
+           "topp_recall_at_10": recall_at_10(ids, truth),
+           "topk_recall_at_10": recall_at_10(topk, truth), "b1_launches_topk": b1,
+           "topp_card_vs_cpu": agree, "mean_candidates": float(n.mean()),
+           "rerank_engine": store.stats()["rerank_engine"], "max_norm": max_norm,
+           "qps_topp_dot": qps["dot"], "qps_topp_cosine": qps["cosine"],
+           "batch": TOPP_BATCH_100K}
+    emit("mips_100k", card=label, rows=N_100K, queries=CARRY_QUERIES, **out)
+    assert live.sum() > 0 and out["max_score_err_rel_to_q_norm_x_max_norm"] < 1e-4, out
+    assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
+    assert b1 > 0, b1
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2054,6 +2404,9 @@ def main() -> int:
          "and its round trip through the host")
     del c8m
 
+    # Phase 11 (the bucketed engine): the 100k and 1M words, before the
+    # lifecycle mutates the 100k index.
+    drive("bucket_100k", B1, lambda: phase_bucket(s100, s1m, args.seed, label))
     drive("lifecycle_100k", "group_max_keys", lambda: phase_lifecycle(s100, args.seed))
 
     # Phase 8: top-p rerank.
@@ -2105,11 +2458,18 @@ def main() -> int:
     drive("probe_and_cp_1m", B1, lambda: phase_probe_and_cp_1m(t1m, label),
           b1_shapes=[(NUM_BANDS, 4), (CP_BANDS, 1)])
     drive("filters", KERNELS, lambda: phase_filters(st1m, t1m, args.seed, label))
-    del t1m, st1m
+    del st1m
+    # Phase 11 (retuning and MIPS): phase 8's 1M index is rehashed last.
+    drive("retune_1m_int8", (B1, B2), lambda: phase_retune_1m_int8(t1m, label),
+          b1_shapes=[(CP_BANDS, 1)])
+    del t1m
+    drive("mips_100k", B1, lambda: phase_mips_100k(t100, args.seed, label))
     drive("topp_lifecycle_100k", "group_max_keys", lambda: phase_topp_lifecycle(t100, args.seed))
     del t100
     drive("family_lifecycle_100k", B1, lambda: phase_family_lifecycle(args.seed),
           b1_shapes=[(NUM_BANDS, 2), (CP_BANDS, 2), (CP_BANDS, 4)])
+    drive("retune_100k", B1, lambda: phase_retune_100k(args.seed, label),
+          b1_shapes=[(CP_BANDS, 1)])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",

@@ -25,10 +25,22 @@ persistence.
                     enumerated candidates through vector_fetch_fn and a
                     host rerank
     delete       -> tombstones (id -1); compact rebuilds the dense prefix
+    rehash       -> a new banding, seed or hash family: every signature
+                    rebuilt from the resident payload on the device
+                    (retrain: an ITQ fit on sampled payload rows, then the
+                    learned family); serving_fn(auto_refresh=True) serves
+                    through it and through every other mutation
     save/load    -> metadata.json + projections.npz (diagonals.npz for the
                     structured and cross-polytope families) + index.npz,
                     the reference package's format (checkpoints load
                     across the two packages)
+
+``query_mode="bucket"`` answers collision top-k through sorted band keys
+and a binary search (`lshrs_tpu_torch.ops.bucketed`). ``similarity="dot"``
+is maximum-inner-product search: every stored vector gains the coordinate
+``sqrt(max_norm^2 - |x|^2)`` and every query a 0, so the cosine machinery
+ranks by inner product, and returned scores are scaled back to inner
+products.
 
 Same public contract as the reference for these paths: validation
 messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
@@ -37,10 +49,8 @@ rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 buffer-restore-on-failed-flush semantics.
 
 Not ported yet (the argument that asks for one raises
-``NotImplementedError`` naming its ROADMAP Queue A item): MIPS, the
-bucketed engine, bucket backends and custom storages, sharding and
-``serving_fn(auto_refresh=True)``. Retuning (``rehash`` / ``retrain``,
-Queue A item 5) has no method here yet.
+``NotImplementedError`` naming its ROADMAP Queue A item): bucket backends,
+custom storages and I/O (item 6) and sharding (item 7).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 
 from lshrs_tpu_torch.hash.hasher import LSHHasher
+from lshrs_tpu_torch.hash.itq import fit_itq_projection
 from lshrs_tpu_torch.ops.asymmetric import QMAX4, pack_coords_int4_np, quantize_coords_np
 from lshrs_tpu_torch.storage.device import DeviceStore, _not_ported
 from lshrs_tpu_torch.storage.filter import as_filter
@@ -151,13 +162,23 @@ class LSHRS:
             reference parity), ``"hamming"`` (full-signature Hamming) or
             ``"auto"`` (default: collision below `_AUTO_HAMMING_CAPACITY`
             slots, Hamming from there on; pinned at first resolution).
+        query_mode / bucket_cap: ``"scan"`` (default) or ``"bucket"``
+            (collision top-k through the sorted bucket index, truncating
+            bucket runs at ``bucket_cap`` slots); see `DeviceStore`.
+        similarity: ``"cosine"`` (default) or ``"dot"`` (maximum inner
+            product search): stored vectors gain the coordinate
+            ``sqrt(max_norm^2 - |x|^2)`` and queries a 0, the hasher and
+            the store work at ``dim + 1``, candidates follow inner-product
+            order and returned scores are inner products. Recall degrades
+            when stored norms differ by orders of magnitude.
+        max_norm: required with ``similarity="dot"``: the bound on stored
+            vector norms; indexing a vector above it raises ``ValueError``.
         device: where the store and the device hash live (``"cuda"`` by
             default; ``"cpu"`` runs the kernels' plain PyTorch versions).
 
     ``backend``, ``storage``, the ``redis_*`` arguments,
-    ``decode_responses``, ``shards``, ``query_mode``, ``bucket_cap``,
-    ``similarity`` and ``max_norm`` are accepted only at their defaults
-    (ROADMAP Queue A items 4, 6 and 7).
+    ``decode_responses`` and ``shards`` are accepted only at their
+    defaults (ROADMAP Queue A items 6 and 7).
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -246,6 +267,14 @@ class LSHRS:
             raise ValueError("multiprobe must be an integer >= 1")
         if similarity not in ("cosine", "dot"):
             raise ValueError("similarity must be 'cosine' or 'dot'")
+        if similarity == "dot":
+            if max_norm is None or not max_norm > 0:
+                raise ValueError(
+                    'similarity="dot" requires max_norm > 0: the MIPS '
+                    "augmentation needs an upper bound on stored vector "
+                    "norms (vectors above it are rejected at ingest)"
+                )
+            max_norm = float(max_norm)
         if query_mode not in ("scan", "bucket"):
             raise ValueError("query_mode must be 'scan' or 'bucket'")
         if storage is not None:
@@ -258,12 +287,6 @@ class LSHRS:
             raise _not_ported("redis_* / decode_responses (the Redis bucket backend)", 6)
         if shards is not None and shards > 1:
             raise _not_ported("shards (sharding)", 7)
-        if query_mode != "scan" or bucket_cap != 128:
-            raise _not_ported(
-                f"query_mode={query_mode!r}, bucket_cap={bucket_cap} (the bucketed engine)", 4
-            )
-        if similarity != "cosine" or max_norm is not None:
-            raise _not_ported(f"similarity={similarity!r}, max_norm={max_norm} (MIPS)", 6)
         if hamming_cascade and engine == "collision" and not enable_hamming:
             raise ValueError(
                 "hamming_cascade requires Hamming ranking: construct "
@@ -306,6 +329,10 @@ class LSHRS:
 
         self._engine = engine
         self._dim = dim
+        self._similarity = similarity
+        self._max_norm = max_norm
+        # MIPS hashes and stores dim + 1 coordinates (see _augment_data).
+        self._hash_dim = dim + 1 if similarity == "dot" else dim
         self._buffer_size = buffer_size
         self._vector_fetch_fn = vector_fetch_fn
         self._store_vectors = store_vectors
@@ -313,7 +340,7 @@ class LSHRS:
         self._hasher = LSHHasher(
             num_bands=num_bands,
             rows_per_band=rows_per_band,
-            dim=dim,
+            dim=self._hash_dim,
             seed=seed,
             hash_family=hash_family,
             device=device,
@@ -321,7 +348,7 @@ class LSHRS:
         self._storage = DeviceStore(
             num_bands=num_bands,
             rows_per_band=rows_per_band,
-            dim=dim,
+            dim=self._hash_dim,
             initial_capacity=initial_capacity,
             chunk_size=chunk_size,
             enable_hamming=enable_hamming,
@@ -330,6 +357,8 @@ class LSHRS:
             hamming_cascade_refine=hamming_cascade_refine,
             group_size=group_size,
             dedupe=dedupe,
+            query_mode=query_mode,
+            bucket_cap=bucket_cap,
             store_vectors=store_vectors,
             payload_dtype=payload_dtype,
             rerank_engine=rerank_engine,
@@ -358,7 +387,7 @@ class LSHRS:
             "buffer_size": buffer_size,
             "seed": seed,
             "similarity": similarity,
-            "max_norm": None,
+            "max_norm": max_norm,
         }
         self._tpu_config: dict[str, Any] = {
             "backend": backend,
@@ -423,7 +452,7 @@ class LSHRS:
         (explicit, at buffer capacity, or via ``index()``)."""
         if index < 0:
             raise ValueError("index must be non-negative")
-        vec = self._prepare_vector(vector)[None, :]
+        vec = self._augment_data(self._prepare_vector(vector)[None, :])
         record = (
             np.asarray([index], dtype=np.int64),
             self._hash_for_ingest(vec),
@@ -467,7 +496,7 @@ class LSHRS:
             raise ValueError(
                 "Cannot index zero vector - norm undefined. Check embeddings for corruption."
             )
-        return idx_arr, arr
+        return idx_arr, self._augment_data(arr)
 
     def _prepare_index_batch(self, indices, vectors):
         """`index()` stage 1: validate, and hash on the host in host mode.
@@ -609,7 +638,7 @@ class LSHRS:
         if top_p is not None and not 0 < top_p <= 1:
             raise ValueError("top_p must be within the range (0, 1]")
         where = as_filter(where)
-        query_vector = self._prepare_vector(vector)
+        query_vector = self._augment_query(self._prepare_vector(vector)[None, :])[0]
         self._count("queries_served")
         if top_p is None and top_k is not None:
             if self._use_hamming_ranking():
@@ -633,7 +662,10 @@ class LSHRS:
         candidate_indices = [idx for idx, _ in ordered]
         arr = self._fetch_candidates(candidate_indices)
         similarities = top_k_cosine(query_vector, arr, k=len(candidate_indices))
-        ordered_scores = [(candidate_indices[pos], score) for pos, score in similarities]
+        scale = float(self._score_scale(query_vector[None, :])[0])
+        ordered_scores = [
+            (candidate_indices[pos], score * scale) for pos, score in similarities
+        ]
         limit = max(1, math.ceil(len(ordered_scores) * top_p))
         if top_k is not None:
             limit = min(limit, top_k)
@@ -661,6 +693,7 @@ class LSHRS:
             limit = min(limit, top_k)
         if limit > len(ids):
             ids, sims, _ = self._storage.query_topp(qwords, query_vector, limit, where=where)
+        sims = sims * self._score_scale(query_vector[None, :])[0]
         return [(int(i), float(s)) for i, s in zip(ids[:limit], sims[:limit])]
 
     # First guess of the bounded candidate enumeration; it grows to the
@@ -700,7 +733,7 @@ class LSHRS:
                 "vector_fetch_fn returned mismatched batch size "
                 f"(expected {len(candidate_indices)}, received {arr.shape[0]})"
             )
-        return arr
+        return self._augment_data(arr)
 
     def get_above_p(
         self, vector: np.ndarray, p: float = 0.95, *, where=None
@@ -738,11 +771,14 @@ class LSHRS:
         if not self._store_vectors or self._vector_fetch_fn is not None:
             return [self.query(v, top_k=top_k, top_p=p, where=where) for v in arr]
         self._count("queries_served", arr.shape[0])
+        arr = self._augment_query(arr)
         # The cutoff is min(ceil(p * n), top_k): top_k bounds the prefix.
         max_out = min(max_candidates, top_k) if top_k is not None else max_candidates
         ids, sims, n = self._storage.query_topp_batch(
             self._hash_query_words(arr), arr, max_out, wire_dtype=wire_dtype, where=where
         )
+        if self._similarity == "dot":
+            sims = sims * self._score_scale(arr)[:, None]
         results: list[CandidateScores] = []
         for qi in range(arr.shape[0]):
             n_q = int(n[qi])
@@ -765,7 +801,7 @@ class LSHRS:
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         where = as_filter(where)
-        arr = self._validate_batch(vectors)
+        arr = self._augment_query(self._validate_batch(vectors))
         self._count("queries_served", arr.shape[0])
         if self._use_hamming_ranking():
             _, ids = self._storage.query_hamming(self._hash_words(arr), top_k, where=where)
@@ -787,12 +823,12 @@ class LSHRS:
         """
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        query_vector = self._prepare_vector(vector)[None, :]
+        query_vector = self._augment_query(self._prepare_vector(vector)[None, :])
         self._count("queries_served")
         hamming, ids = self._storage.query_hamming(
             self._hash_words(query_vector), top_k, where=as_filter(where)
         )
-        return self._hamming_scores(hamming, ids)[0]
+        return self._hamming_scores(hamming, ids, self._score_scale(query_vector))[0]
 
     def query_hamming_batch(
         self, vectors: np.ndarray, *, top_k: int = 10, where=None
@@ -800,22 +836,26 @@ class LSHRS:
         """Batched :meth:`query_hamming` (one hash, one fused scan)."""
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        arr = self._validate_batch(vectors)
+        arr = self._augment_query(self._validate_batch(vectors))
         self._count("queries_served", arr.shape[0])
         hamming, ids = self._storage.query_hamming(
             self._hash_words(arr), top_k, where=as_filter(where)
         )
-        return self._hamming_scores(hamming, ids)
+        return self._hamming_scores(hamming, ids, self._score_scale(arr))
 
-    def _hamming_scores(self, hamming: np.ndarray, ids: np.ndarray) -> list[CandidateScores]:
+    def _hamming_scores(
+        self, hamming: np.ndarray, ids: np.ndarray, scales: np.ndarray
+    ) -> list[CandidateScores]:
+        """``(id, cos(pi * hamming / num_perm) * scale)`` per row (the
+        scale maps the estimate to an inner product under MIPS)."""
         num_perm = self._config["num_perm"]
         return [
             [
-                (int(i), float(math.cos(math.pi * int(h) / num_perm)))
+                (int(i), float(math.cos(math.pi * int(h) / num_perm)) * scale)
                 for i, h in zip(row_ids, row_h)
                 if i >= 0
             ]
-            for row_ids, row_h in zip(ids, hamming)
+            for row_ids, row_h, scale in zip(ids, hamming, scales)
         ]
 
     def query_asymmetric(
@@ -841,11 +881,11 @@ class LSHRS:
         """Batched :meth:`query_asymmetric` (one scan through kernel B2)."""
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
-        arr = self._validate_batch(vectors)
+        arr = self._augment_query(self._validate_batch(vectors))
         self._count("queries_served", arr.shape[0])
         qi8, sumabs = quantize_coords_np(self._hasher.hash_batch_coords_host(arr))
         dots, ids = self._storage.query_asymmetric(qi8, top_k, where=as_filter(where))
-        denom = np.maximum(sumabs, 1).astype(np.float64)
+        denom = np.maximum(sumabs, 1).astype(np.float64) / self._score_scale(arr)
         return [
             [(int(i), float(d / denom[r])) for i, d in zip(ids[r], dots[r]) if i >= 0]
             for r in range(arr.shape[0])
@@ -890,8 +930,10 @@ class LSHRS:
             coords_wire: ``"asymmetric"`` only — ``"int8"`` (``num_perm``
                 bytes per query) or ``"int4"`` (coordinates quantised to
                 ``[-7, 7]``, two per byte: half the upload).
-            auto_refresh: serving through mutations; only ``False`` is
-                ported (ROADMAP Queue A item 5).
+            auto_refresh: serve through mutations: on a stale snapshot the
+                closure takes a new one of the current contents and retries
+                (thread-safe). ``False`` (default) keeps the strict
+                contract: after a mutation the closure raises.
             batch_hint: ``"topp"`` only — the batch size the closure will
                 serve; the auto rerank engine sizes the full engine's
                 ``(Q, capacity)`` temporaries from it.
@@ -909,8 +951,12 @@ class LSHRS:
             callable returning ``(ids (Q, top_k) int32, cosines (Q, top_k)
             float32, n_candidates (Q,) int32)`` ndarrays.
         """
+        where = as_filter(where)
         if auto_refresh:
-            raise _not_ported("serving_fn(auto_refresh=True) (serving through mutations)", 5)
+            return self._serving_refreshing(
+                top_k, mode=mode, wire_dtype=wire_dtype, coords_wire=coords_wire,
+                batch_hint=batch_hint, where=where,
+            )
         if mode is None:
             mode = "hamming" if self._use_hamming_ranking() else "collision"
         if mode not in ("collision", "hamming", "asymmetric", "topp"):
@@ -924,7 +970,6 @@ class LSHRS:
             raise ValueError("top_k must be greater than zero when provided")
         if wire_dtype not in ("float32", "bfloat16"):
             raise ValueError("wire_dtype must be 'float32' or 'bfloat16'")
-        where = as_filter(where)
         if mode == "topp":
             return self._serving_topp(top_k, wire_dtype=wire_dtype, batch_hint=batch_hint,
                                       where=where)
@@ -942,7 +987,7 @@ class LSHRS:
         )
 
         def run(vectors) -> np.ndarray:
-            arr = self._validate_batch(vectors)
+            arr = self._augment_query(self._validate_batch(vectors))
             out = serve(self._hash_wire(arr, probes)).cpu().numpy()
             # Count after the dispatch: stale-snapshot calls raise and must
             # not inflate queries_served.
@@ -950,6 +995,33 @@ class LSHRS:
             return out
 
         return run
+
+    def _serving_refreshing(self, top_k: int, **kw):
+        """``serving_fn(auto_refresh=True)``: a closure over an inner
+        serving closure, made lazily and made again when it raises stale
+        (another thread may have refreshed it first)."""
+        refresh_lock = Lock()
+        inner: list = [None]
+
+        def current():
+            with refresh_lock:
+                if inner[0] is None:
+                    inner[0] = self.serving_fn(top_k, **kw)
+                return inner[0]
+
+        def refreshing(vectors):
+            fn = current()
+            try:
+                return fn(vectors)
+            except RuntimeError as e:
+                if "stale" not in str(e):
+                    raise
+                with refresh_lock:
+                    if inner[0] is fn:
+                        inner[0] = None
+                return current()(vectors)
+
+        return refreshing
 
     def _serving_asymmetric(self, top_k: int, *, coords_wire: str, where):
         """``serving_fn(mode="asymmetric")``: the wire is the quantised
@@ -964,7 +1036,7 @@ class LSHRS:
         )
 
         def run_asym(vectors) -> np.ndarray:
-            arr = self._validate_batch(vectors)
+            arr = self._augment_query(self._validate_batch(vectors))
             coords = self._hasher.hash_batch_coords_host(arr)
             if int4:
                 sig = pack_coords_int4_np(quantize_coords_np(coords, qmax=QMAX4)[0])
@@ -995,7 +1067,7 @@ class LSHRS:
         dev = self._storage.device
 
         def run_topp(vectors):
-            arr = self._validate_batch(vectors)
+            arr = self._augment_query(self._validate_batch(vectors))
             if self._hash_on_device:
                 qv = torch.from_numpy(arr).to(dev)
                 sig = self._hash_wire(qv, probes)
@@ -1008,7 +1080,10 @@ class LSHRS:
             # Count after the dispatch: stale-snapshot calls raise and must
             # not inflate queries_served.
             self._count("queries_served", arr.shape[0])
-            return ids.cpu().numpy(), sims.cpu().numpy(), n.cpu().numpy()
+            sims = sims.cpu().numpy()
+            if self._similarity == "dot":
+                sims = sims * self._score_scale(arr)[:, None]
+            return ids.cpu().numpy(), sims, n.cpu().numpy()
 
         return run_topp
 
@@ -1031,6 +1106,203 @@ class LSHRS:
         """Flush, then drop every indexed entry (projections are kept)."""
         self.flush()
         self._storage.clear()
+
+    def rehash(
+        self,
+        *,
+        num_perm: Optional[int] = None,
+        num_bands: Optional[int] = None,
+        rows_per_band: Optional[int] = None,
+        similarity_threshold: Optional[float] = None,
+        seed: Optional[int] = None,
+        hash_family: Optional[str] = None,
+    ) -> None:
+        """Retune the index in place: rebuild every stored signature from
+        the resident payload under a new banding, threshold, seed or hash
+        family, with no re-ingestion (`DeviceStore.rehash`).
+
+        Args:
+            num_perm / similarity_threshold: auto-tune the new banding with
+                `get_optimal_config` (defaults: the current values); or pass
+                ``num_bands`` and ``rows_per_band`` together.
+            seed / hash_family: draw new projections. A learned matrix is
+                data, not a seed: it can be re-banded within its
+                ``num_perm`` but not drawn (see :meth:`retrain`).
+
+        Requires ``store_vectors=True``. Deleted entries stay deleted.
+        Signatures derive from the payload at its stored precision: equal
+        to a fresh build for a float32 payload. Serving closures taken
+        before raise as stale (``auto_refresh`` ones take a new snapshot).
+        """
+        if not self._store_vectors:
+            raise RuntimeError(
+                "rehash requires store_vectors=True: signatures are "
+                "rebuilt from the resident payload"
+            )
+        if (num_bands is None) != (rows_per_band is None):
+            raise ValueError("provide both num_bands and rows_per_band, or neither")
+        self.flush()
+        cfg = self._config
+        threshold = (
+            cfg["similarity_threshold"] if similarity_threshold is None else similarity_threshold
+        )
+        if num_bands is None:
+            new_perm = cfg["num_perm"] if num_perm is None else num_perm
+            num_bands, rows_per_band = get_optimal_config(new_perm, threshold)
+        new_perm = num_bands * rows_per_band
+        if num_perm is not None and num_perm != new_perm:
+            raise ValueError(
+                "num_bands * rows_per_band must equal num_perm "
+                f"(received {num_bands} * {rows_per_band} != {num_perm})"
+            )
+        seed = cfg["seed"] if seed is None else seed
+        if hash_family is None:
+            hash_family = self._tpu_config["hash_family"]
+        if hash_family not in ("gaussian", "structured", "learned", "crosspolytope"):
+            raise ValueError(
+                "hash_family must be 'gaussian', 'structured', 'learned' "
+                "or 'crosspolytope'"
+            )
+        if (hash_family == "crosspolytope") != (
+            self._tpu_config["hash_family"] == "crosspolytope"
+        ) and (self._storage.enable_hamming or self._engine == "hamming"):
+            raise ValueError(
+                "cannot rehash across the cross-polytope boundary while "
+                "Hamming ranking is enabled: construct the index with "
+                "engine='collision' and enable_hamming=False first"
+            )
+        max_probes = (
+            1 << (rows_per_band - 1) if hash_family == "crosspolytope" else rows_per_band
+        )
+        if self._multiprobe > max_probes:
+            bound = "cp_dims" if hash_family == "crosspolytope" else "rows_per_band"
+            raise ValueError(
+                f"multiprobe must be <= {bound} "
+                f"(= {max_probes}); received {self._multiprobe}"
+            )
+        projection = None
+        if hash_family == "learned":
+            if (
+                self._hasher.hash_family != "learned"
+                or self._hasher.projection_matrix.shape[0] != new_perm
+            ):
+                raise ValueError(
+                    "rehash cannot draw a learned projection; use "
+                    "retrain(sample) to fit one (or rehash within the "
+                    "current num_perm to re-band the existing learned bits)"
+                )
+            projection = self._hasher.projection_matrix
+        hasher = LSHHasher(
+            num_bands=num_bands,
+            rows_per_band=rows_per_band,
+            dim=self._hash_dim,
+            seed=seed,
+            hash_family=hash_family,
+            projection=projection,
+            device=self._hasher.device,
+        )
+        self._rebuild_store_signatures(hasher, num_bands, rows_per_band)
+        cfg.update(
+            num_perm=new_perm,
+            num_bands=num_bands,
+            rows_per_band=rows_per_band,
+            similarity_threshold=threshold,
+            seed=seed,
+        )
+        self._tpu_config["hash_family"] = hash_family
+
+    def _rebuild_store_signatures(
+        self, hasher: LSHHasher, num_bands: int, rows_per_band: int
+    ) -> None:
+        """Rebuild every stored signature under ``hasher`` and adopt it.
+
+        The device hash (and the structured and cross-polytope families,
+        bit-identical on host and device) rebuild on the device from the
+        payload. ``hash_mode="host"`` with a matmul family goes through
+        the host instead, so that stored and query signatures keep one
+        hash path: the payload round-trips through `state_arrays`."""
+        store = self._storage
+        if self._hash_on_device or hasher.hash_family in ("structured", "crosspolytope"):
+            store.rehash(
+                hasher.device_projection(),
+                num_bands=num_bands,
+                rows_per_band=rows_per_band,
+                hash_family=hasher.hash_family,
+            )
+        else:
+            snap = store.state_arrays()
+            ids = np.asarray(snap["ids"], dtype=np.int64)
+            alive = ids >= 0
+            vec = np.asarray(snap["payload"], dtype=np.float32)[alive]
+            store._reset_banding(num_bands, rows_per_band)
+            if len(vec):
+                store.add_signature_batch(ids[alive], hasher.hash_batch_words_host(vec), vec)
+        self._hasher = hasher
+
+    def retrain(
+        self,
+        sample: Optional[np.ndarray] = None,
+        *,
+        iters: int = 64,
+        sample_cap: int = 131072,
+        seed: Optional[int] = None,
+    ) -> dict[str, Any]:
+        """Fit data-dependent hyperplanes (ITQ, `lshrs_tpu_torch.hash.itq`)
+        and rebuild the index's signatures under them, in place.
+
+        Args:
+            sample: ``(n, dim)`` vectors to fit on (augmented like ingest
+                under ``similarity="dot"``). Default: up to ``sample_cap``
+                resident payload rows (`DeviceStore.sample_payload_rows`).
+            iters: ITQ alternations.
+            sample_cap: fit on at most this many rows (evenly strided).
+            seed: rotation and padding seed (default: the current seed).
+
+        Returns the fit's diagnostics (`fit_itq_projection`). Keeps the
+        banding (:meth:`rehash` re-bands the learned matrix afterwards).
+        Requires ``store_vectors=True``; serving closures taken before
+        raise as stale.
+        """
+        if not self._store_vectors:
+            raise RuntimeError(
+                "retrain requires store_vectors=True: signatures are "
+                "rebuilt from the resident payload"
+            )
+        self.flush()
+        cfg = self._config
+        if sample is None:
+            rows = self._storage.sample_payload_rows(sample_cap)
+            if rows.shape[0] < 2:
+                raise RuntimeError(
+                    "retrain needs at least 2 indexed vectors to fit on "
+                    "(or pass an explicit sample)"
+                )
+        else:
+            arr = np.asarray(sample, dtype=np.float32)
+            if arr.ndim != 2 or arr.shape[1] != self._dim:
+                raise ValueError(
+                    f"sample must have shape (n, {self._dim}); received {tuple(arr.shape)}"
+                )
+            rows = self._augment_data(arr)
+        if rows.shape[0] > sample_cap:
+            rows = rows[(np.arange(sample_cap) * (rows.shape[0] / sample_cap)).astype(np.int64)]
+        seed = cfg["seed"] if seed is None else seed
+        proj, info = fit_itq_projection(
+            rows, cfg["num_perm"], iters=iters, seed=seed, return_info=True
+        )
+        hasher = LSHHasher(
+            num_bands=cfg["num_bands"],
+            rows_per_band=cfg["rows_per_band"],
+            dim=self._hash_dim,
+            seed=seed,
+            hash_family="learned",
+            projection=proj,
+            device=self._hasher.device,
+        )
+        self._rebuild_store_signatures(hasher, cfg["num_bands"], cfg["rows_per_band"])
+        cfg["seed"] = seed
+        self._tpu_config["hash_family"] = "learned"
+        return info
 
     def stats(self) -> dict[str, Any]:
         """Configuration snapshot plus counters and store statistics."""
@@ -1251,6 +1523,41 @@ class LSHRS:
         if self._hash_on_device:
             return self._hasher.hash_batch_words(arr)
         return self._hasher.hash_batch_dense_host(arr)
+
+    # MIPS (similarity="dot"): stored vectors gain the coordinate
+    # sqrt(max_norm^2 - |x|^2) (every augmented norm is max_norm), queries a
+    # literal 0, so the cosine of the augmented pair is (q . x) / (|q| *
+    # max_norm): inner-product order under every cosine stage (hashing,
+    # collision counts, Hamming, asymmetric, rerank). `_score_scale` maps
+    # the scores back to inner products.
+
+    def _augment_data(self, arr: np.ndarray) -> np.ndarray:
+        if self._similarity != "dot":
+            return arr
+        m2 = self._max_norm * self._max_norm
+        n2 = np.einsum("ij,ij->i", arr.astype(np.float64), arr.astype(np.float64))
+        if np.any(n2 > m2 * (1.0 + 1e-5)):
+            raise ValueError(
+                f"vector norm exceeds max_norm={self._max_norm}: the MIPS "
+                "augmentation requires every stored vector inside the "
+                "declared norm bound (re-create the index with a larger "
+                "max_norm)"
+            )
+        aug = np.sqrt(np.maximum(m2 - n2, 0.0)).astype(np.float32)
+        return np.concatenate([arr, aug[:, None]], axis=1)
+
+    def _augment_query(self, arr: np.ndarray) -> np.ndarray:
+        if self._similarity != "dot":
+            return arr
+        return np.concatenate([arr, np.zeros((arr.shape[0], 1), np.float32)], axis=1)
+
+    def _score_scale(self, q_aug: np.ndarray) -> np.ndarray:
+        """Per-query factor from augmented cosines to the public score: 1
+        for cosine, ``|q| * max_norm`` for dot (the augmented query's norm
+        is the original's: its extra coordinate is 0)."""
+        if self._similarity != "dot":
+            return np.ones(q_aug.shape[0], np.float64)
+        return np.linalg.norm(q_aug, axis=1).astype(np.float64) * self._max_norm
 
     def _require_vector_fetch_fn(self) -> VectorFetchFn:
         if self._vector_fetch_fn is None:

@@ -3,9 +3,9 @@
 Seeded random hyperplanes are data-oblivious by design. With a sample of
 the indexed distribution one can do better: fit the hyperplanes to it, so
 the binary codes preserve more of the neighborhood structure per bit.
-Host-only NumPy, the reference package's fit line for line (`LSHRS.retrain`
-/ `rehash`, which rebuild a store's signatures from a fitted matrix, are
-not part of this package yet: ROADMAP Queue A).
+Host-only NumPy, the reference package's fit line for line;
+`LSHRS.retrain` fits on sampled payload rows and rebuilds the store's
+signatures under the fitted matrix.
 
 Method (Gong & Lazebnik's iterative quantization). The HASH stays
 LINEAR — ``bit = sign(x . w)`` with no offset — so every existing

@@ -22,7 +22,9 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
 Words are int32 bit-views of the uint32 signature words (see
 `lshrs_tpu_torch.ops.bitpack`).
 
-Query engines: grouped collision counting (kernel B1) and grouped
+Query engines: grouped collision counting (kernel B1), the bucketed
+engine (``query_mode="bucket"``: sorted band keys and a binary search,
+`lshrs_tpu_torch.ops.bucketed`, plain torch) and grouped
 Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
 themselves (kernel B3), all exact against the reference ordering;
 asymmetric ranking of quantised query coordinates against the bitplanes
@@ -41,7 +43,10 @@ Queue A item 8: the chunked fallback or int64 keys).
 
 Mutation model: appends write the tail in place; re-ingesting an id
 overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
-until `DeviceStore.compact` rebuilds the dense prefix. Capacity grows
+until `DeviceStore.compact` rebuilds the dense prefix; `DeviceStore.rehash`
+rebuilds every signature from the resident payload under a new banding or
+hash. Every mutation drops the derived state (refine table, bitplanes,
+bucket index) and bumps the generation. Capacity grows
 exactly as the reference's does — each batch reserves ``next_pow2(n)``
 slots and capacity at least doubles when they do not fit — because
 capacity sets the key scale and the engine switch of
@@ -59,6 +64,7 @@ import torch
 from lshrs_tpu_torch.hash.hasher import hash_words
 from lshrs_tpu_torch.ops.bitpack import (
     as_words,
+    band_bytes_to_words,
     bytes_per_band,
     dense_to_words,
     narrow_refine_r,
@@ -73,6 +79,7 @@ from lshrs_tpu_torch.ops.asymmetric import (
     asymmetric_topk_core,
     unpack_coords_int4,
 )
+from lshrs_tpu_torch.ops.bucketed import bucketed_topk, build_bucket_index
 from lshrs_tpu_torch.ops.hamming import (
     cascade_slice_queries,
     hamming_topk_cascade_core,
@@ -137,6 +144,12 @@ def _cast_payload_rows(
     return rows, torch.linalg.vector_norm(rows.to(torch.float32), dim=1), scale
 
 
+def _band_bucket(band_words_t: torch.Tensor, ids: torch.Tensor, q_band: torch.Tensor) -> torch.Tensor:
+    """Slots whose band words ``(W, C)`` equal ``q_band`` ``(W,)`` and are
+    alive, ``(C,)`` bool."""
+    return (band_words_t == q_band[:, None]).all(dim=0) & (ids >= 0)
+
+
 class DeviceStore(BaseStorage):
     """Device-resident LSH signature store with fused query kernels.
 
@@ -182,11 +195,15 @@ class DeviceStore(BaseStorage):
             or ``"auto"`` (the reference's cost model, see
             :meth:`_resolve_rerank_engine`).
         rerank_candidates: per-query candidate budget of the gather engine.
+        query_mode: ``"scan"`` (default: the grouped scans above) or
+            ``"bucket"`` (collision top-k through sorted band keys and a
+            binary search, `lshrs_tpu_torch.ops.bucketed`; multi-probe,
+            filtered and past-`supports_fast_path` queries take the scan).
+        bucket_cap: the bucketed engine's window per (query, band); longer
+            bucket runs are truncated and counted
+            (``stats()["bucket_overflows"]``).
         device: where the store's tensors live (``"cuda"`` by default; the
             CPU runs the kernels' plain PyTorch versions).
-
-    ``query_mode="bucket"`` is accepted only at its default (ROADMAP
-    Queue A item 4: the bucketed engine).
     """
 
     supports_signature_batches = True
@@ -203,6 +220,7 @@ class DeviceStore(BaseStorage):
         group_size: int = 64,
         dedupe: bool = True,
         query_mode: str = "scan",
+        bucket_cap: int = 128,
         enable_hamming: bool = False,
         hamming_storage: str = "planes",
         hamming_cascade: int = 0,
@@ -224,8 +242,10 @@ class DeviceStore(BaseStorage):
             raise ValueError("dim is required when store_vectors=True")
         if group_size <= 0 or group_size & (group_size - 1):
             raise ValueError("group_size must be a power of two")
-        if query_mode != "scan":
-            raise _not_ported(f"query_mode={query_mode!r} (the bucketed engine)", 4)
+        if query_mode not in ("scan", "bucket"):
+            raise ValueError("query_mode must be 'scan' or 'bucket'")
+        if bucket_cap <= 0:
+            raise ValueError("bucket_cap must be greater than zero")
         if hamming_storage not in ("planes", "packed"):
             raise ValueError("hamming_storage must be 'planes' or 'packed'")
         if hamming_cascade:
@@ -254,6 +274,9 @@ class DeviceStore(BaseStorage):
         self.chunk = chunk_size
         self.group = group_size
         self.dedupe = dedupe
+        self.query_mode = query_mode
+        self.bucket_cap = bucket_cap
+        self._bucket_overflows = 0
         self.enable_hamming = enable_hamming
         self.hamming_storage = hamming_storage
         self.hamming_cascade = hamming_cascade
@@ -274,6 +297,10 @@ class DeviceStore(BaseStorage):
         # (writes land in place, so a stale closure would see new data).
         self._generation = 0
         self._lock = threading.RLock()
+        # Bucket-level ingestion stages index -> {band_id: bytes} until all
+        # of a vector's bands have arrived (the signature-batch path never
+        # stages).
+        self._pending_ops: dict[int, dict[int, bytes]] = {}
 
     def _alloc(self, cap: int) -> None:
         dev = self.device
@@ -284,6 +311,8 @@ class DeviceStore(BaseStorage):
         self._ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
+        # Sorted per-band bucket index (query_mode="bucket"), lazy.
+        self._bucket_index: tuple[torch.Tensor, torch.Tensor] | None = None
         # Bitplanes are LAZY: built from the packed words on the first
         # Hamming use, then kept current by appends and overwrites. A
         # packed store never builds them.
@@ -374,6 +403,7 @@ class DeviceStore(BaseStorage):
         """Mark selection keys stale after a mutation (recomputed lazily)."""
         self._ranks_dirty = True
         self._refine = None
+        self._bucket_index = None
         self._generation += 1
 
     def _ensure_ranks(self) -> None:
@@ -627,6 +657,7 @@ class DeviceStore(BaseStorage):
             self._planes[idx] = self._planes_rows(words)
         self._write_payload(idx, vecs)
         self._refine = None
+        self._bucket_index = None  # the slots' band keys changed
         self._generation += 1
         # ids unchanged -> tie keys unchanged.
 
@@ -747,8 +778,37 @@ class DeviceStore(BaseStorage):
             return self._ids, self._tie
         return as_filter(where).device_state(self)
 
-    def _query_topk_dev(self, qw: torch.Tensor, k: int, probes: int = 1, where=None):
-        """Device-resident collision top-k (call under the lock)."""
+    def _query_topk_dev(
+        self, qw: torch.Tensor, k: int, probes: int = 1, where=None, *, bucket: bool = True
+    ):
+        """Device-resident collision top-k (call under the lock).
+
+        ``query_mode="bucket"`` answers through the bucket index, except for
+        multi-probe queries (the index holds exact band keys), filtered
+        ones (it bakes in the unfiltered tie column), stores past
+        `supports_fast_path` (its key packs into int32) and ``bucket=False``
+        (serving closures, as the reference's snapshot closes over the scan
+        state only): those take the scan (kernel B1)."""
+        if (
+            bucket
+            and self.query_mode == "bucket"
+            and probes == 1
+            and where is None
+            and supports_fast_path(self.num_bands, self._capacity)
+        ):
+            self._ensure_ranks()
+            if self._bucket_index is None:
+                self._bucket_index = build_bucket_index(
+                    self._sig_t, self._ids, num_bands=self.num_bands
+                )
+            counts, ids, overflows = bucketed_topk(
+                self._sig_t, self._ids, self._tie, *self._bucket_index, qw,
+                num_bands=self.num_bands,
+                k=max(1, min(k, self._capacity)),
+                bucket_cap=min(self.bucket_cap, self._capacity),
+            )
+            self._bucket_overflows += int(overflows)
+            return counts, ids
         if not self._use_grouped():
             raise _not_ported(
                 f"collision ranking at {self.num_bands} bands x "
@@ -1014,7 +1074,10 @@ class DeviceStore(BaseStorage):
         """Serving closure over the CURRENT contents.
 
         Mutating the store invalidates the snapshot: a stale closure raises
-        ``RuntimeError`` (take a new snapshot after ingesting).
+        ``RuntimeError`` (take a new snapshot after ingesting). Collision
+        mode serves through the scan under ``query_mode="bucket"`` too, as
+        the reference's closure does (equal results whenever no bucket run
+        overflows).
 
         Args:
             k: result depth.
@@ -1085,7 +1148,7 @@ class DeviceStore(BaseStorage):
                 qw = self._wire_words(q, wire, probes)
                 if mode == "hamming":
                     return self._query_hamming_dev(qw, k, where)[1]
-                return self._query_topk_dev(qw, k, probes, where)[1]
+                return self._query_topk_dev(qw, k, probes, where, bucket=False)[1]
 
         return serve
 
@@ -1376,18 +1439,76 @@ class DeviceStore(BaseStorage):
                 rows = rows * self._pscale[slots][:, None]
         return rows.cpu().numpy()
 
+    def sample_payload_rows(self, cap: int) -> np.ndarray:
+        """Up to ``cap`` alive payload rows, float32 on the host (int8 rows
+        dequantized by their scale): evenly strided over the live slots
+        and gathered on the device, so the readback is ``cap`` rows plus
+        the id column whatever the capacity. `LSHRS.retrain` fits on it."""
+        if cap <= 0:
+            raise ValueError("cap must be > 0")
+        with self._lock:
+            if self._payload is None:
+                raise RuntimeError("sample_payload_rows requires store_vectors=True")
+            ids = self._ids[: self._size].cpu().numpy()
+            alive = np.flatnonzero(ids >= 0)
+            if alive.size > cap:
+                alive = alive[(np.arange(cap) * (alive.size / cap)).astype(np.int64)]
+            slots = torch.as_tensor(alive, dtype=torch.int64, device=self.device)
+            rows = self._payload[slots].to(torch.float32)
+            if self._pscale is not None:
+                rows = rows * self._pscale[slots][:, None]
+            return rows.cpu().numpy()
+
     # ------------------------------------------------------------------
     # bucket-level API and maintenance
     # ------------------------------------------------------------------
 
     def batch_add(self, operations: Sequence[BucketOperation]) -> None:
-        raise _not_ported("bucket-level ingestion on the device store", 4)
+        """Bucket-op ingestion: stages per-band ops until a vector's band
+        set is complete, then appends the assembled signature row."""
+        if not operations:
+            return
+        ready_ids: list[int] = []
+        ready_words: list[np.ndarray] = []
+        with self._lock:
+            for band_id, hash_val, index in operations:
+                bands = self._pending_ops.setdefault(int(index), {})
+                bands[int(band_id)] = bytes(hash_val)
+                if len(bands) == self.num_bands:
+                    ready_ids.append(int(index))
+                    ready_words.append(band_bytes_to_words(
+                        tuple(bands[b] for b in range(self.num_bands)),
+                        rows_per_band=self.rows_per_band,
+                    ))
+                    del self._pending_ops[int(index)]
+        if ready_ids:
+            if self.store_vectors:
+                raise RuntimeError(
+                    "bucket-level batch_add cannot carry payload vectors; "
+                    "use add_signature_batch with store_vectors=True"
+                )
+            self.add_signature_batch(ready_ids, np.stack(ready_words))
 
     def add_to_bucket(self, band_id: int, hash_val: bytes, index: int) -> None:
-        raise _not_ported("bucket-level ingestion on the device store", 4)
+        self.batch_add([(band_id, hash_val, index)])
 
     def get_bucket(self, band_id: int, hash_val: bytes) -> set[int]:
-        raise _not_ported("bucket reads on the device store", 4)
+        """Enumerate one implicit band bucket: the alive ids whose band
+        ``band_id`` words equal ``hash_val`` (a compare over the band on
+        the device)."""
+        if not 0 <= band_id < self.num_bands:
+            raise ValueError(f"band_id must be in [0, {self.num_bands})")
+        with self._lock:
+            if self._size == 0:
+                return set()
+            w = self.words // self.num_bands
+            q_band = band_bytes_to_words((bytes(hash_val),), rows_per_band=self.rows_per_band)
+            match = _band_bucket(
+                self._sig_t[band_id * w : (band_id + 1) * w], self._ids,
+                as_words(q_band, self.device),
+            )
+            ids = self._ids[match]
+        return set(ids.cpu().numpy().tolist())
 
     def remove_indices(self, indices: Iterable[int]) -> None:
         """Tombstone the slots holding ``indices`` (their id becomes -1).
@@ -1401,6 +1522,8 @@ class DeviceStore(BaseStorage):
         if not to_remove:
             return
         with self._lock:
+            for i in to_remove:
+                self._pending_ops.pop(i, None)
             if self._slot_of is not None:
                 slots = [self._slot_of.pop(i) for i in to_remove if i in self._slot_of]
                 if not slots:
@@ -1431,7 +1554,7 @@ class DeviceStore(BaseStorage):
         """Drop the device tensors (the store is unusable afterwards)."""
         with self._lock:
             self._sig_t = self._sig_rows = self._ids = self._tie = None
-            self._planes = self._refine = None
+            self._planes = self._refine = self._bucket_index = None
             self._payload = self._pnorm = self._pscale = None
 
     def clear(self) -> None:
@@ -1442,6 +1565,100 @@ class DeviceStore(BaseStorage):
             self._generation += 1
             if self._slot_of is not None:
                 self._slot_of.clear()
+            self._pending_ops.clear()
+
+    # ------------------------------------------------------------------
+    # retuning: a new banding or hash, rebuilt from the resident payload
+    # ------------------------------------------------------------------
+
+    def _check_banding(self, num_bands: int, rows_per_band: int) -> None:
+        if (num_bands + 1) * self.chunk >= 2**31:
+            raise ValueError("num_bands * chunk_size too large for exact top-k keys")
+        if self.hamming_cascade and not self.hamming_cascade < num_bands * rows_per_band:
+            raise ValueError(
+                f"hamming_cascade={self.hamming_cascade} must stay below num_perm "
+                f"(= {num_bands * rows_per_band}) after a rehash"
+            )
+
+    def _set_banding(self, num_bands: int, rows_per_band: int) -> None:
+        """Adopt a new banding scheme (callers rebuild the signatures)."""
+        self._check_banding(num_bands, rows_per_band)
+        self.num_bands = num_bands
+        self.rows_per_band = rows_per_band
+        self.words = num_bands * words_per_band(rows_per_band)
+        self._refine_narrow_r = narrow_refine_r(rows_per_band)
+
+    def _reset_banding(self, num_bands: int, rows_per_band: int) -> None:
+        """Re-allocate empty state under a new banding (the host-hash
+        rehash path of `LSHRS` re-appends the payload afterwards)."""
+        with self._lock:
+            self._set_banding(num_bands, rows_per_band)
+            self.clear()
+
+    def rehash(
+        self,
+        proj_t,
+        *,
+        num_bands: int,
+        rows_per_band: int,
+        hash_family: str = "gaussian",
+        block_slots: int = 1 << 17,
+    ) -> None:
+        """Rebuild every stored signature from the resident payload under
+        a new banding, seed or hash family, on the device: no vector is
+        re-streamed.
+
+        Args:
+            proj_t: the new hasher's device operand
+                (`LSHHasher.device_projection`): a ``(dim, num_perm)``
+                matrix, or the structured / cross-polytope diagonals.
+            num_bands / rows_per_band: the new banding.
+            hash_family: the family of ``proj_t``.
+            block_slots: rows hashed per step (the largest power of two
+                dividing the capacity, at most this; cross-polytope steps
+                keep their rotated coordinates near 2 GiB).
+
+        Signatures derive from the payload at its stored precision: exact
+        for a float32 payload (equal to a fresh build); int8 rows hash as
+        their raw integers (a positive per-row scale changes no sign), bf16
+        rows upcast. Ids, payload, tombstones and the id -> slot map stay;
+        the bitplanes, the refine table and the bucket index are dropped
+        and rebuilt lazily, and the generation moves on, so serving
+        closures taken before raise as stale.
+        """
+        with self._lock:
+            if self._payload is None:
+                raise RuntimeError(
+                    "rehash requires store_vectors=True: signatures are "
+                    "rebuilt from the resident payload"
+                )
+            self._check_banding(num_bands, rows_per_band)
+            cap = self._capacity
+            if hash_family == "crosspolytope":
+                dpad = 1 << (int(self.dim) - 1).bit_length()
+                block_slots = min(block_slots, max(4096, (1 << 29) // max(1, num_bands * dpad)))
+            step = min(_next_pow2(block_slots), cap)
+            while cap % step:
+                step //= 2
+            proj_t = torch.as_tensor(proj_t, dtype=torch.float32).to(self.device)
+            words = num_bands * words_per_band(rows_per_band)
+            sig_rows = torch.empty((cap, words), dtype=torch.int32, device=self.device)
+            for off in range(0, cap, step):
+                sig_rows[off : off + step] = hash_words(
+                    self._payload[off : off + step].to(torch.float32), proj_t,
+                    num_bands=num_bands, rows_per_band=rows_per_band, hash_family=hash_family,
+                )
+            self._set_banding(num_bands, rows_per_band)
+            self._finish_rehash(sig_rows)
+
+    def _finish_rehash(self, sig_rows: torch.Tensor) -> None:
+        """Install rebuilt signature rows and drop what derives from the
+        old ones: the bitplanes (full or the cascade's prefix), the refine
+        table, the bucket index; the tie keys are recomputed."""
+        self._sig_rows = sig_rows
+        self._sig_t = sig_rows.T.contiguous()
+        self._planes = None
+        self._refresh_ranks()
 
     # ------------------------------------------------------------------
     # introspection / persistence
@@ -1459,10 +1676,12 @@ class DeviceStore(BaseStorage):
             "tombstones": self._tombstones,
             "capacity": self._capacity,
             "chunk_size": self.chunk,
+            "query_mode": self.query_mode,
             "hamming_storage": self.hamming_storage if self.enable_hamming else None,
             "hamming_cascade": self.hamming_cascade or None,
             # The bytes held, padding columns included.
             "hamming_plane_bytes": self._planes.numel() if self._planes is not None else 0,
+            "bucket_overflows": self._bucket_overflows,
             "fast_path": self._use_grouped(),
             "signature_bytes": self._capacity * self.words * 4,
             # Payload rows plus, for int8, the 4-byte per-row scale.

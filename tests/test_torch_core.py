@@ -116,11 +116,6 @@ UNPORTED_ARGUMENTS = [
     (dict(redis_max_connections=8), 6),
     (dict(decode_responses=True), 6),
     (dict(shards=2), 7),
-    (dict(query_mode="bucket"), 4),
-    (dict(bucket_cap=64), 4),
-    (dict(similarity="dot"), 6),
-    (dict(similarity="dot", max_norm=5.0), 6),
-    (dict(max_norm=5.0), 6),
 ]
 
 
@@ -130,6 +125,8 @@ def test_unported_paths_raise(rng):
             TorchLSHRS(dim=8, device="cpu", **kw)
     with pytest.raises(ValueError, match="query_mode"):
         TorchLSHRS(dim=8, query_mode="sorted", device="cpu")
+    with pytest.raises(ValueError, match="max_norm"):
+        TorchLSHRS(dim=8, similarity="dot", device="cpu")
     with pytest.raises(ValueError, match="multiprobe must be <= rows_per_band"):
         TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, multiprobe=5, device="cpu")
     with pytest.raises(ValueError, match="hash_family"):
@@ -138,10 +135,14 @@ def test_unported_paths_raise(rng):
                     device="cpu")
     x = rng.standard_normal(8).astype(np.float32)
     tl.index([0], x[None, :])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tl.serving_fn(top_k=3, auto_refresh=True)
-    # Options ported since: filters and asymmetric serving answer instead
-    # of raising.
+    # Options ported since answer instead of raising: filters, asymmetric
+    # serving, auto-refreshing serving, the bucketed engine and MIPS.
+    assert tl.serving_fn(top_k=3, auto_refresh=True)(x[None, :])[0, 0] == 0
+    for kw in (dict(query_mode="bucket", bucket_cap=64), dict(similarity="dot", max_norm=5.0),
+               dict(max_norm=5.0)):
+        other = TorchLSHRS(dim=8, num_perm=16, num_bands=4, rows_per_band=4, device="cpu", **kw)
+        other.index([0], x[None, :] / np.linalg.norm(x))
+        assert other.query(x, top_k=3) == [0]
     assert tl.serving_fn(top_k=3, mode="asymmetric")(x[None, :])[0, 0] == 0
     assert tl.serving_fn(top_k=3, mode="asymmetric", coords_wire="int4")(x[None, :])[0, 0] == 0
     assert tl.query(x, where=[0]) == [0] and tl.query(x, where=[1]) == []

@@ -516,3 +516,55 @@ def test_cascade_lshrs_on_the_gpu_matches_the_cpu(dev, rng):
     f = IdFilter(allowed_ids=np.arange(0, 6000, 4))
     assert gpu.query_hamming_batch(Q, top_k=5, where=f) == cpu.query_hamming_batch(Q, top_k=5,
                                                                                      where=f)
+
+
+@pytest.mark.parametrize("payload_dtype", ["float32", "int8"])
+def test_structured_rehash_on_the_gpu_matches_the_cpu(payload_dtype, dev, rng):
+    """A structured rehash on the card (16 x 16 -> 32 x 8) rebuilds the
+    CPU copy's words bit for bit (the FWHT order is fixed), then serves
+    the same top-k through B1 at 32 band words and the same top-p."""
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_family="structured",
+              seed=3, engine="collision", store_vectors=True, payload_dtype=payload_dtype)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(5000), X)
+        lsh.delete(list(range(0, 5000, 45)))
+        lsh.rehash(num_bands=32, rows_per_band=8, seed=11)
+    assert torch.equal(gpu._storage._sig_rows.cpu(), cpu._storage._sig_rows)
+    Q = X[:300] + 0.3 * rng.standard_normal((300, 64)).astype(np.float32)
+    gm.group_max_keys.launches_by_shape.clear()
+    out = gpu.serving_fn(top_k=10)(Q)
+    assert gm.group_max_keys.launches_by_shape.get((32, 1), 0) == 1
+    np.testing.assert_array_equal(out, cpu.serving_fn(top_k=10)(Q))
+    ti, ts, tn = gpu.serving_fn(top_k=10, mode="topp")(Q)
+    ci, cs, cn = cpu.serving_fn(top_k=10, mode="topp")(Q)
+    np.testing.assert_array_equal(tn, cn)
+    np.testing.assert_allclose(ts, cs, atol=1e-5)
+    assert (ti == ci).mean() > 0.99  # swaps only between cosines within 1e-5
+
+
+def test_bucketed_lshrs_on_the_gpu_matches_the_cpu(dev, rng):
+    """query_mode="bucket" on the card: ids, counts and overflow counts of
+    a CPU copy, a truncating bucket_cap included; the scan (B1) answers
+    the serving closure and filtered queries."""
+    from lshrs_tpu_torch import IdFilter
+
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode="host", seed=9,
+              engine="collision", query_mode="bucket", bucket_cap=4)
+    gpu, cpu = LSHRS(device=dev, **kw), LSHRS(device="cpu", **kw)
+    X = rng.standard_normal((6000, 64)).astype(np.float32)
+    X[5000:] = X[:1000]  # duplicates make runs past the window
+    for lsh in (gpu, cpu):
+        lsh.index(np.arange(6000), X)
+        lsh.delete(list(range(0, 6000, 35)))
+    Q = np.concatenate([X[:300], rng.standard_normal((300, 64)).astype(np.float32)])
+    before = gm.group_max_keys.launches
+    assert gpu.query_batch(Q, top_k=10) == cpu.query_batch(Q, top_k=10)
+    assert gm.group_max_keys.launches == before  # the bucket engine runs no kernel
+    g, c = gpu.stats()["index"], cpu.stats()["index"]
+    assert g["bucket_overflows"] == c["bucket_overflows"] > 0
+    np.testing.assert_array_equal(gpu.serving_fn(top_k=10)(Q), cpu.serving_fn(top_k=10)(Q))
+    assert gm.group_max_keys.launches == before + 1
+    f = IdFilter(allowed_ids=np.arange(0, 6000, 3))
+    assert gpu.query_batch(Q, top_k=5, where=f) == cpu.query_batch(Q, top_k=5, where=f)

@@ -160,9 +160,37 @@ def test_empty_store_and_unported_options(hasher, rng):
     assert (c == 0).all() and (i == -1).all()
     with pytest.raises(RuntimeError, match="non-empty"):
         ts.snapshot_query_fn(3, mode="asymmetric")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TorchStore(query_mode="bucket", device="cpu", **KW)
+    bucket = TorchStore(query_mode="bucket", device="cpu", **KW)  # ported: answers
+    c, i = bucket.query_topk(q, 3)
+    assert (c == 0).all() and (i == -1).all() and bucket.get_bucket(0, b"\x00") == set()
+    with pytest.raises(ValueError, match="query_mode"):
+        TorchStore(query_mode="sorted", device="cpu", **KW)
     with pytest.raises(ValueError, match="hamming_storage"):
         TorchStore(hamming_storage="sparse", device="cpu", **KW)
     ts.remove_indices([1])  # an absent id: nothing to tombstone
     assert len(ts) == 0 and ts.stats()["tombstones"] == 0 and ts.compact() == 0
+
+
+def test_stats_keys_match_the_reference(hasher, rng):
+    """Both packages report the same statistics, bucketed engine included.
+    Kept apart on purpose: the port's kernels are CUDA, not Pallas (no
+    ``pallas`` key) and the port names its torch device; the reference's
+    ``redis_prefix`` comes with the Redis backend (ROADMAP Queue A item 6)."""
+    from lshrs_tpu import LSHRS as JaxLSHRS
+    from lshrs_tpu_torch import LSHRS as TorchLSHRS
+
+    js, ts = _pair(enable_hamming=True)
+    jk, tk = set(js.stats()), set(ts.stats())
+    assert jk - tk == {"pallas"} and tk - jk == {"device"}
+    kw = dict(dim=DIM, num_perm=NB * R, num_bands=NB, rows_per_band=R, query_mode="bucket")
+    jl, tl = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
+    X = rng.standard_normal((40, DIM)).astype(np.float32)
+    for lsh in (jl, tl):
+        lsh.index(np.arange(40), X)
+        lsh.query_batch(X[:5], top_k=3)
+    assert set(jl.stats()) - set(tl.stats()) == {"redis_prefix"}
+    assert set(tl.stats()) - set(jl.stats()) == {"device", "hash_family"}
+    ji, ti = jl.stats()["index"], tl.stats()["index"]
+    assert set(ji) - set(ti) == {"pallas"} and set(ti) - set(ji) == {"device"}
+    for key in ("query_mode", "bucket_overflows", "size", "alive", "capacity", "fast_path"):
+        assert ti[key] == ji[key], key

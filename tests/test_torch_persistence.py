@@ -125,8 +125,9 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
 # raise NotImplementedError. A hash family swapped in by hand names a file
 # the checkpoint does not hold (diagonals.npz): FileNotFoundError, never a
 # silent gaussian index (cross-polytope at this banding already fails its
-# geometry check: ValueError). A multi-probe depth and a cascade restore as
-# they are.
+# geometry check: ValueError); so does MIPS switched on by hand, whose
+# hasher works at dim + 1 against the saved dim-wide projections. A
+# multi-probe depth, a cascade and the bucketed engine restore as they are.
 @pytest.mark.parametrize("where,change", [
     ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
@@ -158,9 +159,16 @@ def test_unsupported_checkpoint_capabilities_raise(where, change, tmp_path, rng)
         assert back.stats()["index"]["hamming_cascade"] == 32
         assert back.query_hamming(X[3], top_k=1)[0][0] == 3
         return
+    if "query_mode" in change:  # ported: the bucketed engine restores
+        back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
+        assert back.stats()["index"]["query_mode"] == "bucket"
+        assert back.query(X[3], top_k=1) == [3]
+        return
     expected = {"structured": FileNotFoundError, "crosspolytope": ValueError}.get(
         change.get("hash_family"), NotImplementedError
     )
+    if "similarity" in change:
+        expected = ValueError
     with pytest.raises(expected):
         TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
 
