@@ -144,7 +144,37 @@ then runs these phases and prints JSON lines as it goes:
       delete), then to 32 x 8: B1 at ``(32, 1)``, top-k and top-p == a CPU
       copy on the same words, rehash seconds.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-11
+12. bulk ingestion and the bucket backends (no new kernel: the reference
+    validates, loads, hashes and counts buckets in NumPy and Python; all
+    four use ``LSHRS(dim=768, num_perm=256, num_bands=16,
+    rows_per_band=16)``, top-10):
+    - ingest_1m: phase 4's 2**20 clustered vectors (drawn again from the
+      seed) through ``create_signatures(format="numpy", batch_size=65536,
+      prefetch=2)`` in turns with ``index()`` of the same batches: build
+      seconds and vectors/s, the CPU count and whether the two-stage
+      pipeline ran (observed on its worker), equal ``state_arrays()``,
+      Hamming ranking through B2 with self-match 1.0 and the ids of phase
+      4's index on the same batches, a profiled build (device-busy and
+      upload shares); then ``hash_mode="host"`` (the worker hashes), its
+      words == ``hash_batch_dense_host`` of the batches appended by
+      ``add_signature_batch``;
+    - files_100k: phase 3's 100k vectors in a ``.npy`` and in a ``.npz``
+      with ids ``7*i + 3`` (a temporary directory), loaded by
+      ``create_signatures(format="npy"|"npz")``: each store == ``index()``
+      of the same batches, served ids are the file's, B1, self-match 1.0;
+    - custom_storage_100k: ``LSHRS(storage=DeviceStore(device="cuda"),
+      device="cpu")``: backend "device", the hasher on the store's device,
+      ids == files_100k's;
+    - memory_100k: ``backend="memory"`` through ``create_signatures``
+      against its device twin (``hash_mode="host"``, collision, B1) on 256
+      queries: top-10 and ``top_k=None`` in order, under phase 9's
+      allowlist, with ``multiprobe=2``, top-p through ``vector_fetch_fn``
+      (scores within 1e-6); a 1,000-id delete (none comes back); build
+      seconds and ``query_batch`` QPS of both at Q=1,024.
+    Parquet, Postgres and Redis are not on the card (no pyarrow, psycopg
+    or Redis server there); the CPU tests hold them.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-12
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -164,6 +194,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -789,7 +820,10 @@ def phase_1m(seed: int) -> dict:
     emit("carry_1m", queries=CARRY_QUERIES, equal=equal)
     assert equal, "1M: card and CPU ids differ on the same words"
     queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(4)]
-    return {"lsh": lsh, "serve": serve, "queries": queries, "keep": keep}
+    # Phase 12 rebuilds this index through create_signatures and must
+    # serve these ids for these batches.
+    answers = {name: (q, serve(q)) for name, q in (("stored", keep), ("random", queries[0]))}
+    return {"lsh": lsh, "serve": serve, "queries": queries, "keep": keep, "answers": answers}
 
 
 def _assert_same_topk(name, got, want) -> None:
@@ -2286,6 +2320,299 @@ def phase_mips_100k(t100: dict, seed: int, label: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: bulk ingestion (create_signatures) and the bucket backends
+# ---------------------------------------------------------------------------
+
+INGEST_PREFETCH = 2
+MEMORY_DELETE = 1000
+MEMORY_QPS_BATCH = 1024
+
+
+def lshrs_16x16(**kw):
+    from lshrs_tpu_torch import LSHRS
+
+    kw.setdefault("device", DEVICE)
+    return LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS, **kw)
+
+
+def states_equal(a, b) -> bool:
+    """``state_arrays()`` of two stores equal bit for bit, key for key."""
+    sa, sb = a._storage.state_arrays(), b._storage.state_arrays()
+    return set(sa) == set(sb) and all(np.array_equal(sa[k], sb[k]) for k in sa)
+
+
+def timed_build(build) -> tuple[float, object]:
+    """Seconds of ``build()`` with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def watch_pipeline(lsh) -> list:
+    """Record, for each batch ``lsh`` prepares, whether a thread other than
+    this one prepared it (the pipeline's worker)."""
+    import threading
+
+    main_thread, seen = threading.get_ident(), []
+    prepare = lsh._prepare_index_batch
+
+    def recording(*a):
+        seen.append(threading.get_ident() != main_thread)
+        return prepare(*a)
+
+    lsh._prepare_index_batch = recording
+    return seen
+
+
+def build_profile(build) -> dict:
+    """torch.profiler over one build: wall and device ms, the device-busy
+    share, and the host-to-device upload's share of the device time and of
+    the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s, _ = timed_build(build)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    upload_ms = sum(e.self_device_time_total for e in dev if "HtoD" in e.key) / 1e3
+    dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall_s * 1e3), "upload_ms": upload_ms,
+            "upload_share_of_device": upload_ms / device_ms if device_ms else None,
+            "upload_share_of_wall": upload_ms / (wall_s * 1e3),
+            "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+                    for e in dev[:6]]}
+
+
+def clustered_1m_array(seed: int) -> np.ndarray:
+    """Phase 4's 2**20 clustered vectors as one host array, drawn again
+    from the seed (``clustered_1m``: the same batches, the same values)."""
+    _, _, batches = clustered_1m(seed)
+    X = np.empty((N_1M, DIM), np.float32)
+    for off, xb in batches:
+        X[off : off + INGEST_BATCH] = xb
+    return X
+
+
+def phase_ingest_1m(ref1m: dict, seed: int, label: str) -> dict:
+    """``create_signatures(format="numpy")`` over phase 4's 2**20 clustered
+    vectors in 65,536-row batches, in turns with ``index()`` of the same
+    batches: equal stores, Hamming ranking through B2 with the ids of
+    phase 4's index; a profiled build; then ``hash_mode="host"``, whose
+    words must equal ``hash_batch_dense_host`` of the batches appended by
+    ``add_signature_batch``."""
+    import os
+
+    X = clustered_1m_array(seed)
+    ids = np.arange(N_1M)
+    cpus = len(os.sched_getaffinity(0))
+
+    def create(lsh):
+        lsh.create_signatures(format="numpy", vectors=X, batch_size=INGEST_BATCH,
+                              prefetch=INGEST_PREFETCH)
+        return lsh
+
+    def index(lsh):
+        for off in range(0, N_1M, INGEST_BATCH):
+            lsh.index(ids[off : off + INGEST_BATCH], X[off : off + INGEST_BATCH])
+        return lsh
+
+    builds, kept, pipelined = {}, {}, []
+    for how in ("create_signatures", "index", "index", "create_signatures"):
+        lsh = lshrs_16x16()
+        if how == "create_signatures":
+            pipelined = watch_pipeline(lsh)
+        seconds, lsh = timed_build(lambda: (create if how == "create_signatures" else index)(lsh))
+        builds.setdefault(how, []).append(seconds)
+        kept.setdefault(how, lsh)
+        del lsh
+    equal = states_equal(kept["create_signatures"], kept["index"])
+    del kept["index"]
+    lsh = kept.pop("create_signatures")
+    stats = lsh.stats()
+    serve = lsh.serving_fn(top_k=TOP_K)
+    sm = self_match(serve, [(ids[:QPS_BATCH_1M], X[:QPS_BATCH_1M])], N_1M)
+    same_as_phase4 = {name: bool(np.array_equal(serve(q), want))
+                      for name, (q, want) in ref1m.items()}
+    prof = build_profile(lambda: create(lshrs_16x16()))
+
+    # hash_mode="host": the worker thread hashes on the host.
+    host = lshrs_16x16(hash_mode="host")
+    host_pipelined = watch_pipeline(host)
+    host_s, _ = timed_build(lambda: create(host))
+    plain = lshrs_16x16(hash_mode="host")
+
+    def append_dense():
+        for off in range(0, N_1M, INGEST_BATCH):
+            xb = X[off : off + INGEST_BATCH]
+            plain._storage.add_signature_batch(ids[off : off + INGEST_BATCH],
+                                               plain._hasher.hash_batch_dense_host(xb))
+
+    plain_s, _ = timed_build(append_dense)
+    host_equal = states_equal(host, plain)
+    host_sm = self_match(host.serving_fn(top_k=TOP_K), [(ids[:QPS_BATCH_1M], X[:QPS_BATCH_1M])],
+                         N_1M)
+    out = {"cpus": cpus, "pipeline_ran": bool(pipelined) and all(pipelined),
+           "batches": len(pipelined), "prefetch": INGEST_PREFETCH,
+           "create_signatures_s": builds["create_signatures"], "index_s": builds["index"],
+           "create_signatures_vectors_per_s": [N_1M / s for s in builds["create_signatures"]],
+           "index_vectors_per_s": [N_1M / s for s in builds["index"]],
+           "states_equal": equal, "ranking": stats["ranking"],
+           "engine_resolved": stats["engine_resolved"], "capacity": stats["index"]["capacity"],
+           "self_match": sm, "ids_equal_phase4": same_as_phase4, "profile": prof,
+           "host": {"create_signatures_s": host_s, "vectors_per_s": N_1M / host_s,
+                    "pipeline_ran": bool(host_pipelined) and all(host_pipelined),
+                    "dense_append_s": plain_s, "states_equal": host_equal,
+                    "self_match": host_sm}}
+    emit("ingest_1m", card=label, rows=N_1M, batch=INGEST_BATCH, **out)
+    assert equal and host_equal, (equal, host_equal)
+    assert out["pipeline_ran"] == out["host"]["pipeline_ran"] == (cpus >= 2), out
+    assert stats["ranking"] == "hamming" and stats["index"]["alive"] == N_1M, stats
+    assert sm == 1.0 and host_sm == 1.0, (sm, host_sm)
+    assert all(same_as_phase4.values()), same_as_phase4
+    return out
+
+
+def phase_files_100k(tmp: Path, seed: int, label: str) -> dict:
+    """Phase 3's 100k vectors saved as ``.npy`` (ids 0..n-1) and as
+    ``.npz`` with ids ``7*i + 3``, loaded by ``create_signatures(format=
+    "npy" | "npz", source=path)``: each store equals ``index()`` of the
+    same batches and serves the file's ids through B1, self-match 1.0."""
+    X = np.random.default_rng(seed).standard_normal((N_100K, DIM), dtype=np.float32)
+    files = {"npy": (tmp / "x100k.npy", np.arange(N_100K)),
+             "npz": (tmp / "x100k.npz", 7 * np.arange(N_100K) + 3)}
+    np.save(files["npy"][0], X)
+    np.savez(files["npz"][0], vectors=X, indices=files["npz"][1])
+    out, served = {}, {}
+    batches = [(i, min(i + QPS_BATCH_100K, N_100K)) for i in range(0, N_100K, QPS_BATCH_100K)]
+    for fmt, (path, ids) in files.items():
+        lsh = lshrs_16x16()
+        seconds, _ = timed_build(lambda: lsh.create_signatures(
+            format=fmt, source=path, batch_size=INGEST_BATCH, prefetch=INGEST_PREFETCH))
+        plain = lshrs_16x16()
+        for i in range(0, N_100K, INGEST_BATCH):
+            plain.index(ids[i : i + INGEST_BATCH], X[i : i + INGEST_BATCH])
+        serve = lsh.serving_fn(top_k=TOP_K)
+        hits = 0
+        for lo, hi in batches:
+            got = serve(X[lo:hi])
+            hits += int((got[:, 0] == ids[lo:hi]).sum())
+            served.setdefault(fmt, []).append(got)
+        out[fmt] = {"seconds": seconds, "vectors_per_s": N_100K / seconds,
+                    "states_equal": states_equal(lsh, plain), "self_match": hits / N_100K,
+                    "ids_are_the_files": bool(np.isin(np.concatenate(served[fmt]).ravel(),
+                                                      np.append(ids, -1)).all()),
+                    "ranking": lsh.stats()["ranking"]}
+    emit("files_100k", card=label, rows=N_100K, **out)
+    for fmt, r in out.items():
+        assert r["states_equal"] and r["self_match"] == 1.0 and r["ids_are_the_files"], (fmt, r)
+        assert r["ranking"] == "collision", r
+    return {"X": X, "files": files, "served_npy": np.concatenate(served["npy"])}
+
+
+def phase_custom_storage_100k(f100: dict, label: str) -> None:
+    """``LSHRS(storage=DeviceStore(device="cuda"))``: the store's device
+    wins over ``device=``, and the ids served equal files_100k's."""
+    from lshrs_tpu_torch import DeviceStore
+
+    store = DeviceStore(num_bands=NUM_BANDS, rows_per_band=ROWS, dim=DIM, device=DEVICE)
+    lsh = lshrs_16x16(storage=store, device="cpu")  # the store's device wins
+    path, _ = f100["files"]["npy"]
+    seconds, _ = timed_build(lambda: lsh.create_signatures(format="npy", source=path,
+                                                           batch_size=INGEST_BATCH))
+    serve = lsh.serving_fn(top_k=TOP_K)
+    X = f100["X"]
+    got = np.concatenate([serve(X[i : i + QPS_BATCH_100K])
+                          for i in range(0, N_100K, QPS_BATCH_100K)])
+    stats = lsh.stats()
+    out = {"backend": stats["backend"], "device": stats["device"],
+           "hasher_device": str(lsh._hasher.device), "seconds": seconds,
+           "ids_equal_files_100k": bool(np.array_equal(got, f100["served_npy"]))}
+    emit("custom_storage_100k", card=label, rows=N_100K, **out)
+    assert out["backend"] == "device" and lsh._hasher.device == store.device, out
+    assert store.device == torch.device(DEVICE) and out["ids_equal_files_100k"], out
+
+
+def phase_memory_100k(f100: dict, seed: int, label: str) -> dict:
+    """``backend="memory"`` over the 100k vectors through
+    ``create_signatures``, against its device twin (``hash_mode="host"``,
+    ``engine="collision"``: the same host words, served by B1) on 256
+    queries: top-10 and ``top_k=None``, under phase 9's allowlist, with
+    ``multiprobe=2`` (each a ``storage=`` view of the same stores) and top-p
+    through ``vector_fetch_fn``; then a 1,000-id delete and
+    ``query_batch`` QPS of both at Q=1,024."""
+    X = f100["X"]
+    rng = np.random.default_rng(seed + 17)
+
+    def fetch(idx):
+        return X[np.asarray(idx, dtype=np.int64)]
+
+    mem = lshrs_16x16(backend="memory", vector_fetch_fn=fetch)
+    twin = lshrs_16x16(hash_mode="host", engine="collision", vector_fetch_fn=fetch)
+    build = {}
+    for name, lsh in (("memory", mem), ("twin", twin)):
+        build[name], _ = timed_build(lambda lsh=lsh: lsh.create_signatures(
+            format="numpy", vectors=X, batch_size=INGEST_BATCH, prefetch=INGEST_PREFETCH))
+    mem2 = lshrs_16x16(storage=mem._storage, multiprobe=2)
+    twin2 = lshrs_16x16(storage=twin._storage, hash_mode="host", engine="collision",
+                        multiprobe=2)
+    flt = make_filter(N_100K, rng)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    checks = {"top10": 0, "all": 0, "filtered_top10": 0, "filtered_all": 0,
+              "multiprobe2_top10": 0, "multiprobe2_all": 0, "topp_ids": 0}
+    worst, candidates = 0.0, []
+    for q in qx:
+        checks["top10"] += mem.query(q, top_k=TOP_K) == twin.query(q, top_k=TOP_K)
+        every = mem.query(q, top_k=None)
+        candidates.append(len(every))
+        checks["all"] += every == twin.query(q, top_k=None)
+        checks["filtered_top10"] += (mem.query(q, top_k=TOP_K, where=flt)
+                                     == twin.query(q, top_k=TOP_K, where=flt))
+        checks["filtered_all"] += (mem.query(q, top_k=None, where=flt)
+                                   == twin.query(q, top_k=None, where=flt))
+        checks["multiprobe2_top10"] += (mem2.query(q, top_k=TOP_K)
+                                        == twin2.query(q, top_k=TOP_K))
+        checks["multiprobe2_all"] += mem2.query(q, top_k=None) == twin2.query(q, top_k=None)
+        a, b = mem.query(q, top_p=0.5), twin.query(q, top_p=0.5)
+        checks["topp_ids"] += [i for i, _ in a] == [i for i, _ in b]
+        if a and len(a) == len(b):
+            worst = max(worst, float(np.abs(np.subtract([s for _, s in a],
+                                                        [s for _, s in b])).max()))
+    gone = rng.choice(N_100K, MEMORY_DELETE, replace=False)
+    mem.delete(gone.tolist())
+    twin.delete(gone.tolist())
+    probe = np.concatenate([X[gone[:CARRY_QUERIES]], qx])
+    returned = equal_after = 0
+    for q in probe:
+        a, b = mem.query(q, top_k=None), twin.query(q, top_k=None)
+        returned += len(set(a) & set(gone.tolist())) + len(set(b) & set(gone.tolist()))
+        equal_after += a == b
+    batches = [X[rng.integers(0, N_100K, MEMORY_QPS_BATCH)]
+               + 0.5 * rng.standard_normal((MEMORY_QPS_BATCH, DIM), dtype=np.float32)
+               for _ in range(2)]
+    qps = {}
+    for name in ("memory", "twin", "twin", "memory"):
+        lsh = mem if name == "memory" else twin
+        qps.setdefault(name, []).append(serving_qps(
+            lambda x, lsh=lsh: lsh.query_batch(x, top_k=TOP_K), batches, trials=1))
+    out = {"build_s": build, "build_vectors_per_s": {k: N_100K / v for k, v in build.items()},
+           "queries": CARRY_QUERIES, "equal": checks, "max_abs_topp_score_diff": worst,
+           "mean_candidates": float(np.mean(candidates)), "deleted": MEMORY_DELETE,
+           "deleted_returned": returned, "equal_after_delete": equal_after,
+           "queries_after_delete": len(probe), "query_batch_qps": qps,
+           "qps_batch": MEMORY_QPS_BATCH, "backend": mem.stats()["backend"],
+           "memory_device": mem.stats()["device"]}
+    emit("memory_100k", card=label, rows=N_100K, **out)
+    assert all(v == CARRY_QUERIES for v in checks.values()), checks
+    assert worst <= 1e-6 and returned == 0 and equal_after == len(probe), out
+    assert out["backend"] == "memory" and out["memory_device"] is None, out
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2358,6 +2685,7 @@ def main() -> int:
 
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
     s1m = drive("1m", "hamming_group_max_keys", lambda: phase_1m(args.seed))
+    ref1m = s1m["answers"]
     s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed))
 
     times = {}
@@ -2470,6 +2798,19 @@ def main() -> int:
           b1_shapes=[(NUM_BANDS, 2), (CP_BANDS, 2), (CP_BANDS, 4)])
     drive("retune_100k", B1, lambda: phase_retune_100k(args.seed, label),
           b1_shapes=[(CP_BANDS, 1)])
+
+    # Phase 12: bulk ingestion and the bucket backends.
+    drive("ingest_1m", B2, lambda: phase_ingest_1m(ref1m, args.seed, label))
+    del ref1m
+    with tempfile.TemporaryDirectory() as tmp:
+        f100 = drive("files_100k", B1, lambda: phase_files_100k(Path(tmp), args.seed, label))
+        drive("custom_storage_100k", B1, lambda: phase_custom_storage_100k(f100, label))
+    drive("memory_100k", B1, lambda: phase_memory_100k(f100, args.seed, label))
+    emit("not_on_the_card", paths=["parquet", "postgres", "redis"],
+         why="no pyarrow, no psycopg and no Redis server on the GPU host; the CPU tests "
+             "(tests/test_torch_io.py, tests/test_torch_bucket_backends.py) hold them to "
+             "lshrs_tpu")
+    del f100
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",

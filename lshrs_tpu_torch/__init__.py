@@ -13,9 +13,19 @@ cosine rerank over a resident payload, the gaussian, structured (FWHT,
 with a native C host path), learned and cross-polytope hash families,
 multi-probe querying, ``where=`` id filters, asymmetric ranking of
 quantised query coordinates and the Hamming refinement cascade (which
-serves stores past the int32 key ceiling), delete and compact, and
-checkpoints in the reference package's format. CUDA kernels build with
-``nvcc`` at first use; on CPU tensors their plain PyTorch versions run.
+serves stores past the int32 key ceiling), delete and compact, bucketed
+queries, in-place retuning, maximum inner-product search, and checkpoints
+in the reference package's format. CUDA kernels build with ``nvcc`` at
+first use; on CPU tensors their plain PyTorch versions run.
+
+Bulk ingestion: ``LSHRS.create_signatures`` streams ``(ids, vectors)``
+batches from NumPy arrays and ``.npy`` / ``.npz`` files, Parquet or
+Postgres (`lshrs_tpu_torch.io`) through a prefetch thread and a two-stage
+pipeline. The bucket backends of the reference run on the host:
+``backend="memory"`` (`MemoryStorage`), ``backend="redis"``
+(`lshrs_tpu_torch.storage.RedisStorage`) and any ``storage=``.
+Not ported: sharding, and the single-pass engines past the int32 key
+ceiling (they raise ``NotImplementedError``).
 """
 
 import importlib.metadata

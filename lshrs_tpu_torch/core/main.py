@@ -34,6 +34,18 @@ persistence.
                     structured and cross-polytope families) + index.npz,
                     the reference package's format (checkpoints load
                     across the two packages)
+    bulk build   -> create_signatures: a loader (NumPy, Parquet, Postgres)
+                    streams (ids, vectors) batches through a prefetch
+                    thread; with two or more CPUs a worker validates (and
+                    in host mode hashes) batch i+1 on the host while batch
+                    i commits to the device store
+
+Bucket backends (``backend="memory"`` or ``"redis"``, or a ``storage=``
+without signature batches) keep the reference's host algorithm: the NumPy
+hash, per-band bucket writes, and per-band bucket reads counted in a dict.
+They allocate nothing on any device, and the device-only entry points
+(Hamming and asymmetric ranking, serving closures, rehash, retrain,
+compact) raise ``RuntimeError`` there.
 
 ``query_mode="bucket"`` answers collision top-k through sorted band keys
 and a binary search (`lshrs_tpu_torch.ops.bucketed`). ``similarity="dot"``
@@ -49,8 +61,8 @@ rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 buffer-restore-on-failed-flush semantics.
 
 Not ported yet (the argument that asks for one raises
-``NotImplementedError`` naming its ROADMAP Queue A item): bucket backends,
-custom storages and I/O (item 6) and sharding (item 7).
+``NotImplementedError`` naming its ROADMAP Queue A item): sharding (item
+7) and the single-pass engines past the int32 key ceiling (item 8).
 """
 
 from __future__ import annotations
@@ -58,7 +70,8 @@ from __future__ import annotations
 import json
 import logging
 import math
-from collections.abc import Callable, Sequence
+import os
+from collections.abc import Callable, Iterable, Sequence
 from pathlib import Path
 from threading import Lock
 from typing import Any, Optional, Union
@@ -69,8 +82,10 @@ import torch
 from lshrs_tpu_torch.hash.hasher import LSHHasher
 from lshrs_tpu_torch.hash.itq import fit_itq_projection
 from lshrs_tpu_torch.ops.asymmetric import QMAX4, pack_coords_int4_np, quantize_coords_np
+from lshrs_tpu_torch.storage.base import BaseStorage
 from lshrs_tpu_torch.storage.device import DeviceStore, _not_ported
 from lshrs_tpu_torch.storage.filter import as_filter
+from lshrs_tpu_torch.storage.memory import MemoryStorage
 from lshrs_tpu_torch.utils.br import get_optimal_config
 from lshrs_tpu_torch.utils.cp import get_optimal_cp_config
 from lshrs_tpu_torch.utils.similarity import top_k_cosine
@@ -78,6 +93,7 @@ from lshrs_tpu_torch.utils.similarity import top_k_cosine
 logger = logging.getLogger(__name__)
 
 VectorFetchFn = Callable[[Sequence[int]], np.ndarray]
+Loader = Callable[..., Iterable[tuple[Sequence[int], np.ndarray]]]
 
 __all__ = ["LSHRS", "VectorFetchFn", "lshrs"]
 
@@ -85,27 +101,17 @@ CandidateScores = list[tuple[int, float]]
 
 # The reference package's checkpoint format version (metadata.json).
 _METADATA_VERSION = "0.1.0"
-# The reference's bucket-backend connection block. The port serves the
-# device backend only, but writes the block so that the reference package
-# can read the port's checkpoints.
-_REDIS_CONFIG_DEFAULTS = {
-    "host": "localhost",
-    "port": 6379,
-    "db": 0,
-    "password": "<REDACTED>",
-    "prefix": "lsh",
-    "decode_responses": False,
-    "max_connections": 50,
-}
 
 
 class LSHRS:
     """Locality-sensitive-hashing index over dense float32 vectors.
 
     Signatures are banded hash signatures (random hyperplanes, FWHT
-    rotations or cross-polytope symbols, by ``hash_family``), kept in a
-    device-resident signature store (`lshrs_tpu_torch.storage.DeviceStore`)
-    and queried with the hand-written group-max kernels.
+    rotations or cross-polytope symbols, by ``hash_family``), kept by
+    default in a device-resident signature store
+    (`lshrs_tpu_torch.storage.DeviceStore`) and queried with the
+    hand-written group-max kernels; or in host buckets (``backend=
+    "memory"`` or ``"redis"``) queried by the reference's host algorithm.
 
     Args:
         dim: vector dimensionality (> 0).
@@ -118,8 +124,19 @@ class LSHRS:
         vector_fetch_fn: callable returning ``(n, dim)`` vectors for ids,
             used by ``index(ids)`` without vectors, and by top-p rerank
             unless ``store_vectors=True``.
+        storage: a preconfigured `BaseStorage`; overrides ``backend``. A
+            store with signature batches (a `DeviceStore`) runs the device
+            path, and the hasher and ``store_vectors`` follow it; any other
+            is a bucket store (``stats()["backend"] == "custom"``).
+        backend: ``"device"`` (default), ``"memory"`` (an in-process bucket
+            dict) or ``"redis"`` (Redis sets, `RedisStorage`).
+        redis_host / redis_port / redis_db / redis_password / redis_prefix /
+            redis_max_connections / decode_responses: the Redis connection
+            (used by ``backend="redis"``, recorded for every backend; the
+            password is redacted in ``save_to_disk``).
         store_vectors: keep the vectors resident on the device (the
-            payload), so top-p reranks there without a fetch round trip.
+            payload), so top-p reranks there without a fetch round trip
+            (device backend only).
         payload_dtype / rerank_engine / rerank_candidates: the payload's
             precision (``"float32"``, ``"bfloat16"`` or ``"int8"``), the
             top-p formulation (``"full"``, ``"gather"`` or ``"auto"``) and
@@ -175,10 +192,10 @@ class LSHRS:
             vector norms; indexing a vector above it raises ``ValueError``.
         device: where the store and the device hash live (``"cuda"`` by
             default; ``"cpu"`` runs the kernels' plain PyTorch versions).
+            A ``storage=`` store's own device wins; bucket backends ignore
+            it.
 
-    ``backend``, ``storage``, the ``redis_*`` arguments,
-    ``decode_responses`` and ``shards`` are accepted only at their
-    defaults (ROADMAP Queue A items 6 and 7).
+    ``shards`` is accepted only at ``None`` or 1 (ROADMAP Queue A item 7).
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -277,28 +294,23 @@ class LSHRS:
             max_norm = float(max_norm)
         if query_mode not in ("scan", "bucket"):
             raise ValueError("query_mode must be 'scan' or 'bucket'")
-        if storage is not None:
-            raise _not_ported("storage= (custom storage backends)", 6)
-        if backend != "device":
-            raise _not_ported(f"backend={backend!r} (bucket backends: I/O and Redis)", 6)
-        redis = (redis_host, redis_port, redis_db, redis_password, redis_prefix,
-                 redis_max_connections, decode_responses)
-        if redis != ("localhost", 6379, 0, None, "lsh", 50, False):
-            raise _not_ported("redis_* / decode_responses (the Redis bucket backend)", 6)
         if shards is not None and shards > 1:
             raise _not_ported("shards (sharding)", 7)
-        if hamming_cascade and engine == "collision" and not enable_hamming:
-            raise ValueError(
-                "hamming_cascade requires Hamming ranking: construct "
-                "with enable_hamming=True or engine='auto'/'hamming'"
-            )
         # None means "planes"; an explicit "packed" (zero extra memory)
         # stays when the auto/hamming engine turns Hamming ranking on.
         if hamming_storage is None:
             hamming_storage = "planes"
         if hamming_storage not in ("planes", "packed"):
             raise ValueError("hamming_storage must be 'planes' or 'packed'")
-        if engine != "collision":
+        if hamming_cascade:
+            if backend != "device" or storage is not None:
+                raise ValueError("hamming_cascade applies to the device backend only")
+            if engine == "collision" and not enable_hamming:
+                raise ValueError(
+                    "hamming_cascade requires Hamming ranking: construct "
+                    "with enable_hamming=True or engine='auto'/'hamming'"
+                )
+        if engine != "collision" and backend == "device":
             enable_hamming = True
 
         if num_bands is None or rows_per_band is None:
@@ -335,38 +347,69 @@ class LSHRS:
         self._hash_dim = dim + 1 if similarity == "dot" else dim
         self._buffer_size = buffer_size
         self._vector_fetch_fn = vector_fetch_fn
-        self._store_vectors = store_vectors
         self._hash_on_device = hash_mode == "device"
+
+        if storage is not None:
+            self._storage: Any = storage
+            backend = "device" if storage.supports_signature_batches else "custom"
+            # A device store decides where the device hash runs.
+            device = getattr(storage, "device", device)
+        elif backend == "device":
+            self._storage = DeviceStore(
+                num_bands=num_bands,
+                rows_per_band=rows_per_band,
+                dim=self._hash_dim,
+                initial_capacity=initial_capacity,
+                chunk_size=chunk_size,
+                enable_hamming=enable_hamming,
+                hamming_storage=hamming_storage,
+                hamming_cascade=hamming_cascade,
+                hamming_cascade_refine=hamming_cascade_refine,
+                group_size=group_size,
+                dedupe=dedupe,
+                query_mode=query_mode,
+                bucket_cap=bucket_cap,
+                store_vectors=store_vectors,
+                payload_dtype=payload_dtype,
+                rerank_engine=rerank_engine,
+                rerank_candidates=rerank_candidates,
+                device=device,
+            )
+        elif backend == "memory":
+            self._storage = MemoryStorage()
+        elif backend == "redis":
+            from lshrs_tpu_torch.storage.redis import RedisStorage
+
+            self._storage = RedisStorage(
+                host=redis_host,
+                port=redis_port,
+                db=redis_db,
+                password=redis_password,
+                decode_responses=decode_responses,
+                prefix=redis_prefix,
+                max_connections=redis_max_connections,
+            )
+        else:
+            raise ValueError(f"Unsupported storage backend '{backend}'")
+
+        # Device mode: signature batches into a device store. Bucket mode:
+        # the host hash and BucketOperation tuples, nothing on a device.
+        self._device_mode = bool(self._storage.supports_signature_batches)
+        if isinstance(self._storage, DeviceStore):
+            store_vectors = self._storage.store_vectors
+        self._store_vectors = store_vectors and self._device_mode
         self._hasher = LSHHasher(
             num_bands=num_bands,
             rows_per_band=rows_per_band,
             dim=self._hash_dim,
             seed=seed,
             hash_family=hash_family,
-            device=device,
-        )
-        self._storage = DeviceStore(
-            num_bands=num_bands,
-            rows_per_band=rows_per_band,
-            dim=self._hash_dim,
-            initial_capacity=initial_capacity,
-            chunk_size=chunk_size,
-            enable_hamming=enable_hamming,
-            hamming_storage=hamming_storage,
-            hamming_cascade=hamming_cascade,
-            hamming_cascade_refine=hamming_cascade_refine,
-            group_size=group_size,
-            dedupe=dedupe,
-            query_mode=query_mode,
-            bucket_cap=bucket_cap,
-            store_vectors=store_vectors,
-            payload_dtype=payload_dtype,
-            rerank_engine=rerank_engine,
-            rerank_candidates=rerank_candidates,
-            device=device,
+            device=device if self._device_mode else "cpu",
         )
 
-        # Write buffer of (ids, words, vectors or None) batch records.
+        # Write buffer: (ids, words, vectors or None) batch records in
+        # device mode; BucketOperation tuples in bucket mode, so the flush
+        # threshold counts operations as the reference does.
         self._buffer: list = []
         self._buffer_lock = Lock()
         self._counters = {
@@ -411,13 +454,23 @@ class LSHRS:
             "engine": engine,
             "multiprobe": multiprobe,
         }
+        self._redis_config: dict[str, Any] = {
+            "host": redis_host,
+            "port": redis_port,
+            "db": redis_db,
+            "password": redis_password,
+            "prefix": redis_prefix,
+            "decode_responses": decode_responses,
+            "max_connections": redis_max_connections,
+        }
 
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
 
     def close(self) -> None:
-        """Flush pending operations and release the store's device tensors."""
+        """Flush pending operations and release the storage backend (a
+        device store drops its tensors, a Redis store its pool)."""
         self.flush()
         self._storage.close()
 
@@ -447,19 +500,89 @@ class LSHRS:
     # ingestion
     # ------------------------------------------------------------------
 
+    def create_signatures(
+        self,
+        *,
+        format: str = "postgres",
+        prefetch: int = 2,
+        **loader_kwargs: Any,
+    ) -> None:
+        """Bulk-build the index by streaming ``(indices, vectors)`` batches.
+
+        ``format`` selects a loader: ``postgres`` / ``pg``, ``parquet`` /
+        ``pq`` or ``numpy`` / ``npy`` / ``npz`` / ``arrays`` (see
+        `lshrs_tpu_torch.io`); the loader keyword arguments are passed
+        through. Each batch is indexed and flushed as `index` does.
+        ``prefetch`` batches are pulled ahead on a background thread (0
+        turns that off).
+
+        On the device backend, with two or more CPUs available to this
+        process, a worker thread validates batch i+1 (and hashes it, with
+        ``hash_mode="host"``) while this thread commits batch i to the
+        device; the worker never touches the device. A loader that fails
+        mid-stream leaves every batch before the failing one committed, as
+        the serial loop does. Bucket backends run the serial loop.
+        """
+        loader = self._resolve_loader(format)
+        stream: Iterable = loader(**loader_kwargs)
+        if prefetch > 0:
+            from lshrs_tpu_torch.io.prefetch import prefetch_batches
+
+            stream = prefetch_batches(stream, depth=prefetch)
+        # The affinity mask, not os.cpu_count(): a one-CPU container on a
+        # many-core host must not start a worker that convoys with the
+        # commits.
+        try:
+            avail_cpus = len(os.sched_getaffinity(0))
+        except (AttributeError, OSError):  # not Linux
+            avail_cpus = os.cpu_count() or 1
+        if not self._device_mode or avail_cpus < 2:
+            for indices, vectors in stream:
+                self.index(indices, vectors)
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            pending = None
+            it = iter(stream)
+            while True:
+                try:
+                    indices, vectors = next(it)
+                except StopIteration:
+                    break
+                except BaseException:
+                    # The serial loop commits batch i before it pulls batch
+                    # i+1: the batch already prepared commits here too.
+                    if pending is not None:
+                        self._commit_index_batch(pending.result())
+                        pending = None
+                    raise
+                fut = ex.submit(self._prepare_index_batch, indices, vectors)
+                if pending is not None:
+                    self._commit_index_batch(pending.result())
+                pending = fut
+            if pending is not None:
+                self._commit_index_batch(pending.result())
+
     def ingest(self, index: int, vector: np.ndarray) -> None:
         """Hash one vector and buffer it; searchable after the next flush
         (explicit, at buffer capacity, or via ``index()``)."""
         if index < 0:
             raise ValueError("index must be non-negative")
         vec = self._augment_data(self._prepare_vector(vector)[None, :])
-        record = (
-            np.asarray([index], dtype=np.int64),
-            self._hash_for_ingest(vec),
-            vec if self._store_vectors else None,
-        )
-        with self._buffer_lock:
-            self._buffer.append(record)
+        if self._device_mode:
+            record = (
+                np.asarray([index], dtype=np.int64),
+                self._hash_for_ingest(vec),
+                vec if self._store_vectors else None,
+            )
+            with self._buffer_lock:
+                self._buffer.append(record)
+        else:
+            signatures = self._hasher.hash_vector(vec[0])
+            with self._buffer_lock:
+                for band_id, sig in enumerate(signatures):
+                    self._buffer.append((band_id, sig, int(index)))
         self._count("vectors_ingested")
         self._flush_buffer_if_needed()
 
@@ -470,7 +593,17 @@ class LSHRS:
         """
         if indices is None or len(indices) == 0:
             return
-        self._commit_index_batch(self._prepare_index_batch(indices, vectors))
+        if self._device_mode:
+            self._commit_index_batch(self._prepare_index_batch(indices, vectors))
+            return
+        idx_arr, arr = self._validate_index_batch(indices, vectors)
+        words = self._hasher.hash_batch_words_host(arr)
+        with self._buffer_lock:
+            for j, idx in enumerate(idx_arr.tolist()):
+                for band_id, band in enumerate(self._hasher.words_to_signature(words[j])):
+                    self._buffer.append((band_id, band, idx))
+        self._count("vectors_ingested", idx_arr.size)
+        self.flush()
 
     def _validate_index_batch(self, indices, vectors):
         """Shared `index()` validation -> ``(idx_arr, float32 arr)``."""
@@ -499,8 +632,10 @@ class LSHRS:
         return idx_arr, self._augment_data(arr)
 
     def _prepare_index_batch(self, indices, vectors):
-        """`index()` stage 1: validate, and hash on the host in host mode.
-        Device mode defers the hash to the store's fused build."""
+        """Device-mode `index()` stage 1: validate, and hash on the host in
+        host mode; the device hash is deferred to the store's fused build.
+        Host work only: safe on the pipeline's worker thread (a worker
+        that touched CUDA would run on its own current device)."""
         idx_arr, arr = self._validate_index_batch(indices, vectors)
         if self._hash_on_device:
             return (idx_arr, None, arr)
@@ -511,8 +646,8 @@ class LSHRS:
         )
 
     def _commit_index_batch(self, record) -> None:
-        """`index()` stage 2: store the batch (flushing buffered singles
-        first, in order) and count it."""
+        """Device-mode `index()` stage 2: store the batch (flushing
+        buffered singles first, in order) and count it."""
         idx_arr, words, vecs = record
         if words is None:  # device hash + append
             self.flush()
@@ -529,7 +664,8 @@ class LSHRS:
         self.flush()
 
     def flush(self) -> None:
-        """Write buffered batches to the store in one append.
+        """Write buffered batches to the store in one append (bucket
+        backends: one ``batch_add`` of the buffered operations).
 
         On failure the snapshot is restored to the front of the buffer
         (order-preserving) and the exception re-raised, so a retry flushes
@@ -541,8 +677,10 @@ class LSHRS:
             pending = list(self._buffer)
             self._buffer.clear()
         try:
-            if len(pending) == 1:
-                ids, words, vecs = pending[0]
+            if not self._device_mode:
+                self._storage.batch_add(pending)
+            elif len(pending) == 1:
+                self._storage.add_signature_batch(*pending[0])
             else:
                 ids = np.concatenate([rec[0] for rec in pending])
                 if isinstance(pending[0][1], torch.Tensor):
@@ -552,7 +690,7 @@ class LSHRS:
                 vecs = (
                     np.concatenate([rec[2] for rec in pending]) if self._store_vectors else None
                 )
-            self._storage.add_signature_batch(ids, words, vecs)
+                self._storage.add_signature_batch(ids, words, vecs)
             self._count("flushes")
         except Exception as e:
             logger.error(f"Failed to flush buffer to storage: {e}")
@@ -566,6 +704,8 @@ class LSHRS:
 
     def _buffered_ops(self) -> int:
         """Pending operation count (each vector counts num_bands ops)."""
+        if not self._device_mode:
+            return len(self._buffer)
         return sum(rec[0].size for rec in self._buffer) * self._config["num_bands"]
 
     def _flush_buffer_if_needed(self) -> None:
@@ -586,9 +726,9 @@ class LSHRS:
         `_AUTO_HAMMING_CAPACITY`, and the switch is pinned at first
         resolution (``stats()["engine_resolved"]``) and persisted with the
         index: result ordering never changes back, across a save/load or
-        pickle round trip too.
+        pickle round trip too. Bucket backends never do.
         """
-        if not self._storage.enable_hamming:
+        if not self._device_mode or not getattr(self._storage, "enable_hamming", False):
             return False
         if self._engine == "hamming":
             return True
@@ -596,7 +736,7 @@ class LSHRS:
             return False
         if self._tpu_config.get("engine_resolved") == "hamming":
             return True
-        switched = self._storage._capacity >= self._AUTO_HAMMING_CAPACITY
+        switched = getattr(self._storage, "_capacity", 0) >= self._AUTO_HAMMING_CAPACITY
         if switched:
             self._tpu_config["engine_resolved"] = "hamming"
             logger.info(
@@ -632,6 +772,10 @@ class LSHRS:
         array-like allowlist of ids). Results rank ONLY the admitted
         subset — exact top-k / top-p over it, not post-filtering (a
         filtered-out candidate never consumes a result slot).
+
+        Bucket backends read every band's bucket (and with ``multiprobe``
+        its probe buckets) and count collisions on the host; ``where``
+        filters the counted candidates.
         """
         if top_k is not None and top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
@@ -640,7 +784,7 @@ class LSHRS:
         where = as_filter(where)
         query_vector = self._augment_query(self._prepare_vector(vector)[None, :])[0]
         self._count("queries_served")
-        if top_p is None and top_k is not None:
+        if self._device_mode and top_p is None and top_k is not None:
             if self._use_hamming_ranking():
                 qwords = self._hash_words(query_vector[None, :])
                 _, ids = self._storage.query_hamming(qwords, top_k, where=where)
@@ -658,7 +802,7 @@ class LSHRS:
         if not ordered:
             return []
         if top_p is None:
-            return [idx for idx, _ in ordered]
+            return [idx for idx, _ in ordered[:top_k]]
         candidate_indices = [idx for idx, _ in ordered]
         arr = self._fetch_candidates(candidate_indices)
         similarities = top_k_cosine(query_vector, arr, k=len(candidate_indices))
@@ -705,13 +849,23 @@ class LSHRS:
     ) -> list[tuple[int, int]]:
         """Every colliding candidate as ``(id, count)``, by ``(-count, id)``.
 
-        Bounded: the device counts the query's candidates (``query_nnz``,
-        O(1) readback), then an exact collision top-M with M the next power
-        of two of that count (at least `_CANDIDATE_ENUM_START`) returns
-        them all; the ``(Q, C)`` count matrix never reaches the host. With
-        ``multiprobe`` the candidates are the union over the probes (a
-        band counts once, whichever probe it matches).
+        Device mode is bounded: the device counts the query's candidates
+        (``query_nnz``, O(1) readback), then an exact collision top-M with
+        M the next power of two of that count (at least
+        `_CANDIDATE_ENUM_START`) returns them all; the ``(Q, C)`` count
+        matrix never reaches the host. With ``multiprobe`` the candidates
+        are the union over the probes (a band counts once, whichever probe
+        it matches). Bucket mode counts `_candidate_counts` and filters the
+        candidates with one vectorised ``where.admits``.
         """
+        if not self._device_mode:
+            counts_map = self._candidate_counts(query_vector)
+            if where is not None and counts_map:
+                cand = np.fromiter(counts_map, dtype=np.int64, count=len(counts_map))
+                counts_map = {
+                    int(i): counts_map[int(i)] for i in cand[where.admits(cand)]
+                }
+            return sorted(counts_map.items(), key=lambda item: (-item[1], item[0]))
         qwords = self._hash_query_words(query_vector[None, :])
         n = int(self._storage.query_nnz(qwords, where=where)[0])
         if n == 0:
@@ -719,6 +873,32 @@ class LSHRS:
         m = max(self._CANDIDATE_ENUM_START, 1 << (n - 1).bit_length())
         counts, ids = self._storage.query_topk(qwords, m, where=where)
         return [(int(i), int(c)) for i, c in zip(ids[0, :n], counts[0, :n])]
+
+    def _candidate_counts(self, query_vector: np.ndarray) -> dict[int, int]:
+        """Bucket mode: per-band bucket reads counted in a dict.
+
+        With ``multiprobe=T > 1`` every band also reads its T-1 probe
+        buckets (host probe words); a candidate's band signature lies in
+        exactly one bucket, so the union over the probes keeps each count
+        at most ``num_bands``.
+        """
+        counts: dict[int, int] = {}
+        if self._multiprobe > 1:
+            probe_words = self._hasher.hash_batch_probe_words_host(
+                query_vector[None, :], self._multiprobe
+            )[0]
+            sigs = [self._hasher.words_to_signature(w) for w in probe_words]
+            for band_id in range(self._config["num_bands"]):
+                candidates: set[int] = set()
+                for sig in sigs:
+                    candidates |= self._storage.get_bucket(band_id, sig[band_id])
+                for candidate in candidates:
+                    counts[candidate] = counts.get(candidate, 0) + 1
+            return counts
+        for band_id, hash_val in enumerate(self._hasher.hash_vector(query_vector)):
+            for candidate in self._storage.get_bucket(band_id, hash_val):
+                counts[candidate] = counts.get(candidate, 0) + 1
+        return counts
 
     def _fetch_candidates(self, candidate_indices: list[int]) -> np.ndarray:
         """Candidate vectors from the user callback (a resident payload is
@@ -797,10 +977,14 @@ class LSHRS:
     def query_batch(
         self, vectors: np.ndarray, *, top_k: int = 10, where=None
     ) -> list[list[int]]:
-        """Batched top-k query: one hash matmul and one fused scan."""
+        """Batched top-k query: one hash matmul and one fused scan. Bucket
+        backends answer with a :meth:`query` per vector, as the reference
+        does."""
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         where = as_filter(where)
+        if not self._device_mode:
+            return [self.query(v, top_k=top_k, where=where) for v in self._validate_batch(vectors)]
         arr = self._augment_query(self._validate_batch(vectors))
         self._count("queries_served", arr.shape[0])
         if self._use_hamming_ranking():
@@ -821,6 +1005,7 @@ class LSHRS:
         Returns ``(id, estimated_cosine)`` tuples ordered by (hamming, id),
         where ``estimated_cosine = cos(pi * hamming / num_perm)``.
         """
+        self._require_device_backend("query_hamming")
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         query_vector = self._augment_query(self._prepare_vector(vector)[None, :])
@@ -834,6 +1019,7 @@ class LSHRS:
         self, vectors: np.ndarray, *, top_k: int = 10, where=None
     ) -> list[CandidateScores]:
         """Batched :meth:`query_hamming` (one hash, one fused scan)."""
+        self._require_device_backend("query_hamming")
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         arr = self._augment_query(self._validate_batch(vectors))
@@ -879,6 +1065,7 @@ class LSHRS:
         self, vectors: np.ndarray, *, top_k: int = 10, where=None
     ) -> list[CandidateScores]:
         """Batched :meth:`query_asymmetric` (one scan through kernel B2)."""
+        self._require_device_backend("query_asymmetric")
         if top_k is None or top_k <= 0:
             raise ValueError("top_k must be greater than zero when provided")
         arr = self._augment_query(self._validate_batch(vectors))
@@ -951,6 +1138,7 @@ class LSHRS:
             callable returning ``(ids (Q, top_k) int32, cosines (Q, top_k)
             float32, n_candidates (Q,) int32)`` ndarrays.
         """
+        self._require_device_backend("serving_fn")
         where = as_filter(where)
         if auto_refresh:
             return self._serving_refreshing(
@@ -1092,14 +1280,16 @@ class LSHRS:
     # ------------------------------------------------------------------
 
     def delete(self, indices: Union[int, Sequence[int]]) -> None:
-        """Delete ids from the index (their slots are tombstoned until
-        :meth:`compact`)."""
+        """Delete ids from the index (on the device backend their slots are
+        tombstoned until :meth:`compact`; bucket stores drop them from every
+        bucket)."""
         to_remove = [indices] if isinstance(indices, int) else [int(i) for i in indices]
         self._count("deletes", len(to_remove))
         self._storage.remove_indices(to_remove)
 
     def compact(self) -> int:
         """Reclaim tombstoned slots; returns how many were reclaimed."""
+        self._require_device_backend("compact")
         return self._storage.compact()
 
     def clear(self) -> None:
@@ -1129,11 +1319,17 @@ class LSHRS:
                 data, not a seed: it can be re-banded within its
                 ``num_perm`` but not drawn (see :meth:`retrain`).
 
-        Requires ``store_vectors=True``. Deleted entries stay deleted.
-        Signatures derive from the payload at its stored precision: equal
-        to a fresh build for a float32 payload. Serving closures taken
-        before raise as stale (``auto_refresh`` ones take a new snapshot).
+        Requires the device backend with ``store_vectors=True``. Deleted
+        entries stay deleted. Signatures derive from the payload at its
+        stored precision: equal to a fresh build for a float32 payload.
+        Serving closures taken before raise as stale (``auto_refresh``
+        ones take a new snapshot).
         """
+        if not isinstance(self._storage, DeviceStore):
+            raise RuntimeError(
+                "rehash requires the device backend: bucket stores hold "
+                "no payload to rebuild signatures from"
+            )
         if not self._store_vectors:
             raise RuntimeError(
                 "rehash requires store_vectors=True: signatures are "
@@ -1260,9 +1456,14 @@ class LSHRS:
 
         Returns the fit's diagnostics (`fit_itq_projection`). Keeps the
         banding (:meth:`rehash` re-bands the learned matrix afterwards).
-        Requires ``store_vectors=True``; serving closures taken before
-        raise as stale.
+        Requires the device backend with ``store_vectors=True``; serving
+        closures taken before raise as stale.
         """
+        if not isinstance(self._storage, DeviceStore):
+            raise RuntimeError(
+                "retrain requires the device backend: bucket stores hold "
+                "no payload to rebuild signatures from"
+            )
         if not self._store_vectors:
             raise RuntimeError(
                 "retrain requires store_vectors=True: signatures are "
@@ -1305,20 +1506,25 @@ class LSHRS:
         return info
 
     def stats(self) -> dict[str, Any]:
-        """Configuration snapshot plus counters and store statistics."""
+        """Configuration snapshot plus counters, and the device store's
+        statistics (``"index"``; bucket backends have none). ``backend``
+        is ``"device"``, ``"memory"``, ``"redis"`` or ``"custom"``;
+        ``device`` is the device store's torch device, None for a bucket
+        store."""
         with self._buffer_lock:
             buffered = self._buffered_ops()
         with self._counter_lock:
             counters = dict(self._counters)
-        return {
+        out: dict[str, Any] = {
             "dimension": self._dim,
             "num_perm": self._config["num_perm"],
             "num_bands": self._config["num_bands"],
             "rows_per_band": self._config["rows_per_band"],
             "buffer_size": self._buffer_size,
             "similarity_threshold": self._config["similarity_threshold"],
-            "backend": "device",
-            "device": str(self._storage.device),
+            "redis_prefix": self._redis_config["prefix"],
+            "backend": self._tpu_config["backend"],
+            "device": str(self._storage.device) if self._device_mode else None,
             "engine": self._engine,
             "engine_resolved": self._tpu_config.get("engine_resolved"),
             "similarity": self._config["similarity"],
@@ -1327,8 +1533,10 @@ class LSHRS:
             "ranking": "hamming" if self._use_hamming_ranking() else "collision",
             "buffered_operations": buffered,
             "counters": counters,
-            "index": self._storage.stats(),
         }
+        if isinstance(self._storage, DeviceStore):
+            out["index"] = self._storage.stats()
+        return out
 
     # ------------------------------------------------------------------
     # persistence
@@ -1338,11 +1546,14 @@ class LSHRS:
         """Persist config, projections and the index to a directory.
 
         Writes the reference package's format: ``metadata.json`` (version
-        ``"0.1.0"``, ``config`` / ``redis_config`` / ``tpu_config``),
-        ``projections.npz`` (one ``(rows_per_band, dim)`` matrix per band;
-        the structured and cross-polytope families write their +-1
-        ``diagonals.npz`` instead) and, when the index holds live entries, ``index.npz``
-        (`DeviceStore.state_arrays`). Either package loads it.
+        ``"0.1.0"``, ``config`` / ``redis_config`` with the password
+        redacted / ``tpu_config``), ``projections.npz`` (one
+        ``(rows_per_band, dim)`` matrix per band; the structured and
+        cross-polytope families write their +-1 ``diagonals.npz``
+        instead) and, when a device store holds live entries,
+        ``index.npz`` (`DeviceStore.state_arrays`). A bucket store's
+        contents live outside the process and are not written. Either
+        package loads it.
         """
         self.flush()
         output_dir = Path(path)
@@ -1350,7 +1561,7 @@ class LSHRS:
         metadata = {
             "version": _METADATA_VERSION,
             "config": self._config,
-            "redis_config": _REDIS_CONFIG_DEFAULTS,
+            "redis_config": {**self._redis_config, "password": "<REDACTED>"},
             "tpu_config": self._tpu_config,
         }
         with open(output_dir / "metadata.json", "w") as f:
@@ -1359,7 +1570,7 @@ class LSHRS:
             np.savez_compressed(output_dir / "diagonals.npz", diagonals=self._hasher.diagonals)
         else:
             np.savez_compressed(output_dir / "projections.npz", *self._hasher.projections)
-        if len(self._storage):
+        if isinstance(self._storage, DeviceStore) and len(self._storage):
             np.savez_compressed(output_dir / "index.npz", **self._storage.state_arrays())
 
     @classmethod
@@ -1367,22 +1578,35 @@ class LSHRS:
         cls,
         path: Union[str, Path],
         *,
+        redis_config: Optional[dict[str, Any]] = None,
         vector_fetch_fn: Optional[VectorFetchFn] = None,
+        storage: Optional[BaseStorage] = None,
         device: str | torch.device = "cuda",
     ) -> "LSHRS":
         """Restore an index saved by :meth:`save_to_disk` of either package
-        onto ``device``. A checkpoint asking for a capability the port
-        lacks raises ``NotImplementedError``."""
+        onto ``device``.
+
+        ``redis_config`` overrides stored connection settings (the stored
+        password is redacted: supply it again where it is needed).
+        ``storage`` is used as the store (a checkpoint of a ``"custom"``
+        store restores onto a memory store without it). A checkpoint
+        asking for a capability the port lacks raises
+        ``NotImplementedError``."""
         input_dir = Path(path)
         if not input_dir.exists():
             raise FileNotFoundError(f"Directory not found: {input_dir}")
         with open(input_dir / "metadata.json") as f:
             metadata = json.load(f)
         config = metadata["config"]
-        tpu_config = metadata.get("tpu_config", {})
+        stored_redis = dict(metadata["redis_config"])
+        if redis_config:
+            stored_redis.update(redis_config)
+        tpu_config = cls._restorable(metadata.get("tpu_config", {}), storage)
         instance = cls(
             **cls._restore_tpu_kwargs(config, tpu_config),
+            **cls._restore_redis_kwargs(stored_redis),
             vector_fetch_fn=vector_fetch_fn,
+            storage=storage,
             device=device,
         )
         if instance._hasher.hash_family in ("structured", "crosspolytope"):
@@ -1394,11 +1618,32 @@ class LSHRS:
                     data[f"arr_{i}"].astype(np.float32) for i in range(len(data.files))
                 ]
         index_path = input_dir / "index.npz"
-        if index_path.exists():
+        if index_path.exists() and isinstance(instance._storage, DeviceStore):
             with np.load(index_path) as data:
                 instance._storage.load_state_arrays({k: data[k] for k in data.files})
         instance._restore_engine_resolved(tpu_config)
         return instance
+
+    @staticmethod
+    def _restorable(tpu_config: dict[str, Any], storage) -> dict[str, Any]:
+        """A ``"custom"`` store cannot be rebuilt from a checkpoint: without
+        a ``storage=`` it restores onto a memory store (bucket contents
+        live outside the process anyway)."""
+        if tpu_config.get("backend") == "custom" and storage is None:
+            return {**tpu_config, "backend": "memory"}
+        return tpu_config
+
+    @staticmethod
+    def _restore_redis_kwargs(redis_config: dict[str, Any]) -> dict[str, Any]:
+        return {
+            "redis_host": redis_config["host"],
+            "redis_port": redis_config["port"],
+            "redis_db": redis_config["db"],
+            "redis_password": redis_config["password"],
+            "redis_prefix": redis_config["prefix"],
+            "decode_responses": redis_config["decode_responses"],
+            "redis_max_connections": redis_config.get("max_connections", 50),
+        }
 
     @staticmethod
     def _restore_tpu_kwargs(config: dict[str, Any], tpu_config: dict[str, Any]) -> dict[str, Any]:
@@ -1446,12 +1691,14 @@ class LSHRS:
             self._tpu_config["engine_resolved"] = tpu_config["engine_resolved"]
 
     def __getstate__(self) -> dict[str, Any]:
+        # The password is kept, as the reference keeps it; save_to_disk
+        # redacts it.
         self.flush()
         state: dict[str, Any] = {
             "config": self._config.copy(),
-            "redis_config": dict(_REDIS_CONFIG_DEFAULTS),
+            "redis_config": self._redis_config.copy(),
             "tpu_config": self._tpu_config.copy(),
-            "device": str(self._storage.device),
+            "device": str(self._hasher.device),
         }
         if self._hasher.hash_family in ("structured", "crosspolytope"):
             state["diagonals"] = np.asarray(self._hasher.diagonals)
@@ -1459,14 +1706,15 @@ class LSHRS:
             state["projections"] = [
                 np.asarray(m, dtype=np.float32) for m in self._hasher.projections
             ]
-        if len(self._storage):
+        if isinstance(self._storage, DeviceStore) and len(self._storage):
             state["index_state"] = self._storage.state_arrays()
         return state
 
     def __setstate__(self, state: dict[str, Any]) -> None:
-        tpu_config = state.get("tpu_config", {})
+        tpu_config = self._restorable(state.get("tpu_config", {}), None)
         restored = self.__class__(
             **self._restore_tpu_kwargs(state["config"], tpu_config),
+            **self._restore_redis_kwargs(state["redis_config"]),
             device=state.get("device", "cuda"),
         )
         self.__dict__ = restored.__dict__
@@ -1475,7 +1723,7 @@ class LSHRS:
             self._hasher.diagonals = state["diagonals"]
         else:
             self._hasher.projections = state["projections"]
-        if "index_state" in state:
+        if "index_state" in state and isinstance(self._storage, DeviceStore):
             self._storage.load_state_arrays(state["index_state"])
 
     # ------------------------------------------------------------------
@@ -1565,6 +1813,26 @@ class LSHRS:
                 "vector_fetch_fn must be supplied for operations requiring reranking"
             )
         return self._vector_fetch_fn
+
+    def _require_device_backend(self, what: str) -> None:
+        if not self._device_mode:
+            raise RuntimeError(f"{what} requires the device backend")
+
+    def _resolve_loader(self, format: str) -> Loader:
+        normalized = format.lower()
+        if normalized in {"postgres", "pg"}:
+            from lshrs_tpu_torch.io.postgres import iter_postgres_vectors
+
+            return iter_postgres_vectors
+        if normalized in {"parquet", "pq"}:
+            from lshrs_tpu_torch.io.parquet import iter_parquet_vectors
+
+            return iter_parquet_vectors
+        if normalized in {"numpy", "npy", "npz", "arrays"}:
+            from lshrs_tpu_torch.io.numpy_io import iter_numpy_vectors
+
+            return iter_numpy_vectors
+        raise ValueError(f"Unsupported signature creation format '{format}'")
 
     def _validate_batch(self, vectors) -> np.ndarray:
         arr = np.asarray(vectors, dtype=np.float32)

@@ -9,5 +9,15 @@ __all__ = [
     "DeviceStore",
     "IdFilter",
     "MemoryStorage",
+    "RedisStorage",
     "as_filter",
 ]
+
+
+def __getattr__(name):
+    # RedisStorage pulls in the optional redis dependency lazily.
+    if name == "RedisStorage":
+        from .redis import RedisStorage
+
+        return RedisStorage
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

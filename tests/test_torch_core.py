@@ -106,16 +106,19 @@ def test_device_hash_serving_self_matches(engine, rng):
 # Each unported argument, set to anything but its default, raises
 # NotImplementedError naming its ROADMAP Queue A item.
 UNPORTED_ARGUMENTS = [
-    (dict(backend="memory"), 6),
-    (dict(storage=object()), 6),
-    (dict(redis_host="cache"), 6),
-    (dict(redis_port=6380), 6),
-    (dict(redis_db=1), 6),
-    (dict(redis_password="secret"), 6),
-    (dict(redis_prefix="idx"), 6),
-    (dict(redis_max_connections=8), 6),
-    (dict(decode_responses=True), 6),
     (dict(shards=2), 7),
+]
+# Ported since (item 6): the bucket backends, storage= and the Redis
+# connection arguments, recorded for every backend as the reference does.
+PORTED_ARGUMENTS = [
+    dict(backend="memory"),
+    dict(redis_host="cache"),
+    dict(redis_port=6380),
+    dict(redis_db=1),
+    dict(redis_password="secret"),
+    dict(redis_prefix="idx"),
+    dict(redis_max_connections=8),
+    dict(decode_responses=True),
 ]
 
 
@@ -123,6 +126,14 @@ def test_unported_paths_raise(rng):
     for kw, item in UNPORTED_ARGUMENTS:
         with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
             TorchLSHRS(dim=8, device="cpu", **kw)
+    for kw in PORTED_ARGUMENTS:
+        (key, value), = kw.items()
+        tl = TorchLSHRS(dim=8, device="cpu", **kw)
+        jl = JaxLSHRS(dim=8, **kw)
+        assert tl._redis_config == jl._redis_config
+        assert tl.stats()["backend"] == jl.stats()["backend"]
+    with pytest.raises(AttributeError):  # not a storage: the reference fails alike
+        TorchLSHRS(dim=8, device="cpu", storage=object())
     with pytest.raises(ValueError, match="query_mode"):
         TorchLSHRS(dim=8, query_mode="sorted", device="cpu")
     with pytest.raises(ValueError, match="max_norm"):

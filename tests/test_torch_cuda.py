@@ -568,3 +568,57 @@ def test_bucketed_lshrs_on_the_gpu_matches_the_cpu(dev, rng):
     assert gm.group_max_keys.launches == before + 1
     f = IdFilter(allowed_ids=np.arange(0, 6000, 3))
     assert gpu.query_batch(Q, top_k=5, where=f) == cpu.query_batch(Q, top_k=5, where=f)
+
+
+@pytest.mark.parametrize("hash_mode", ["device", "host"])
+@pytest.mark.parametrize("cpus", [1, 4], ids=["serial", "pipelined"])
+def test_create_signatures_on_the_gpu_equals_index(hash_mode, cpus, dev, rng, monkeypatch):
+    """create_signatures (prefetch thread, and the two-stage pipeline whose
+    worker does host work only) builds the store that index() builds from
+    the same batches, bit for bit, on the card; its serving launches B1."""
+    import os
+
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(cpus)), raising=False)
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, hash_mode=hash_mode, seed=3,
+              store_vectors=True)
+    a, b = LSHRS(device=dev, **kw), LSHRS(device=dev, **kw)
+    X = rng.standard_normal((5000, 64)).astype(np.float32)
+    ids = 7 * np.arange(5000) + 3
+    a.create_signatures(format="numpy", vectors=X, indices=ids, batch_size=1024, prefetch=2)
+    for lo in range(0, 5000, 1024):
+        b.index(ids[lo : lo + 1024], X[lo : lo + 1024])
+    sa, sb = a._storage.state_arrays(), b._storage.state_arrays()
+    assert set(sa) == set(sb)
+    for key in sa:
+        np.testing.assert_array_equal(sa[key], sb[key])
+    assert a._storage.device.type == "cuda" and a.stats()["counters"] == b.stats()["counters"]
+    before = gm.group_max_keys.launches
+    out = a.serving_fn(top_k=10)(X[:512])
+    assert gm.group_max_keys.launches > before
+    np.testing.assert_array_equal(out[:, 0], ids[:512])
+
+
+def test_memory_backend_equals_its_device_twin_on_the_gpu(dev, rng):
+    """backend="memory" (host hash, host buckets) against a device index on
+    the card with the same host words (hash_mode="host", collision, B1)."""
+    kw = dict(dim=64, num_perm=256, num_bands=16, rows_per_band=16, seed=5)
+    X = rng.standard_normal((3000, 64)).astype(np.float32)
+    mem = LSHRS(backend="memory", vector_fetch_fn=lambda i: X[list(i)], **kw)
+    twin = LSHRS(hash_mode="host", engine="collision", vector_fetch_fn=lambda i: X[list(i)],
+                 device=dev, **kw)
+    for lsh in (mem, twin):
+        lsh.index(np.arange(3000), X)
+    assert twin._storage.device.type == "cuda" and mem.stats()["device"] is None
+    # One query at a time on both sides: each hashes a single row (the
+    # memory backend's query_batch is a per-vector loop; the twin's hashes
+    # the batch in one sgemm, which may round a near-zero coordinate apart).
+    Q = np.concatenate([X[:20], rng.standard_normal((20, 64)).astype(np.float32)])
+    before = gm.group_max_keys.launches
+    assert mem.query_batch(Q, top_k=10) == [twin.query(q, top_k=10) for q in Q]
+    assert gm.group_max_keys.launches > before
+    for q in Q[:8]:
+        assert mem.query(q, top_k=None) == twin.query(q, top_k=None)
+        assert mem.query(q, top_p=0.5) == twin.query(q, top_p=0.5)
+    mem.delete(list(range(0, 3000, 7)))
+    twin.delete(list(range(0, 3000, 7)))
+    assert mem.query_batch(Q, top_k=10) == [twin.query(q, top_k=10) for q in Q]

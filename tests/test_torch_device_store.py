@@ -172,10 +172,10 @@ def test_empty_store_and_unported_options(hasher, rng):
 
 
 def test_stats_keys_match_the_reference(hasher, rng):
-    """Both packages report the same statistics, bucketed engine included.
-    Kept apart on purpose: the port's kernels are CUDA, not Pallas (no
-    ``pallas`` key) and the port names its torch device; the reference's
-    ``redis_prefix`` comes with the Redis backend (ROADMAP Queue A item 6)."""
+    """Both packages report the same statistics, bucketed engine and
+    bucket backends included. Kept apart on purpose: the port's kernels
+    are CUDA, not Pallas (no ``pallas`` key), and the port names its torch
+    device and its hash family."""
     from lshrs_tpu import LSHRS as JaxLSHRS
     from lshrs_tpu_torch import LSHRS as TorchLSHRS
 
@@ -188,8 +188,15 @@ def test_stats_keys_match_the_reference(hasher, rng):
     for lsh in (jl, tl):
         lsh.index(np.arange(40), X)
         lsh.query_batch(X[:5], top_k=3)
-    assert set(jl.stats()) - set(tl.stats()) == {"redis_prefix"}
+    assert set(jl.stats()) - set(tl.stats()) == set()
     assert set(tl.stats()) - set(jl.stats()) == {"device", "hash_family"}
+    assert tl.stats()["redis_prefix"] == jl.stats()["redis_prefix"]
+    kw = dict(kw, backend="memory", redis_prefix="idx")
+    jm, tm = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
+    assert set(jm.stats()) - set(tm.stats()) == set()
+    assert set(tm.stats()) - set(jm.stats()) == {"device", "hash_family"}
+    for key in ("backend", "redis_prefix", "ranking", "buffered_operations"):
+        assert tm.stats()[key] == jm.stats()[key], key
     ji, ti = jl.stats()["index"], tl.stats()["index"]
     assert set(ji) - set(ti) == {"pallas"} and set(ti) - set(ji) == {"device"}
     for key in ("query_mode", "bucket_overflows", "size", "alive", "capacity", "fast_path"):

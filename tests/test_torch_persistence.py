@@ -127,7 +127,9 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
 # silent gaussian index (cross-polytope at this banding already fails its
 # geometry check: ValueError); so does MIPS switched on by hand, whose
 # hasher works at dim + 1 against the saved dim-wide projections. A
-# multi-probe depth, a cascade and the bucketed engine restore as they are.
+# multi-probe depth, a cascade, the bucketed engine and a bucket backend
+# restore as they are (a bucket store's contents live outside the process:
+# index.npz is not read into it).
 @pytest.mark.parametrize("where,change", [
     ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
@@ -158,6 +160,13 @@ def test_unsupported_checkpoint_capabilities_raise(where, change, tmp_path, rng)
         back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
         assert back.stats()["index"]["hamming_cascade"] == 32
         assert back.query_hamming(X[3], top_k=1)[0][0] == 3
+        return
+    if "backend" in change:  # ported: a memory bucket store, empty
+        back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
+        assert back.stats()["backend"] == "memory" and "index" not in back.stats()
+        assert back.query(X[3], top_k=1) == []
+        back.index([3], X[3:4])
+        assert back.query(X[3], top_k=1) == [3]
         return
     if "query_mode" in change:  # ported: the bucketed engine restores
         back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")

@@ -104,8 +104,9 @@ def test_lshrs_rehash_validation(rng):
         lsh.rehash(num_bands=8)
     with pytest.raises(ValueError, match="must equal num_perm"):
         lsh.rehash(num_perm=32, num_bands=4, rows_per_band=4)
-    with pytest.raises(NotImplementedError, match="item 6"):  # bucket backends
-        LSHRS(dim=8, num_perm=16, backend="memory", device="cpu")
+    mem = LSHRS(dim=8, num_perm=16, backend="memory", device="cpu")
+    with pytest.raises(RuntimeError, match="device backend"):
+        mem.rehash(similarity_threshold=0.9)
     no_payload = LSHRS(dim=8, num_perm=16, chunk_size=128, initial_capacity=128, device="cpu")
     with pytest.raises(RuntimeError, match="store_vectors"):
         no_payload.rehash(similarity_threshold=0.9)

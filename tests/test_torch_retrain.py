@@ -136,8 +136,9 @@ def test_retrain_mips_augments_sample(rng):
 
 
 def test_retrain_validation(rng):
-    with pytest.raises(NotImplementedError, match="item 6"):  # bucket backends
-        LSHRS(dim=8, num_perm=16, backend="memory", device="cpu")
+    mem = LSHRS(dim=8, num_perm=16, backend="memory", device="cpu")
+    with pytest.raises(RuntimeError, match="device backend"):
+        mem.retrain()
     no_payload = LSHRS(dim=8, num_perm=16, chunk_size=128, initial_capacity=128, device="cpu")
     with pytest.raises(RuntimeError, match="store_vectors"):
         no_payload.retrain()
