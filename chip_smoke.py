@@ -76,8 +76,8 @@ then runs these phases and prints JSON lines as it goes:
      launched with that many probes, ids equal to a CPU copy, self-match
      1.0, every T=1 hit's count <= its count under T probes, QPS beside
      T=1), and the 1M int8 top-p gather engine with ``multiprobe=4``
-     (recall@10 not below T=1's; top-k and top-p of 256 queries equal to
-     a CPU copy);
+     (recall@10 not below T=1's; top-k and top-p of 64 queries equal to
+     a CPU copy: 256 until phase 13 needed the time);
    - cross-polytope: 32 bands x 8 rows at 2**20 slots with an int8 payload
      (collision top-k on B1 at 32 band words, top-p gather, self-match,
      card == CPU copy, recall@10, QPS; ``engine="hamming"`` raises);
@@ -174,12 +174,47 @@ then runs these phases and prints JSON lines as it goes:
     Parquet, Postgres and Redis are not on the card (no pyarrow, psycopg
     or Redis server there); the CPU tests hold them.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-12
+13. sharding: ``ShardedDeviceStore`` over a mesh that repeats the one card
+    four times (phase 2 also holds B1 at a 100k store's 32,768-row shard, a
+    1M store's 2**18-row gather slices and the 16,384-slot restored
+    checkpoint; B2 at a 2**22-row shard for Q=1,024 and 8,192, at both
+    asymmetric wires' shifts of a 2**18-row shard, at the coarse pass of
+    2**20- and 2**14-row shards; B3 at a 2**20-row shard for Q=256; and
+    times B2 at the 2**22-row shard, Q=8,192):
+    - sharded_parity_4m, right after cascade_4m: the 100k words in four
+      shards (B1), packed_4m's words in four planes shards (B2) and four
+      packed shards (B3): ids and counts / distances == the unsharded
+      stores (B1, and the B2 and B3 engines), each kernel launched once per
+      shard; a four-shard cascade (128-bit prefix, an 8,192-slot pool per
+      shard) on the 4M words: agreement@10 with the exact engine and
+      planted recall, and == the exact engine where the pool covers each
+      shard (2**16 slots); each store == its CPU copy (four CPU shards,
+      ``state_arrays()`` carried; 256 queries at 100k, 16 on the 4M planes
+      and cascade stores, 4 on the packed one: plain B3 on the CPU takes
+      ~1.8 s a query at 2**22 slots);
+    - sharded_16m, right after cascade_8m: 2**24 clustered vectors drawn on
+      the card into ``LSHRS(storage=ShardedDeviceStore(...))`` (four shards
+      of 2**22 rows, ~10 GB; the unsharded single-pass engines stop at
+      2**22 slots): self-match 1.0, B2 once per shard per batch, planted
+      recall@10 beside cascade_8m's, QPS at Q=8192 in turns with
+      cascade_8m's closure, one shard's B2 ms, build rate, a profile, a 1%
+      delete (no deleted id returned);
+    - sharded_topp_1m: a four-shard copy of phase 8's 1M int8 store: the
+      full engine == the unsharded full engine, the gather engine (B1 per
+      shard) == it on every query it proves exact, == a CPU copy (16);
+    - sharded_asymmetric_1m: a four-shard copy of the 1M planes store, both
+      coordinate wires: self-match 1.0 on 8,192 stored rows, B2 once per
+      shard at the shard's shift, == a CPU copy (256 queries);
+    - sharded_checkpoint, last: ``LSHRS(shards=4, device="cpu")`` over 10,000
+      vectors, saved and loaded with ``device="cuda"``: unsharded, with the
+      reference's warning, the same ids.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-13
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
 error, ms, plain, bound and library ms; B1 once per timed instantiation,
-B2 once more per phase-10 packing), and last ``{"ok": true, "device":
+B2 once more per phase-10 packing and at sharded_16m's shard), and last ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
@@ -256,6 +291,19 @@ PACKED_CPU_QUERIES = 64
 CASCADE_BITS, CASCADE_REFINE = 128, 8192
 PLANTED = 1024
 PLAIN_QUERIES = 64
+# Queries of probe_and_cp_1m's CPU copies (256 until phase 13 needed the time).
+PROBE_CPU_QUERIES = 64
+# Queries of phase 13's CPU copies of 2**20- and 2**22-slot sharded stores;
+# the packed one takes fewer (plain B3 on the CPU costs ~1.8 s a query there).
+SHARDED_CPU_QUERIES = 16
+SHARDED_PACKED_CPU_QUERIES = 4
+# Phase 13: shards on the one card (the mesh repeats it), the 2**24-slot
+# cell, the 100k store's capacity, the full-pool cascade's slots.
+SHARDS = 4
+N_16M = 1 << 24
+N_100K_SHARD = (1 << 17) // SHARDS
+SMALL_CASCADE = 1 << 16
+B2_SHARDED_16M = "hamming_group_max_keys@sharded_16m"
 # B2 at the key packings of phase 10, timed at Q=512: (C, P, qmax or None
 # for the cascade's coarse pass) -> the kernels line's name.
 B2_TIMED_NEW = {
@@ -269,13 +317,20 @@ def b2_packings() -> dict:
     """B2's key packings ``(operand width, offset, shift)`` on phase 10's
     paths: the asymmetric wires on the 1M store (offset ``P * qmax``,
     shift 5 and 1 at 2**20 slots) and the cascade's coarse pass over the
-    128-column prefix (the symmetric offset and shift)."""
+    128-column prefix (the symmetric offset and shift); on phase 13's: the
+    symmetric 256-bit key and the asymmetric wires at a 2**18-row shard's
+    shift."""
     from lshrs_tpu_torch.ops.group_max import asymmetric_shift
 
     return {
         "asymmetric_int8": (NUM_PERM, NUM_PERM * 127, asymmetric_shift(NUM_PERM, N_1M)),
         "asymmetric_int4": (NUM_PERM, NUM_PERM * 7, asymmetric_shift(NUM_PERM, N_1M, qmax=7)),
         "cascade_coarse": (CASCADE_BITS, CASCADE_BITS, 1),
+        "symmetric": (NUM_PERM, NUM_PERM, 1),
+        "sharded_asymmetric_int8": (NUM_PERM, NUM_PERM * 127,
+                                    asymmetric_shift(NUM_PERM, N_1M // SHARDS)),
+        "sharded_asymmetric_int4": (NUM_PERM, NUM_PERM * 7,
+                                    asymmetric_shift(NUM_PERM, N_1M // SHARDS, qmax=7)),
     }
 
 
@@ -402,8 +457,9 @@ def b2_inputs_on_card(gen, *, c, p, q, qmax, dev):
     """B2's operands and key arguments at phase 10's packings, drawn on the
     card: +-1 planes, ~10% dead slots; quantised coordinates in
     ``[-qmax, qmax]`` with the asymmetric offset and shift of a ``c``-slot
-    store, or (``qmax=None``) stored rows with ~20% of their bits flipped
-    under the cascade's coarse scale and shifted tie."""
+    store, or stored rows with ~20% of their bits flipped, under the
+    cascade's coarse scale and shifted tie (``qmax=None``) or the symmetric
+    key (``qmax=0``)."""
     from lshrs_tpu_torch.ops.group_max import asymmetric_shift, key_scale
     from lshrs_tpu_torch.ops.hamming import cascade_coarse_scale
     from lshrs_tpu_torch.ops.scan import global_tie_core
@@ -412,13 +468,15 @@ def b2_inputs_on_card(gen, *, c, p, q, qmax, dev):
     ids = torch.randperm(c, generator=gen, device=dev).to(torch.int32)
     ids[torch.rand(c, generator=gen, device=dev) < 0.1] = -1
     tie = global_tie_core(ids)
-    if qmax is None:
+    if not qmax:  # None: the cascade's coarse pass; 0: symmetric Hamming
         pick = torch.randint(0, c, (q,), generator=gen, device=dev)
         flip = torch.rand((q, p), generator=gen, device=dev) < 0.2
         qb = torch.where(flip, -planes[pick], planes[pick]).contiguous()
-        scale, tie_shift = cascade_coarse_scale(p, c)
-        tie = torch.where(tie >= 0, tie >> tie_shift, tie)
-        kw = dict(group=64, scale=scale, num_perm=p)
+        kw = dict(group=64, scale=key_scale(c), num_perm=p)
+        if qmax is None:
+            scale, tie_shift = cascade_coarse_scale(p, c)
+            tie = torch.where(tie >= 0, tie >> tie_shift, tie)
+            kw["scale"] = scale
     else:
         qb = torch.randint(-qmax, qmax + 1, (q, p), generator=gen, device=dev).to(torch.int8)
         kw = dict(group=64, scale=key_scale(c), num_perm=p, offset=p * qmax,
@@ -426,17 +484,17 @@ def b2_inputs_on_card(gen, *, c, p, q, qmax, dev):
     return planes, tie, qb, kw
 
 
-def cascade_path_queries(c: int) -> list[int]:
-    """Query counts of the coarse B2 launches that one QPS_BATCH_1M batch
-    makes on a ``c``-slot cascade store: its full slices and the ragged
-    last one (the store's slicing, with the narrow refine rows it keeps
-    at 16 x 16)."""
+def cascade_path_queries(c: int, batch: int = QPS_BATCH_1M, refine: int = CASCADE_REFINE) -> list[int]:
+    """Query counts of the coarse B2 launches that one ``batch``-query
+    batch makes on a ``c``-slot cascade store (or shard) with a
+    ``refine``-slot pool: its full slices and the ragged last one (the
+    store's slicing, with the narrow refine rows it keeps at 16 x 16)."""
     from lshrs_tpu_torch.ops.bitpack import narrow_words_count
     from lshrs_tpu_torch.ops.hamming import cascade_slice_queries
 
-    step = cascade_slice_queries(c, group=64, pool_groups=CASCADE_REFINE // 64,
+    step = cascade_slice_queries(c, group=64, pool_groups=min(refine, c) // 64,
                                  words=narrow_words_count(NUM_BANDS, ROWS))
-    return sorted({min(step, QPS_BATCH_1M), QPS_BATCH_1M % step} - {0})
+    return sorted({min(step, batch), batch % step} - {0})
 
 
 def b3_inputs(rng, *, bw, c, q, dev):
@@ -499,6 +557,47 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
         del planes, tie, qb
 
 
+def check_b2_shards(gen, dev, err: dict, timed: dict) -> None:
+    """Phase 2's B2 checks at phase 13's per-shard shapes (C is one
+    shard's rows): sharded_16m's symmetric key at 2**22 rows for its planted
+    and serving batches, asymmetric_1m's both wires at the shift of a
+    2**18-row shard, the 4M cascade's coarse pass per 2**20-row shard and
+    the full-pool cascade's per 2**14-row shard, each at the query counts
+    its path launches. Times the 2**22-row shard at Q=8192."""
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, hamming_group_max_keys_ref
+
+    for c, p, qmax, qs in [
+        (N_16M // SHARDS, NUM_PERM, 0, [PLANTED, QPS_BATCH_1M]),
+        (N_1M // SHARDS, NUM_PERM, 127, [QPS_BATCH_1M]),
+        (N_1M // SHARDS, NUM_PERM, 7, [QPS_BATCH_1M]),
+        (N_4M // SHARDS, CASCADE_BITS, None, cascade_path_queries(N_4M // SHARDS, PLANTED)),
+        (SMALL_CASCADE // SHARDS, CASCADE_BITS, None,
+         cascade_path_queries(SMALL_CASCADE // SHARDS, CARRY_QUERIES, SMALL_CASCADE // SHARDS)),
+    ]:
+        planes, tie, qb, kw = b2_inputs_on_card(gen, c=c, p=p, q=max(qs), qmax=qmax, dev=dev)
+        for q in qs:
+            got = hamming_group_max_keys(planes, tie, qb[:q], **kw)
+            want = hamming_group_max_keys_ref(planes, tie, qb[:q], **kw)
+            torch.cuda.synchronize()
+            diff = int((got.long() - want.long()).abs().max())
+            ok = torch.equal(got, want)
+            err[B2] = max(err[B2], diff)
+            emit("kernel_check", kernel=B2, C=c, P=p, Q=q, group=64, qmax=qmax,
+                 offset=kw.get("offset"), shift=kw.get("shift", 1), scale=kw["scale"],
+                 path="sharded", equal=ok, max_abs_err=diff)
+            if not ok:
+                raise AssertionError(f"B2 kernel != plain at shard C={c}, P={p}, Q={q}, qmax={qmax}")
+            del got, want
+        if (c, qmax) == (N_16M // SHARDS, 0):
+            timed[B2_SHARDED_16M] = (
+                lambda a=(planes, tie, qb), kw=kw: hamming_group_max_keys(*a, **kw),
+                lambda a=(planes, tie, qb), kw=kw: hamming_group_max_keys_ref(*a, **kw),
+                dict(C=c, Q=QPS_BATCH_1M, P=p, group=64), None,
+            )
+        else:
+            del planes, tie, qb
+
+
 def phase_kernels(rng, dev) -> dict:
     """Phase 2: every kernel against its plain version, bit-exact; returns
     the worst |kernel - plain| per kernel and the timed cases."""
@@ -533,6 +632,9 @@ def phase_kernels(rng, dev) -> dict:
         (32, 1, N_1M, 256, 1),     # cp_1m: the gather rerank's slice
         (32, 1, N_1M, 200, 1),     # ragged
         (32, 1, N_1M, QPS_BATCH_1M, 1),  # cp_1m: the top-k serving batch
+        (16, 1, N_100K_SHARD, CARRY_QUERIES, 1),  # sharded_parity: a 100k store's shard
+        (16, 1, N_1M // SHARDS, 256, 1),  # sharded top-p gather: a 1M store's shard
+        (16, 1, 16384, CARRY_QUERIES, 1),  # sharded checkpoint restored unsharded
     ]
     for nb, w, c, q, probes in b1_cases:
         sig_t, tie, qw = b1_inputs(rng, bw=nb * w, c=c, q=q, probes=probes, dev=dev)
@@ -579,6 +681,7 @@ def phase_kernels(rng, dev) -> dict:
         (512, 512, 128, False),       # the widest resident planes, group 128
         (30, 300, 16, True),          # padded 30 -> 32 columns
         (NUM_PERM, QPS_BATCH_1M, 64, False),  # the 1M serving batch
+        (NUM_PERM, CARRY_QUERIES, 64, False),  # sharded_parity: a 4M store's shard
     ]
     for p, q, group, asym in b2_cases:
         planes, tie, qb = b2_inputs(rng, c=c, p=p, q=q, asymmetric=asym, dev=dev)
@@ -616,6 +719,7 @@ def phase_kernels(rng, dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     check_b2_packings(gen, dev, err, timed)
+    check_b2_shards(gen, dev, err, timed)
 
     b3_cases = [  # (BW, C, Q, group)
         (16, 1 << 20, 512, 64),
@@ -623,6 +727,7 @@ def phase_kernels(rng, dev) -> dict:
         (8, 1 << 18, 512, 32),   # the BW=8 instantiation
         (12, 1 << 16, 200, 128), # generic (non-register) instantiation
         (16, 1 << 16, 100, 16),
+        (16, 1 << 20, CARRY_QUERIES, 64),  # sharded_parity: a 4M store's shard
     ]
     for bw, c, q, group in b3_cases:
         sig_t, tie, qw = b3_inputs(rng, bw=bw, c=c, q=q, dev=dev)
@@ -960,7 +1065,8 @@ def phase_packed_4m(seed: int) -> dict:
 
     queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
     return {"lsh": lsh, "serve": serve, "serve_planes": serve_planes, "queries": queries,
-            "build_s": build_s, "keep": keep, "deleted": deleted, "planted": planted}
+            "build_s": build_s, "keep": keep, "deleted": deleted, "planted": planted,
+            "planes_topk": planes_topk}
 
 
 def phase_lifecycle(s100: dict, seed: int) -> None:
@@ -1444,7 +1550,7 @@ def phase_probe_and_cp_1m(t1m: dict, label: str) -> None:
     queries = t1m["queries"][TOPP_QPS_BATCHES_1M[0]]
     qps = {"multiprobe1": serving_qps(
         t1.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_QUERIES), queries, trials=2)}
-    noisy = keep[:CARRY_QUERIES] + 0.2 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    noisy = keep[:PROBE_CPU_QUERIES] + 0.2 * rng.standard_normal((PROBE_CPU_QUERIES, DIM), dtype=np.float32)
     held_by_cpu = {}
     for name, bw, probes in (("multiprobe4", NUM_BANDS, 4), ("crosspolytope", CP_BANDS, 1)):
         lsh = t1m["others"][name]
@@ -1479,7 +1585,7 @@ def phase_probe_and_cp_1m(t1m: dict, label: str) -> None:
         held_by_cpu[name] = dict(
             equal=bool(np.array_equal(ids, ids_cpu) and np.array_equal(counts, counts_cpu)),
             agree=compare_rankings(topp, topp_cpu), counts=counts, cpu_copy_s=cpu_s)
-        emit("card_vs_cpu_1m_" + name, card=label, queries=CARRY_QUERIES, bands=bw, probes=probes,
+        emit("card_vs_cpu_1m_" + name, card=label, queries=PROBE_CPU_QUERIES, bands=bw, probes=probes,
              topk_card_equals_cpu=held_by_cpu[name]["equal"],
              topp_card_vs_cpu=held_by_cpu[name]["agree"],
              colliding_top1=int((counts[:, 0] > 0).sum()), cpu_copy_s=cpu_s,
@@ -1507,7 +1613,7 @@ def phase_probe_and_cp_1m(t1m: dict, label: str) -> None:
         trials=2)
     emit("slice_cp_1m", card=label, capacity=store._capacity, bands=CP_BANDS, rows_per_band=CP_ROWS,
          self_match=sm, b1_launches_bw32=launched, card_equals_cpu=equal, topp_card_vs_cpu=agree,
-         colliding_top1=int((counts[:, 0] > 0).sum()), queries=CARRY_QUERIES,
+         colliding_top1=int((counts[:, 0] > 0).sum()), queries=PROBE_CPU_QUERIES,
          topk_recall_at_10=recall_at_10(served, truth), topk_qps=qps_topk, batch=QPS_BATCH_1M,
          cpu_copy_s=cpu_s)
     assert sm == 1.0 and launched > 0 and equal, (sm, launched, equal)
@@ -1992,7 +2098,8 @@ def phase_cascade_8m(seed: int, label: str) -> dict:
          tombstones=stats["tombstones"], deleted_ids_returned=leaked,
          survivor_self_match=sm_after)
     assert leaked == 0 and sm_after == 1.0 and stats["tombstones"] == deleted.size
-    return {"quality": quality, "qps": qps, "build_s": build_s}
+    return {"quality": quality, "qps": qps, "build_s": build_s, "queries": queries,
+            "serve": lsh.serving_fn(top_k=TOP_K)}
 
 
 # ---------------------------------------------------------------------------
@@ -2613,6 +2720,313 @@ def phase_memory_100k(f100: dict, seed: int, label: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharding (four shards on the one card)
+# ---------------------------------------------------------------------------
+
+
+def sharded_store(**kw):
+    """A ShardedDeviceStore of SHARDS shards, all on the card (the mesh
+    repeats it), at 16 x 16 bands."""
+    from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
+
+    return ShardedDeviceStore(mesh=make_mesh(devices=[DEVICE] * SHARDS), num_bands=NUM_BANDS,
+                              rows_per_band=ROWS, **kw)
+
+
+def carry_sharded_to_cpu(store):
+    """The sharded store carried to SHARDS CPU shards through ``state_arrays()``."""
+    from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
+
+    cpu = ShardedDeviceStore(
+        mesh=make_mesh(devices=["cpu"] * store.n_shards), num_bands=store.num_bands,
+        rows_per_band=store.rows_per_band, dim=store.dim, initial_capacity=store._capacity,
+        chunk_size=store.chunk, group_size=store.group, enable_hamming=store.enable_hamming,
+        hamming_storage=store.hamming_storage, hamming_cascade=store.hamming_cascade,
+        hamming_cascade_refine=store.hamming_cascade_refine, store_vectors=store.store_vectors,
+        payload_dtype=store.payload_dtype, rerank_engine=store.rerank_engine,
+        rerank_candidates=store.rerank_candidates,
+    )
+    cpu.load_state_arrays(store.state_arrays())
+    assert cpu._capacity == store._capacity, (cpu._capacity, store._capacity)
+    return cpu
+
+
+def copy_alive(dst, src, *, limit: int | None = None, payload: bool = False) -> None:
+    """Append ``src``'s alive slots (at most ``limit``) to ``dst`` on the
+    card: ids, signature rows and, with ``payload``, the dequantized rows
+    (an int8 row re-quantizes to itself)."""
+    alive = torch.nonzero(src._ids[: src._size] >= 0).flatten()[:limit]
+    ids = src._ids[alive].cpu().numpy()
+    step = (1 << 18) if payload else N_1M
+    for s in range(0, alive.numel(), step):
+        pick = alive[s : s + step]
+        rows = None
+        if payload:
+            rows = src._payload[pick].to(torch.float32)
+            if src._pscale is not None:
+                rows *= src._pscale[pick][:, None]
+        dst.add_signature_batch(ids[s : s + step], src._sig_rows[pick], rows)
+
+
+def same(a, b) -> bool:
+    """Two ``(values, ids)`` results, equal element for element."""
+    return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def launched(kernel, fn):
+    """``(fn(), launches of kernel during it)``."""
+    before = kernel.launches
+    out = fn()
+    return out, kernel.launches - before
+
+
+def phase_sharded_parity_4m(s100: dict, s4m: dict, seed: int, label: str) -> dict:
+    """Four-shard stores fed the words of earlier cells, on the card:
+    collision (the 100k words, B1) == the unsharded store; planes (B2) and
+    packed (B3) on packed_4m's words == the unsharded planes and packed
+    engines; the cascade on the 4M words beside the exact engine, and == it
+    where the pool covers each shard; each == a CPU copy of itself."""
+    from lshrs_tpu_torch import DeviceStore
+    from lshrs_tpu_torch.ops.group_max import (
+        group_max_keys,
+        hamming_group_max_keys,
+        hamming_packed_group_max_keys,
+    )
+
+    rng = np.random.default_rng(seed + 40)
+    out = {}
+    # Collision on the 100k words: 4 shards of 32,768 rows.
+    src = s100["lsh"]._storage
+    col = sharded_store(initial_capacity=src._capacity)
+    copy_alive(col, src)
+    X = s100["X"]
+    qw = s100["lsh"]._hasher.hash_batch_words(
+        X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32))
+    got, b1 = launched(group_max_keys, lambda: col.query_topk(qw, TOP_K))
+    cpu_s, cpu_got = host_seconds(lambda: carry_sharded_to_cpu(col).query_topk(qw.cpu(), TOP_K))
+    out["collision_100k"] = {"equals_unsharded": same(got, src.query_topk(qw, TOP_K)),
+                             "equals_cpu_copy": same(got, cpu_got), "cpu_queries": CARRY_QUERIES,
+                             "cpu_s": cpu_s, "b1_launches": b1,
+                             "rows_per_shard": col._local_rows()}
+    del col
+
+    # Planes (B2) and packed (B3) on packed_4m's words (its 1% delete
+    # dropped): 4 shards of 2**20 rows.
+    src = s4m["lsh"]._storage
+    qx = s4m["keep"][:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    qw = s4m["lsh"]._hasher.hash_batch_words(qx)
+    want_b3 = src.query_hamming(qw, TOP_K)
+    want_b2 = tuple(t.cpu().numpy() for t in s4m["planes_topk"](qw))
+    stores = {}
+    for storage, kernel in (("planes", hamming_group_max_keys), ("packed", hamming_packed_group_max_keys)):
+        st = sharded_store(initial_capacity=N_4M, enable_hamming=True, hamming_storage=storage)
+        copy_alive(st, src)
+        st.query_hamming(qw[:1], TOP_K)  # builds the bitplanes
+        got, n = launched(kernel, lambda st=st: st.query_hamming(qw, TOP_K))
+        nq = SHARDED_PACKED_CPU_QUERIES if storage == "packed" else SHARDED_CPU_QUERIES
+        cpu_s, cpu_got = host_seconds(
+            lambda st=st, nq=nq: carry_sharded_to_cpu(st).query_hamming(qw[:nq].cpu(), TOP_K))
+        out[f"{storage}_4m"] = {
+            "equals_unsharded_b2": same(got, want_b2), "equals_unsharded_b3": same(got, want_b3),
+            "equals_cpu_copy": same([x[:nq] for x in got], cpu_got),
+            "cpu_queries": nq, "cpu_s": cpu_s, "kernel_launches": n,
+            "plane_bytes": st.stats()["hamming_plane_bytes"]}
+        stores[storage] = st
+
+    # The cascade, its refine pool per shard: 4x the union pool of
+    # cascade_4m's at the same settings.
+    cas = sharded_store(initial_capacity=N_4M, enable_hamming=True, hamming_cascade=CASCADE_BITS,
+                        hamming_cascade_refine=CASCADE_REFINE)
+    copy_alive(cas, src)
+    pq = s4m["lsh"]._hasher.hash_batch_words(s4m["planted"][0])
+    got, b2 = launched(hamming_group_max_keys, lambda: cas.query_hamming(pq, TOP_K))
+    exact = stores["planes"].query_hamming(pq, TOP_K)
+    not_deleted = lambda x: ~np.isin(x, s4m["deleted"])  # noqa: E731
+    cpu_s, cpu_got = host_seconds(
+        lambda: carry_sharded_to_cpu(cas).query_hamming(pq[:SHARDED_CPU_QUERIES].cpu(), TOP_K))
+    # Where the pool covers each shard (2**16 slots, 4 x 2**14, a 2**14-slot
+    # pool) the cascade is the exact engine.
+    full = sharded_store(initial_capacity=SMALL_CASCADE, enable_hamming=True,
+                         hamming_cascade=CASCADE_BITS, hamming_cascade_refine=SMALL_CASCADE // SHARDS)
+    exact_small = DeviceStore(num_bands=NUM_BANDS, rows_per_band=ROWS, initial_capacity=SMALL_CASCADE,
+                              enable_hamming=True, device=DEVICE)
+    for st in (full, exact_small):
+        copy_alive(st, src, limit=SMALL_CASCADE)
+    a = full.query_hamming(pq[:CARRY_QUERIES], TOP_K)
+    out["cascade_4m"] = {
+        "refine_per_shard": CASCADE_REFINE, "b2_launches": b2,
+        "prefix_plane_bytes": cas.stats()["hamming_plane_bytes"],
+        "agreement_at_10_with_exact": agreement_at_10(got[1], exact[1]),
+        "planted": planted_quality(got[1], s4m["planted"], not_deleted),
+        "equals_cpu_copy": same([x[:SHARDED_CPU_QUERIES] for x in got], cpu_got), "cpu_s": cpu_s,
+        "full_pool_equals_exact": same(a, exact_small.query_hamming(pq[:CARRY_QUERIES], TOP_K)),
+        "full_pool_equals_cpu_copy": same(a, carry_sharded_to_cpu(full).query_hamming(
+            pq[:CARRY_QUERIES].cpu(), TOP_K)),
+    }
+    emit("sharded_parity_4m", card=label, shards=SHARDS, **out)
+    for name, res in out.items():
+        for key, val in res.items():
+            if "equals" in key:
+                assert val, (name, key)
+    assert out["collision_100k"]["b1_launches"] == SHARDS
+    assert out["planes_4m"]["kernel_launches"] == out["packed_4m"]["kernel_launches"] == SHARDS
+    assert out["cascade_4m"]["b2_launches"] >= SHARDS
+    return out
+
+
+def phase_sharded_topp_1m(t1m: dict, label: str) -> None:
+    """A four-shard copy of the 1M int8-payload store: the full engine ==
+    the unsharded full engine; the gather engine (B1 per shard, the budget
+    per shard) == unsharded full on every query it proves exact; == a CPU
+    copy."""
+    from lshrs_tpu_torch.ops.group_max import group_max_keys
+
+    src = t1m["lsh"]._storage
+    st = sharded_store(dim=DIM, initial_capacity=N_1M, store_vectors=True, payload_dtype="int8")
+    copy_alive(st, src, payload=True)
+    qx = t1m["qx"]
+    qw = t1m["lsh"]._hasher.hash_batch_words(qx)
+    want = src.query_topp_batch(qw, qx, TOP_K, engine="full")
+    full = st.query_topp_batch(qw, qx, TOP_K, engine="full")
+    gather, b1 = launched(group_max_keys, lambda: st.query_topp_batch(qw, qx, TOP_K, engine="gather"))
+    exact = gather[2] < st.rerank_candidates  # each shard's set covered
+    cpu_s, cpu_got = host_seconds(lambda: carry_sharded_to_cpu(st).query_topp_batch(
+        qw[:SHARDED_CPU_QUERIES].cpu(), qx[:SHARDED_CPU_QUERIES], TOP_K, engine="gather"))
+    res = {"full_vs_unsharded_full": compare_rankings(full, want),
+           "gather_vs_unsharded_full_on_exact": compare_rankings(
+               [x[exact] for x in gather], [x[exact] for x in want]),
+           "gather_vs_cpu_copy": compare_rankings([x[:SHARDED_CPU_QUERIES] for x in gather], cpu_got)}
+    emit("sharded_topp_1m_int8", card=label, shards=SHARDS, queries=len(qx),
+         gather_exact=int(exact.sum()), b1_launches=b1, cpu_queries=SHARDED_CPU_QUERIES,
+         cpu_s=cpu_s, payload_bytes=st.stats()["payload_bytes"], **res)
+    for name, r in res.items():
+        assert r["rows_bad"] == 0 and r["max_abs_cos_err"] < 1e-5, (name, r)
+    assert exact.sum() > 0 and b1 > 0 and st.stats()["payload_bytes"] == src.stats()["payload_bytes"]
+
+
+def phase_sharded_asymmetric_1m(s1m: dict, label: str) -> None:
+    """A four-shard copy of the 1M planes store ranked asymmetrically (B2
+    at a 2**18-row shard's shift), both wires: self-match 1.0, == a CPU copy."""
+    from lshrs_tpu_torch.ops.asymmetric import QMAX4, pack_coords_int4_np, quantize_coords_np
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys
+
+    st = sharded_store(initial_capacity=N_1M, enable_hamming=True)
+    copy_alive(st, s1m["lsh"]._storage)
+    keep = s1m["keep"]
+    coords = s1m["lsh"]._hasher.hash_batch_coords_host(keep)
+    cpu = carry_sharded_to_cpu(st)
+    res = {}
+    for wire, q in (("words", quantize_coords_np(coords)[0]),
+                    ("coords4", pack_coords_int4_np(quantize_coords_np(coords, qmax=QMAX4)[0]))):
+        serve = st.snapshot_query_fn(TOP_K, mode="asymmetric", wire=wire)
+        ids, b2 = launched(hamming_group_max_keys, lambda: serve(q).cpu().numpy())
+        cpu_ids = cpu.snapshot_query_fn(TOP_K, mode="asymmetric", wire=wire)(q[:CARRY_QUERIES])
+        res[wire] = {"self_match": float((ids[:, 0] == np.arange(len(keep))).mean()),
+                     "equals_cpu_copy": bool(np.array_equal(ids[:CARRY_QUERIES], cpu_ids.numpy())),
+                     "b2_launches": b2}
+    emit("sharded_asymmetric_1m", card=label, shards=SHARDS, rows_per_shard=st._local_rows(),
+         queries=len(keep), cpu_queries=CARRY_QUERIES, **res)
+    for wire, r in res.items():
+        assert r["self_match"] == 1.0 and r["equals_cpu_copy"] and r["b2_launches"] == SHARDS, (wire, r)
+
+
+def phase_sharded_16m(c8m: dict, seed: int, label: str) -> dict:
+    """2**24 clustered vectors over four 2**22-row shards on the one card,
+    served through LSHRS by exact Hamming (B2 once per shard per batch):
+    past the unsharded single-pass engines' int32 key ceiling."""
+    from lshrs_tpu_torch import LSHRS
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, key_scale
+    from lshrs_tpu_torch.ops.hamming import supports_hamming_grouped
+
+    assert not supports_hamming_grouped(NUM_PERM, N_16M)  # the unsharded engine could not serve it
+    store = sharded_store(dim=DIM, initial_capacity=N_16M, enable_hamming=True)
+    lsh = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS, storage=store)
+    keep, build_s, planted = draw_clustered(lsh, N_16M, seed + 41, planted_depth=TOP_K)
+    rng = np.random.default_rng(seed + 42)
+    serve = lsh.serving_fn(top_k=TOP_K)
+    stats = lsh.stats()
+    t0 = time.perf_counter()
+    sm, b2 = launched(hamming_group_max_keys,
+                      lambda: self_match(serve, [(np.arange(QPS_BATCH_1M), keep)], N_16M))
+    first_s = time.perf_counter() - t0  # builds the bitplanes, tie keys and refine tables
+    quality = planted_quality(serve(planted[0]), planted)
+    queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
+    qps = {}
+    for name in ("sharded_16m", "cascade_8m", "cascade_8m", "sharded_16m"):  # in turns
+        fn = serve if name == "sharded_16m" else c8m["serve"]
+        qps.setdefault(name, []).append(serving_qps(fn, queries, trials=2))
+    # One shard's B2 on the store's own planes, Q=8192 (CUDA events).
+    shard = store._shards[0]
+    qbits = shard._planes_rows(lsh._hasher.hash_batch_words(queries[0]))
+    shard_ms = median_ms(lambda: hamming_group_max_keys(
+        shard._planes, shard._tie, qbits, group=64, scale=key_scale(shard._capacity),
+        num_perm=NUM_PERM), reps=5)
+    idx = stats["index"]
+    emit("slice_sharded_16m", card=label, capacity=idx["capacity"], alive=idx["alive"],
+         n_shards=idx["n_shards"], rows_per_shard=idx["rows_per_shard"],
+         ranking=stats["ranking"], engine_resolved=stats["engine_resolved"],
+         plane_bytes=lsh.stats()["index"]["hamming_plane_bytes"],
+         signature_bytes=idx["signature_bytes"], self_match=sm, b2_launches_per_batch=b2,
+         **quality, cascade_8m_planted=c8m["quality"], qps=qps, batch=QPS_BATCH_1M,
+         b2_ms_per_shard=shard_ms, build_vectors_per_s=N_16M / build_s, build_s=build_s,
+         first_batch_s=first_s, memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert idx["capacity"] == N_16M and idx["alive"] == N_16M and idx["n_shards"] == SHARDS
+    assert idx["rows_per_shard"] == N_16M // SHARDS and stats["engine_resolved"] == "hamming"
+    assert sm == 1.0 and b2 == SHARDS, (sm, b2)
+    emit("profile", card=label, rows=N_16M, batch=QPS_BATCH_1M, engine="hamming",
+         shards=SHARDS, **serving_profile(serve, queries[:1]))
+
+    deleted = rng.choice(N_16M, N_16M // 100, replace=False)
+    lsh.delete(deleted.tolist())
+    out = lsh.serving_fn(top_k=TOP_K)(keep)
+    kept = ~np.isin(np.arange(QPS_BATCH_1M), deleted)
+    leaked = int(np.isin(out, deleted).sum())
+    sm_after = float((out[kept, 0] == np.arange(QPS_BATCH_1M)[kept]).mean())
+    stats = lsh.stats()["index"]
+    emit("delete_sharded_16m", deleted=int(deleted.size), deleted_queried=int((~kept).sum()),
+         tombstones=stats["tombstones"], deleted_ids_returned=leaked,
+         survivor_self_match=sm_after)
+    assert leaked == 0 and sm_after == 1.0 and stats["tombstones"] == deleted.size
+    return {"build_s": build_s, "qps": qps, "quality": quality}
+
+
+def phase_sharded_checkpoint(seed: int, label: str) -> None:
+    """A checkpoint saved with shards=4 on CPU stand-ins loads on this
+    one-card host unsharded, with the reference's warning, and serves the
+    same ids (host hash on both sides; B1 on the card)."""
+    import logging
+
+    from lshrs_tpu_torch import LSHRS
+
+    rng = np.random.default_rng(seed + 43)
+    X = rng.standard_normal((10_000, DIM), dtype=np.float32)
+    src = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS, shards=SHARDS,
+                hash_mode="host", device="cpu")
+    src.index(np.arange(10_000), X)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warned.append(record.getMessage())
+    log = logging.getLogger("lshrs_tpu_torch.core.main")
+    log.addHandler(handler)
+    try:
+        src.save_to_disk(ckpt)
+        back = LSHRS.load_from_disk(ckpt, device=DEVICE)
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    qx = X[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
+    equal = back.query_batch(qx, top_k=TOP_K) == src.query_batch(qx, top_k=TOP_K)
+    idx = back.stats()["index"]
+    emit("sharded_checkpoint", card=label, saved_shards=src.stats()["index"]["n_shards"],
+         restored_backend=idx["backend"], restored_device=back.stats()["device"],
+         warning=warned[:1], equal=equal, queries=CARRY_QUERIES)
+    assert equal and "n_shards" not in idx and back.stats()["device"].startswith(DEVICE)
+    assert any("restoring unsharded" in w for w in warned), warned
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2691,7 +3105,9 @@ def main() -> int:
     times = {}
     for name, (run, plain, shape, library) in kern["timed"].items():
         bound_ms, bound_by = kernel_bound(name, shape)
-        times[name] = {"ms": median_ms(run), "plain_ms": median_ms(plain),
+        # A plain version past 2**33 key elements takes ~1 s a call: timed thrice.
+        plain_reps = 3 if shape["C"] * shape["Q"] > 1 << 33 else 10
+        times[name] = {"ms": median_ms(run), "plain_ms": median_ms(plain, reps=plain_reps),
                        "library_ms": median_ms(library) if library else None,
                        "bound_ms": bound_ms, "bound_by": bound_by, **shape}
         emit("kernel_time", card=label, kernel=name, **times[name])
@@ -2724,13 +3140,22 @@ def main() -> int:
     # Phase 10 (the cascade half): the 4M words, then 2**23 slots.
     c4m = drive("cascade_4m", B2, lambda: phase_cascade_4m(s4m, args.seed, label),
                 b2_packings=[packings["cascade_coarse"]])
+    # Phase 13 (sharding), on the words of the 100k and 4M cells.
+    drive("sharded_parity_4m", KERNELS, lambda: phase_sharded_parity_4m(s100, s4m, args.seed, label),
+          b2_packings=[packings["symmetric"], packings["cascade_coarse"]])
     del s4m, c4m
     c8m = drive("cascade_8m", B2, lambda: phase_cascade_8m(args.seed, label),
                 b2_packings=[packings["cascade_coarse"]])
     emit("build", card=label, rows=N_8M, batch=INGEST_BATCH, vectors_per_s=N_8M / c8m["build_s"],
          seconds=c8m["build_s"], note="cascade store; includes drawing the data on the card "
          "and its round trip through the host")
-    del c8m
+    # Phase 13: 2**24 slots over four shards, served in turns with cascade_8m.
+    s16m = drive("sharded_16m", B2, lambda: phase_sharded_16m(c8m, args.seed, label),
+                 b2_packings=[packings["symmetric"]])
+    emit("build", card=label, rows=N_16M, batch=INGEST_BATCH, vectors_per_s=N_16M / s16m["build_s"],
+         seconds=s16m["build_s"], note="four shards on the card; includes drawing the data on the "
+         "card and its round trip through the host")
+    del c8m, s16m
 
     # Phase 11 (the bucketed engine): the 100k and 1M words, before the
     # lifecycle mutates the 100k index.
@@ -2764,10 +3189,13 @@ def main() -> int:
              **serving_profile(serves[eng, TOPP_QPS_BATCHES_1M[-1]],
                                t1m["queries"][TOPP_QPS_BATCHES_1M[-1]][:1]))
     del lsh1m, store1m, serves
+    drive("sharded_topp_1m", B1, lambda: phase_sharded_topp_1m(t1m, label))
     # Phase 10 (the asymmetric half): the 1M planes index, scored against
     # phase 8's exact-cosine truth on the same data.
     drive("asymmetric_1m", B2, lambda: phase_asymmetric_1m(s1m, t1m, args.seed, label),
           b2_packings=[packings["asymmetric_int8"], packings["asymmetric_int4"]])
+    drive("sharded_asymmetric_1m", B2, lambda: phase_sharded_asymmetric_1m(s1m, label),
+          b2_packings=[packings["sharded_asymmetric_int8"], packings["sharded_asymmetric_int4"]])
     del s1m
 
     # Phase 9: hash families, multi-probe, filters.
@@ -2806,6 +3234,7 @@ def main() -> int:
         f100 = drive("files_100k", B1, lambda: phase_files_100k(Path(tmp), args.seed, label))
         drive("custom_storage_100k", B1, lambda: phase_custom_storage_100k(f100, label))
     drive("memory_100k", B1, lambda: phase_memory_100k(f100, args.seed, label))
+    drive("sharded_checkpoint", B1, lambda: phase_sharded_checkpoint(args.seed, label))
     emit("not_on_the_card", paths=["parquet", "postgres", "redis"],
          why="no pyarrow, no psycopg and no Redis server on the GPU host; the CPU tests "
              "(tests/test_torch_io.py, tests/test_torch_bucket_backends.py) hold them to "
@@ -2838,6 +3267,13 @@ def main() -> int:
              "launches": b2_by_packing[path, packing], "max_abs_err": kern["max_abs_err"][B2],
              **{key: times[variant][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # B2 once more at sharded_16m's shard: its symmetric launches there.
+    kernels.append(
+        {"name": B2_SHARDED_16M, "route": "cuda", "source": src, "replaces": rep,
+         "launches": b2_by_packing["sharded_16m", packings["symmetric"]],
+         "max_abs_err": kern["max_abs_err"][B2],
+         **{key: times[B2_SHARDED_16M][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # B1 once more per timed multi-probe / 32-word instantiation: the same
     # source, its launches on the main path at that (BW, probes).
     src, rep = sources[B1]

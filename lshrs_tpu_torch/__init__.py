@@ -24,8 +24,11 @@ Postgres (`lshrs_tpu_torch.io`) through a prefetch thread and a two-stage
 pipeline. The bucket backends of the reference run on the host:
 ``backend="memory"`` (`MemoryStorage`), ``backend="redis"``
 (`lshrs_tpu_torch.storage.RedisStorage`) and any ``storage=``.
-Not ported: sharding, and the single-pass engines past the int32 key
-ceiling (they raise ``NotImplementedError``).
+Sharding: ``LSHRS(shards=N)`` and `lshrs_tpu_torch.parallel`
+(``make_mesh``, ``ShardedDeviceStore``) split the slots over devices, or
+over one card repeated, and merge every shard's exact top-k.
+Not ported: the single-pass engines past the int32 key ceiling of a store
+or a shard (they raise ``NotImplementedError``).
 """
 
 import importlib.metadata

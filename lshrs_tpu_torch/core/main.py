@@ -83,7 +83,7 @@ from lshrs_tpu_torch.hash.hasher import LSHHasher
 from lshrs_tpu_torch.hash.itq import fit_itq_projection
 from lshrs_tpu_torch.ops.asymmetric import QMAX4, pack_coords_int4_np, quantize_coords_np
 from lshrs_tpu_torch.storage.base import BaseStorage
-from lshrs_tpu_torch.storage.device import DeviceStore, _not_ported
+from lshrs_tpu_torch.storage.device import DeviceStore
 from lshrs_tpu_torch.storage.filter import as_filter
 from lshrs_tpu_torch.storage.memory import MemoryStorage
 from lshrs_tpu_torch.utils.br import get_optimal_config
@@ -195,7 +195,11 @@ class LSHRS:
             A ``storage=`` store's own device wins; bucket backends ignore
             it.
 
-    ``shards`` is accepted only at ``None`` or 1 (ROADMAP Queue A item 7).
+    ``shards=N`` (N > 1) shards the slots over N devices of ``device``'s
+    kind (`lshrs_tpu_torch.parallel.ShardedDeviceStore`): every CUDA card,
+    or the CPU standing in for up to 8; for several shards on one card,
+    pass ``storage=ShardedDeviceStore(mesh=make_mesh(devices=["cuda:0"] *
+    4), ...)``.
     """
 
     # Capacity at which the auto engine switches top-k ranking from
@@ -294,8 +298,6 @@ class LSHRS:
             max_norm = float(max_norm)
         if query_mode not in ("scan", "bucket"):
             raise ValueError("query_mode must be 'scan' or 'bucket'")
-        if shards is not None and shards > 1:
-            raise _not_ported("shards (sharding)", 7)
         # None means "planes"; an explicit "packed" (zero extra memory)
         # stays when the auto/hamming engine turns Hamming ranking on.
         if hamming_storage is None:
@@ -355,7 +357,7 @@ class LSHRS:
             # A device store decides where the device hash runs.
             device = getattr(storage, "device", device)
         elif backend == "device":
-            self._storage = DeviceStore(
+            store_kw = dict(
                 num_bands=num_bands,
                 rows_per_band=rows_per_band,
                 dim=self._hash_dim,
@@ -373,8 +375,15 @@ class LSHRS:
                 payload_dtype=payload_dtype,
                 rerank_engine=rerank_engine,
                 rerank_candidates=rerank_candidates,
-                device=device,
             )
+            if shards is not None and shards > 1:
+                from lshrs_tpu_torch.parallel import ShardedDeviceStore, available_devices, make_mesh
+
+                mesh = make_mesh(shards, devices=available_devices(device))
+                self._storage = ShardedDeviceStore(mesh=mesh, **store_kw)
+                device = self._storage.device
+            else:
+                self._storage = DeviceStore(device=device, **store_kw)
         elif backend == "memory":
             self._storage = MemoryStorage()
         elif backend == "redis":
@@ -1603,7 +1612,7 @@ class LSHRS:
             stored_redis.update(redis_config)
         tpu_config = cls._restorable(metadata.get("tpu_config", {}), storage)
         instance = cls(
-            **cls._restore_tpu_kwargs(config, tpu_config),
+            **cls._restore_tpu_kwargs(config, tpu_config, device),
             **cls._restore_redis_kwargs(stored_redis),
             vector_fetch_fn=vector_fetch_fn,
             storage=storage,
@@ -1646,10 +1655,29 @@ class LSHRS:
         }
 
     @staticmethod
-    def _restore_tpu_kwargs(config: dict[str, Any], tpu_config: dict[str, Any]) -> dict[str, Any]:
-        """Constructor kwargs reproducing a saved instance (the reference's
-        defaults for absent keys). Capabilities the port lacks raise here
-        or in the constructor, never silently dropped."""
+    def _restore_tpu_kwargs(
+        config: dict[str, Any], tpu_config: dict[str, Any], device: str | torch.device
+    ) -> dict[str, Any]:
+        """Constructor kwargs reproducing a saved instance on ``device`` (the
+        reference's defaults for absent keys). Capabilities the port lacks
+        raise here or in the constructor, never silently dropped.
+        ``shards`` degrades (with a warning) to an unsharded store when
+        ``device``'s kind offers fewer devices than the index was sharded
+        over (`lshrs_tpu_torch.parallel.available_devices`)."""
+        shards = tpu_config.get("shards")
+        if shards is not None and shards > 1:
+            from lshrs_tpu_torch.parallel import available_devices
+
+            available = len(available_devices(device))
+            if shards > available:
+                logger.warning(
+                    "Index was saved with shards=%d but only %d device(s) "
+                    "are available; restoring unsharded (results are "
+                    "identical, capacity is single-device).",
+                    shards,
+                    available,
+                )
+                shards = None
         return {
             "dim": config["dim"],
             "num_perm": config["num_perm"],
@@ -1664,7 +1692,7 @@ class LSHRS:
             "store_vectors": tpu_config.get("store_vectors", False),
             "initial_capacity": tpu_config.get("initial_capacity", 1 << 14),
             "chunk_size": tpu_config.get("chunk_size", 2048),
-            "shards": tpu_config.get("shards"),
+            "shards": shards,
             "enable_hamming": tpu_config.get("enable_hamming", False),
             "group_size": tpu_config.get("group_size", 32),
             "dedupe": tpu_config.get("dedupe", True),
@@ -1713,7 +1741,7 @@ class LSHRS:
     def __setstate__(self, state: dict[str, Any]) -> None:
         tpu_config = self._restorable(state.get("tpu_config", {}), None)
         restored = self.__class__(
-            **self._restore_tpu_kwargs(state["config"], tpu_config),
+            **self._restore_tpu_kwargs(state["config"], tpu_config, state.get("device", "cuda")),
             **self._restore_redis_kwargs(state["redis_config"]),
             device=state.get("device", "cuda"),
         )

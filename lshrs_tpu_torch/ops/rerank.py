@@ -36,6 +36,7 @@ from lshrs_tpu_torch.ops.group_max import group_max_keys, key_scale
 from lshrs_tpu_torch.ops.scan import gather_refine, refine_counts_vs_query
 
 __all__ = [
+    "merge_topp_pools",
     "rerank_topp_batch_core",
     "rerank_topp_core",
     "rerank_topp_gather_core",
@@ -96,6 +97,17 @@ def _order(sims: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.T
     order = torch.argsort(tie, dim=-1, stable=True)
     neg = torch.where(mask, -sims, float("inf")).gather(-1, order)
     return order.gather(-1, torch.argsort(neg, dim=-1, stable=True))
+
+
+def merge_topp_pools(
+    pool_ids: torch.Tensor, pool_sims: torch.Tensor, *, out: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge pooled ``(id, cosine)`` prefixes (id -1 = empty) to the first
+    ``out`` by (cosine desc, id asc): exact whenever every list in the pool
+    is its part's own top ``out``, since cosine is an absolute key."""
+    valid = pool_ids >= 0
+    order = _order(pool_sims, pool_ids, valid)[:, :out]
+    return torch.where(valid.gather(1, order), pool_ids.gather(1, order), -1), pool_sims.gather(1, order)
 
 
 def _rank_full(

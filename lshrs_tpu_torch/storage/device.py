@@ -355,6 +355,11 @@ class DeviceStore(BaseStorage):
     def _gather_usable(self) -> bool:
         return self.store_vectors and self._use_grouped()
 
+    def _rerank_cost_rows(self) -> int:
+        """Rows the rerank cost model scales with: the capacity here, a
+        shard's rows in `lshrs_tpu_torch.parallel.ShardedDeviceStore`."""
+        return self._capacity
+
     def _expected_candidates(self) -> float:
         """Expected colliding candidates per query for random pairs:
         ``alive * (1 - (1 - 2^-r)^b)``. Near-duplicates exceed it;
@@ -383,7 +388,7 @@ class DeviceStore(BaseStorage):
                 "grouped fast path (capacity within int32 key packing)"
             )
         if engine == "auto":
-            rows = self._capacity
+            rows = self._rerank_cost_rows()
             usable = self._gather_usable()
             full_infeasible = q * rows * 8 > self._FULL_RERANK_TEMP_BUDGET and usable
             engine = (
@@ -668,18 +673,26 @@ class DeviceStore(BaseStorage):
         if self._size + pad > self._capacity:
             self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
         off = self._size
-        # Slice assignment in place, where the reference donated its buffers
-        # to a jitted update (lshrs_tpu/storage/device.py::_append_jit).
-        self._sig_t[:, off : off + n] = words.T
-        self._sig_rows[off : off + n] = words
-        self._ids[off : off + n] = torch.from_numpy(ids32).to(self.device)
-        if self._planes is not None:
-            self._planes[off : off + n] = self._planes_rows(words)
-        self._write_payload(slice(off, off + n), vecs)
+        self._write_slots(off, torch.from_numpy(ids32).to(self.device), words, vecs)
         if self._slot_of is not None:
             self._slot_of.update(zip(ids32.tolist(), range(off, off + n)))
         self._size += n
         self._refresh_ranks()
+
+    def _write_slots(
+        self, off: int, ids: torch.Tensor, words: torch.Tensor, vecs: torch.Tensor | None
+    ) -> None:
+        """Write ``len(ids)`` rows at slots ``[off, off + n)`` in place, where
+        the reference donated its buffers to a jitted update
+        (lshrs_tpu/storage/device.py::_append_jit). The caller keeps the
+        bookkeeping (size, id -> slot map, derived state)."""
+        n = ids.shape[0]
+        self._sig_t[:, off : off + n] = words.T
+        self._sig_rows[off : off + n] = words
+        self._ids[off : off + n] = ids
+        if self._planes is not None:
+            self._planes[off : off + n] = self._planes_rows(words)
+        self._write_payload(slice(off, off + n), vecs)
 
     def _grow(self, new_cap: int) -> None:
         new_cap = _next_pow2(new_cap)
@@ -776,6 +789,8 @@ class DeviceStore(BaseStorage):
         """
         if where is None:
             return self._ids, self._tie
+        if isinstance(where, tuple):  # a shard's columns, resolved by its sharded store
+            return where
         return as_filter(where).device_state(self)
 
     def _query_topk_dev(
@@ -1202,7 +1217,7 @@ class DeviceStore(BaseStorage):
         return n.cpu().numpy()
 
     def _require_payload(self) -> None:
-        if self._payload is None:
+        if not self.store_vectors:
             raise RuntimeError("store_vectors=False: no resident payload to rerank")
 
     def _query_vectors(self, qvecs, q: int) -> torch.Tensor:
@@ -1420,7 +1435,7 @@ class DeviceStore(BaseStorage):
     def get_vectors(self, indices: Sequence[int]) -> np.ndarray:
         """Resident payload rows by id, float32 (int8 rows dequantized by
         their scale). Ids never indexed or deleted raise ``KeyError``."""
-        if self._payload is None:
+        if not self.store_vectors:
             raise RuntimeError("store_vectors=False: no resident payload to fetch")
         if self._slot_of is None:
             raise RuntimeError("get_vectors requires dedupe=True (id -> slot map)")
@@ -1431,13 +1446,7 @@ class DeviceStore(BaseStorage):
                     f"ids not present in the index (unknown or deleted): "
                     f"{missing[:8]}{'...' if len(missing) > 8 else ''}"
                 )
-            slots = torch.as_tensor(
-                [self._slot_of[int(i)] for i in indices], dtype=torch.int64, device=self.device
-            )
-            rows = self._payload[slots].to(torch.float32)
-            if self._pscale is not None:
-                rows = rows * self._pscale[slots][:, None]
-        return rows.cpu().numpy()
+            return self._payload_rows(np.asarray([self._slot_of[int(i)] for i in indices], np.int64))
 
     def sample_payload_rows(self, cap: int) -> np.ndarray:
         """Up to ``cap`` alive payload rows, float32 on the host (int8 rows
@@ -1447,17 +1456,25 @@ class DeviceStore(BaseStorage):
         if cap <= 0:
             raise ValueError("cap must be > 0")
         with self._lock:
-            if self._payload is None:
+            if not self.store_vectors:
                 raise RuntimeError("sample_payload_rows requires store_vectors=True")
-            ids = self._ids[: self._size].cpu().numpy()
-            alive = np.flatnonzero(ids >= 0)
+            alive = np.flatnonzero(self._used_ids() >= 0)
             if alive.size > cap:
                 alive = alive[(np.arange(cap) * (alive.size / cap)).astype(np.int64)]
-            slots = torch.as_tensor(alive, dtype=torch.int64, device=self.device)
-            rows = self._payload[slots].to(torch.float32)
-            if self._pscale is not None:
-                rows = rows * self._pscale[slots][:, None]
-            return rows.cpu().numpy()
+            return self._payload_rows(alive)
+
+    def _used_ids(self) -> np.ndarray:
+        """The id column of the used slots (tombstones -1), on the host."""
+        return self._ids[: self._size].cpu().numpy()
+
+    def _payload_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Payload rows at ``slots``, float32 on the host (int8 rows
+        dequantized by their scale), gathered on the device."""
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        rows = self._payload[idx].to(torch.float32)
+        if self._pscale is not None:
+            rows = rows * self._pscale[idx][:, None]
+        return rows.cpu().numpy()
 
     # ------------------------------------------------------------------
     # bucket-level API and maintenance
@@ -1633,23 +1650,35 @@ class DeviceStore(BaseStorage):
                     "rebuilt from the resident payload"
                 )
             self._check_banding(num_bands, rows_per_band)
-            cap = self._capacity
-            if hash_family == "crosspolytope":
-                dpad = 1 << (int(self.dim) - 1).bit_length()
-                block_slots = min(block_slots, max(4096, (1 << 29) // max(1, num_bands * dpad)))
-            step = min(_next_pow2(block_slots), cap)
-            while cap % step:
-                step //= 2
-            proj_t = torch.as_tensor(proj_t, dtype=torch.float32).to(self.device)
-            words = num_bands * words_per_band(rows_per_band)
-            sig_rows = torch.empty((cap, words), dtype=torch.int32, device=self.device)
-            for off in range(0, cap, step):
-                sig_rows[off : off + step] = hash_words(
-                    self._payload[off : off + step].to(torch.float32), proj_t,
-                    num_bands=num_bands, rows_per_band=rows_per_band, hash_family=hash_family,
-                )
+            sig_rows = self._rehashed_rows(
+                proj_t, num_bands=num_bands, rows_per_band=rows_per_band,
+                hash_family=hash_family, block_slots=block_slots,
+            )
             self._set_banding(num_bands, rows_per_band)
             self._finish_rehash(sig_rows)
+
+    def _rehashed_rows(
+        self, proj_t, *, num_bands: int, rows_per_band: int, hash_family: str, block_slots: int
+    ) -> torch.Tensor:
+        """Every slot's signature row under the new hash, ``(capacity, BW)``
+        int32, hashed from the payload block by block (see :meth:`rehash`);
+        the store itself is left unchanged."""
+        cap = self._capacity
+        if hash_family == "crosspolytope":
+            dpad = 1 << (int(self.dim) - 1).bit_length()
+            block_slots = min(block_slots, max(4096, (1 << 29) // max(1, num_bands * dpad)))
+        step = min(_next_pow2(block_slots), cap)
+        while cap % step:
+            step //= 2
+        proj_t = torch.as_tensor(proj_t, dtype=torch.float32).to(self.device)
+        words = num_bands * words_per_band(rows_per_band)
+        sig_rows = torch.empty((cap, words), dtype=torch.int32, device=self.device)
+        for off in range(0, cap, step):
+            sig_rows[off : off + step] = hash_words(
+                self._payload[off : off + step].to(torch.float32), proj_t,
+                num_bands=num_bands, rows_per_band=rows_per_band, hash_family=hash_family,
+            )
+        return sig_rows
 
     def _finish_rehash(self, sig_rows: torch.Tensor) -> None:
         """Install rebuilt signature rows and drop what derives from the

@@ -151,12 +151,14 @@ class IdFilter:
             self._tables[device] = (allow, deny)
         return self._tables[device]
 
-    def device_state(self, store) -> tuple[torch.Tensor, torch.Tensor]:
+    def device_state(self, store) -> tuple:
         """Filtered ``(ids, tie)`` for ``store`` (call under its lock).
 
+        A `ShardedDeviceStore` gets a list of each per shard, masked from
+        the shard's own (shard-local) tie column on the shard's device.
         Cached per store generation: any mutation (append / overwrite /
-        remove / compact / clear) bumps the generation and the next query
-        recomputes the mask against the current id column.
+        remove / compact / rehash / clear) bumps the generation and the
+        next query recomputes the mask against the current id column.
         """
         gen = store._generation
         with self._lock:
@@ -164,9 +166,16 @@ class IdFilter:
             if hit is not None and hit[0] == gen:
                 return hit[1], hit[2]
         store._ensure_ranks()  # the tie column must be fresh
-        with self._lock:
-            allow_dev, deny_dev = self._device_tables(store._ids.device)
-        ids_f, tie_f = _filtered_state(store._ids, store._tie, allow_dev, deny_dev)
+        shards = getattr(store, "_shards", None)
+        parts = []
+        for part in [store] if shards is None else shards:
+            with self._lock:
+                allow_dev, deny_dev = self._device_tables(part._ids.device)
+            parts.append(_filtered_state(part._ids, part._tie, allow_dev, deny_dev))
+        if shards is None:
+            ids_f, tie_f = parts[0]
+        else:
+            ids_f, tie_f = [p[0] for p in parts], [p[1] for p in parts]
         with self._lock:
             while len(self._cache) >= self._CACHE_MAX:
                 ref = next(iter(self._cache.keyrefs()), None)

@@ -103,14 +103,12 @@ def test_device_hash_serving_self_matches(engine, rng):
     assert tl.stats()["counters"]["queries_served"] == 200
 
 
-# Each unported argument, set to anything but its default, raises
-# NotImplementedError naming its ROADMAP Queue A item.
-UNPORTED_ARGUMENTS = [
-    (dict(shards=2), 7),
-]
-# Ported since (item 6): the bucket backends, storage= and the Redis
-# connection arguments, recorded for every backend as the reference does.
+# No argument is left unported: each of these, set to anything but its
+# default, constructs as the reference does. Sharding (item 7) was the last;
+# item 6 brought the bucket backends, storage= and the Redis connection
+# arguments, recorded for every backend as the reference does.
 PORTED_ARGUMENTS = [
+    dict(shards=2),
     dict(backend="memory"),
     dict(redis_host="cache"),
     dict(redis_port=6380),
@@ -123,9 +121,6 @@ PORTED_ARGUMENTS = [
 
 
 def test_unported_paths_raise(rng):
-    for kw, item in UNPORTED_ARGUMENTS:
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
-            TorchLSHRS(dim=8, device="cpu", **kw)
     for kw in PORTED_ARGUMENTS:
         (key, value), = kw.items()
         tl = TorchLSHRS(dim=8, device="cpu", **kw)

@@ -622,3 +622,59 @@ def test_memory_backend_equals_its_device_twin_on_the_gpu(dev, rng):
     mem.delete(list(range(0, 3000, 7)))
     twin.delete(list(range(0, 3000, 7)))
     assert mem.query_batch(Q, top_k=10) == [twin.query(q, top_k=10) for q in Q]
+
+
+@pytest.mark.parametrize("storage", ["planes", "packed"])
+def test_sharded_store_on_one_card_matches_unsharded(storage, dev, rng):
+    """Four shards on one card (the mesh repeats cuda:0) == the unsharded
+    store on B1, and on B2 (planes) or B3 (packed): each kernel launched
+    once per shard per batch on the shard's contiguous block."""
+    from lshrs_tpu_torch import DeviceStore
+    from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
+
+    kw = dict(num_bands=16, rows_per_band=16, initial_capacity=8192, enable_hamming=True,
+              hamming_storage=storage)
+    sharded = ShardedDeviceStore(mesh=make_mesh(devices=[dev] * 4), **kw)
+    single, cpu = DeviceStore(device=dev, **kw), DeviceStore(device="cpu", **kw)
+    lsh = LSHRS(dim=64, num_perm=256, num_bands=16, rows_per_band=16, seed=3, device="cpu")
+    X = rng.standard_normal((7000, 64)).astype(np.float32)
+    words = lsh._hasher.hash_batch_words_host(X)
+    for s in (sharded, single, cpu):
+        s.add_signature_batch(np.arange(7000), words)
+        s.remove_indices(list(range(0, 7000, 50)))
+    qw = words[:300]
+    b1, hk = gm.group_max_keys, (gm.hamming_group_max_keys if storage == "planes"
+                                 else gm.hamming_packed_group_max_keys)
+    before = b1.launches, hk.launches
+    got_c, got_h = sharded.query_topk(qw, 10), sharded.query_hamming(qw, 10)
+    assert (b1.launches - before[0], hk.launches - before[1]) == (4, 4)
+    for want in (single, cpu):
+        for a, b in zip(got_c + got_h, want.query_topk(qw, 10) + want.query_hamming(qw, 10)):
+            np.testing.assert_array_equal(a, b)
+    assert all(s._sig_t.device.type == "cuda" and s._sig_t.is_contiguous() for s in sharded._shards)
+
+
+def test_kernels_refuse_a_strided_shard_view(dev, rng):
+    """A shard taken as a column slice of one global (BW, C) tensor is a
+    strided view: the CUDA wrappers raise (the plain versions would not),
+    which is why each shard owns contiguous tensors."""
+    c, bw = 8192, 16
+    sig_t = torch.from_numpy(rng.integers(0, 4, (bw, c), dtype=np.int32)).to(dev)
+    tie = _tie(rng, c // 4, dev)
+    qw = sig_t[:, :64].T.contiguous()
+    view = sig_t[:, c // 4 : c // 2]
+    assert not view.is_contiguous()
+    kw = dict(group=64, scale=gm.key_scale(c // 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.group_max_keys(view, tie, qw, num_bands=bw, words=1, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.hamming_packed_group_max_keys(view, tie, qw, num_perm=32 * bw, **kw)
+    planes = torch.ones((c, 512), dtype=torch.int8, device=dev)[:, :256]
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.hamming_group_max_keys(planes[: c // 4], tie, planes[:8].contiguous(), num_perm=256, **kw)
+    # the same block made contiguous launches and equals the plain version
+    block = view.contiguous()
+    np.testing.assert_array_equal(
+        gm.group_max_keys(block, tie, qw, num_bands=bw, words=1, **kw).cpu().numpy(),
+        gm.group_max_keys_ref(block, tie, qw, num_bands=bw, words=1, **kw).cpu().numpy(),
+    )

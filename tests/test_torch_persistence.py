@@ -127,9 +127,9 @@ def test_checkpoints_load_across_packages(direction, case, tmp_path, rng):
 # silent gaussian index (cross-polytope at this banding already fails its
 # geometry check: ValueError); so does MIPS switched on by hand, whose
 # hasher works at dim + 1 against the saved dim-wide projections. A
-# multi-probe depth, a cascade, the bucketed engine and a bucket backend
-# restore as they are (a bucket store's contents live outside the process:
-# index.npz is not read into it).
+# multi-probe depth, a cascade, the bucketed engine, a bucket backend and
+# shards restore as they are (a bucket store's contents live outside the
+# process: index.npz is not read into it).
 @pytest.mark.parametrize("where,change", [
     ("tpu_config", {"hash_family": "crosspolytope"}),
     ("tpu_config", {"shards": 2}),
@@ -154,6 +154,11 @@ def test_unsupported_checkpoint_capabilities_raise(where, change, tmp_path, rng)
     if "multiprobe" in change:
         back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
         assert back.stats()["multiprobe"] == 2
+        assert back.query(X[3], top_k=1) == [3]
+        return
+    if "shards" in change:  # ported: restores sharded over two CPU stand-ins
+        back = TorchLSHRS.load_from_disk(tmp_path / "m", device="cpu")
+        assert back.stats()["index"]["n_shards"] == 2
         assert back.query(X[3], top_k=1) == [3]
         return
     if "hamming_cascade" in change:  # ported: the cascade restores
