@@ -209,7 +209,29 @@ then runs these phases and prints JSON lines as it goes:
       vectors, saved and loaded with ``device="cuda"``: unsharded, with the
       reference's warning, the same ids.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-13
+14. the chunked fallbacks (plain PyTorch, no kernel: the reference's are
+    plain ``jnp``), which rank what the grouped engines cannot:
+    - exact_8m, right after sharded_16m: cascade_8m's 2**23 words (taken
+      before its delete) through ``add_signature_batch`` into
+      ``LSHRS(engine="auto")`` on planes and a ``hamming_storage="packed"``
+      twin, past the int32 key ceiling: self-match 1.0; planes == packed ==
+      a two-shard copy (2**22-row shards ranked by B2 / B3, merged exactly)
+      on 1,024 planted queries; the chunked cores called on the 1M store's
+      tensors == its grouped B2 engine bit for bit; planted recall@10
+      beside cascade_8m's and cascade_8m's agreement@10 with exact ranking;
+      QPS at Q=8192 in turns with cascade_8m (B2 and B3 launched 0 times
+      there); a profile per storage; a 1% delete (no deleted id returned);
+      memory;
+    - bands128_100k, after topp_lifecycle_100k: that index rehashed to
+      128 x 2 = 256 bits (the chunked collision core at 131,072 slots):
+      self-match 1.0 of its alive rows, == a CPU copy on 256 queries, QPS
+      at Q=16,384 beside the 16 x 16 B1 cell's; top-p resolves ``auto`` to
+      the full engine (a pinned gather raises), its recall@10 against
+      exact float32 cosine beside 16 x 16's; then a 16-slot store
+      (``chunk_size=16``, ``initial_capacity=16``, below the group): its
+      answer, self-match, == a CPU copy.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-14
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -2072,10 +2094,13 @@ def phase_cascade_8m(seed: int, label: str) -> dict:
     first_s = time.perf_counter() - t0  # builds the prefix planes and refine table
     qx = keep[:PLAIN_QUERIES] + 0.5 * rng.standard_normal((PLAIN_QUERIES, DIM), dtype=np.float32)
     plain_eq = cascade_checks(lsh, lsh._hasher.hash_batch_words(qx))
-    quality = planted_quality(serve(planted[0]), planted)
+    planted_ids = serve(planted[0])
+    quality = planted_quality(planted_ids, planted)
     queries = [rng.standard_normal((QPS_BATCH_1M, DIM), dtype=np.float32) for _ in range(2)]
     qps = serving_qps(serve, queries, trials=2)
     stats = lsh.stats()["index"]
+    # Phase 14 serves these words by exact ranking: taken before the delete.
+    words = lsh._storage._sig_rows[:N_8M].clone()
     emit("slice_cascade_8m", card=label, capacity=stats["capacity"], alive=stats["alive"],
          hamming_cascade=stats["hamming_cascade"], refine=CASCADE_REFINE,
          prefix_plane_bytes=stats["hamming_plane_bytes"], self_match=sm,
@@ -2099,7 +2124,8 @@ def phase_cascade_8m(seed: int, label: str) -> dict:
          survivor_self_match=sm_after)
     assert leaked == 0 and sm_after == 1.0 and stats["tombstones"] == deleted.size
     return {"quality": quality, "qps": qps, "build_s": build_s, "queries": queries,
-            "serve": lsh.serving_fn(top_k=TOP_K)}
+            "serve": lsh.serving_fn(top_k=TOP_K), "words": words, "keep": keep,
+            "planted": planted, "planted_ids": planted_ids}
 
 
 # ---------------------------------------------------------------------------
@@ -2721,6 +2747,234 @@ def phase_memory_100k(f100: dict, seed: int, label: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the chunked fallbacks (past the int32 key ceiling, past 64 bands,
+# below the group)
+# ---------------------------------------------------------------------------
+
+EXACT_CHECK_QUERIES = 1024
+BANDS128 = (128, 2)
+
+
+def exact_lsh(capacity: int, **kw):
+    """The 16 x 16 index with the reference's ``engine="auto"``: Hamming
+    ranking past 2**19 slots."""
+    from lshrs_tpu_torch import LSHRS
+
+    return LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                 engine="auto", initial_capacity=capacity, device=DEVICE, **kw)
+
+
+def fill_words(store, words: torch.Tensor, ids: np.ndarray) -> None:
+    for s in range(0, len(ids), N_1M):
+        store.add_signature_batch(ids[s : s + N_1M], words[s : s + N_1M])
+
+
+def chunked_equals_grouped_1m(s1m: dict, qx: np.ndarray) -> tuple[bool, int]:
+    """The planes and packed chunked cores called on the 1M store's own
+    tensors (2**20 slots, below the ceiling) == its grouped B2 engine, bit
+    for bit (the reference's ``test_grouped_and_chunked_agree``, on the
+    card). Returns ``(equal, B2 launches of the grouped run)``."""
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys
+    from lshrs_tpu_torch.ops.hamming import (
+        hamming_topk_chunked_core,
+        hamming_topk_packed_chunked_core,
+    )
+    from lshrs_tpu_torch.ops.scan import compute_chunk_ranks
+
+    lsh = s1m["lsh"]
+    store = lsh._storage
+    qw = lsh._hasher.hash_batch_words(qx)
+    grouped, b2 = launched(hamming_group_max_keys, lambda: store.query_hamming(qw, TOP_K))
+    ranks = compute_chunk_ranks(store._ids, chunk=store.chunk)
+    outs = [
+        hamming_topk_chunked_core(store._planes, store._ids, ranks, store._planes_rows(qw),
+                                  k=TOP_K, chunk=store.chunk, num_perm=NUM_PERM),
+        hamming_topk_packed_chunked_core(store._sig_t, store._ids, ranks, qw,
+                                         num_perm=NUM_PERM, k=TOP_K, chunk=store.chunk),
+    ]
+    return all(same(grouped, [t.cpu().numpy() for t in out]) for out in outs), b2
+
+
+def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
+    """cascade_8m's 2**23 words (taken before its delete) in an
+    ``engine="auto"`` planes index and a packed twin: past the int32 key
+    ceiling both rank exactly through the chunked fallbacks (no kernel),
+    held to a two-shard copy whose 2**22-row shards rank by B2 / B3."""
+    from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, hamming_packed_group_max_keys
+    from lshrs_tpu_torch.ops.hamming import supports_hamming_grouped
+    from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
+
+    kernels = (hamming_group_max_keys, hamming_packed_group_max_keys)
+    rng = np.random.default_rng(seed + 70)
+    ids = np.arange(N_8M)
+    lshs = {"planes": exact_lsh(N_8M), "packed": exact_lsh(N_8M, hamming_storage="packed")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lsh in lshs.values():
+        fill_words(lsh._storage, c8m["words"], ids)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    serves = {name: lsh.serving_fn(top_k=TOP_K) for name, lsh in lshs.items()}
+    for name, lsh in lshs.items():
+        st = lsh.stats()
+        idx = st["index"]
+        assert idx["capacity"] == N_8M and idx["alive"] == N_8M, (name, idx)
+        assert st["engine_resolved"] == "hamming" and idx["hamming_storage"] == name, (name, st)
+        assert not supports_hamming_grouped(NUM_PERM, idx["capacity"])
+    first_s, sm = {}, {}
+    for name, serve in serves.items():
+        t0 = time.perf_counter()  # the first batch builds the ranks (and the planes)
+        sm[name] = self_match(serve, [(np.arange(QPS_BATCH_1M), c8m["keep"])], N_8M)
+        first_s[name] = time.perf_counter() - t0
+
+    # 1,024 planted queries: planes == packed == a two-shard copy (2**22-row
+    # shards, B2 / B3 and PR 9's exact merge), ids and distances.
+    pq = c8m["planted"][0][:EXACT_CHECK_QUERIES]
+    qw = lshs["planes"]._hasher.hash_batch_words(pq)
+    res = {name: lsh._storage.query_hamming(qw, TOP_K) for name, lsh in lshs.items()}
+    planes_eq_packed = same(res["planes"], res["packed"])
+    oracle = {}
+    for name, kernel in (("planes", hamming_group_max_keys), ("packed", hamming_packed_group_max_keys)):
+        two = ShardedDeviceStore(mesh=make_mesh(devices=[DEVICE] * 2), num_bands=NUM_BANDS,
+                                 rows_per_band=ROWS, enable_hamming=True, hamming_storage=name,
+                                 initial_capacity=N_8M, dedupe=False)
+        fill_words(two, c8m["words"], ids)
+        assert two._use_grouped() and two._local_rows() == N_4M
+        got, n = launched(kernel, lambda: two.query_hamming(qw, TOP_K))
+        oracle[name] = {"equal": same(got, res[name]), "kernel_launches": n}
+        del two
+    grouped_eq, grouped_b2 = chunked_equals_grouped_1m(
+        s1m, s1m["keep"][:EXACT_CHECK_QUERIES]
+        + 0.5 * rng.standard_normal((EXACT_CHECK_QUERIES, DIM), dtype=np.float32))
+
+    # Quality: planted recall beside cascade_8m's on the same queries and
+    # truth, and the cascade's agreement@10 with exact ranking at 2**23.
+    exact_ids = serves["planes"](c8m["planted"][0])
+    quality = planted_quality(exact_ids, c8m["planted"])
+    agree = agreement_at_10(c8m["planted_ids"], exact_ids)
+
+    # QPS at Q=8192 in turns with cascade_8m (two trials of one batch: a
+    # chunked batch takes seconds); B2 / B3 launches over the timed serving
+    # of the chunked route.
+    queries = c8m["queries"][:1]
+    qps, timed = {}, {}
+    for name in ("planes", "packed", "cascade_8m", "cascade_8m", "packed", "planes"):
+        fn = serves.get(name, c8m["serve"])
+        before = [k.launches for k in kernels]
+        qps.setdefault(name, []).append(serving_qps(fn, queries, trials=2))
+        if name in serves:
+            n = [k.launches - b for k, b in zip(kernels, before)]
+            timed[name] = [a + b for a, b in zip(timed.get(name, [0, 0]), n)]
+    profiles = {name: serving_profile(serve, queries[:1]) for name, serve in serves.items()}
+
+    deleted = rng.choice(N_8M, N_8M // 100, replace=False)
+    kept = ~np.isin(np.arange(QPS_BATCH_1M), deleted)
+    after = {}
+    for name, lsh in lshs.items():
+        lsh.delete(deleted.tolist())
+        out = lsh.serving_fn(top_k=TOP_K)(c8m["keep"])
+        after[name] = {"deleted_ids_returned": int(np.isin(out, deleted).sum()),
+                       "survivor_self_match": float((out[kept, 0] == np.arange(QPS_BATCH_1M)[kept]).mean()),
+                       "tombstones": lsh.stats()["index"]["tombstones"]}
+    emit("slice_exact_8m", card=label, capacity=N_8M, alive=N_8M,
+         supports_hamming_grouped=False, fill_s=fill_s, self_match=sm, first_batch_s=first_s,
+         check_queries=EXACT_CHECK_QUERIES, planes_equal_packed=planes_eq_packed,
+         two_shard_oracle=oracle, chunked_equals_grouped_b2_1m=grouped_eq,
+         grouped_b2_launches_1m=grouped_b2, **quality, cascade_8m_planted=c8m["quality"],
+         cascade_8m_agreement_at_10_with_exact=agree, qps=qps, batch=QPS_BATCH_1M,
+         timed_b2_b3_launches=timed, delete=after, deleted=int(deleted.size),
+         hamming_plane_bytes=lshs["planes"].stats()["index"]["hamming_plane_bytes"],
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for name, prof in profiles.items():
+        emit("profile", card=label, rows=N_8M, batch=QPS_BATCH_1M, engine="hamming",
+             hamming_storage=name, route="chunked", **prof)
+    assert sm == {"planes": 1.0, "packed": 1.0}, sm
+    assert planes_eq_packed and grouped_eq and grouped_b2 > 0, (planes_eq_packed, grouped_eq)
+    assert all(o["equal"] and o["kernel_launches"] > 0 for o in oracle.values()), oracle
+    assert all(n == [0, 0] for n in timed.values()), timed
+    for name, a in after.items():
+        assert a["deleted_ids_returned"] == 0 and a["survivor_self_match"] == 1.0, (name, a)
+        assert a["tombstones"] == deleted.size, (name, a)
+    return {"qps": qps, "quality": quality}
+
+
+def phase_bands128_100k(t100: dict, qps_16x16: float, seed: int, label: str) -> None:
+    """The topp_100k index (after its lifecycle's 1,000-id delete) rehashed
+    to 128 x 2 = 256 bits: top-k through the chunked collision core at 128
+    bands (131,072 slots, below the auto switch), top-p on the full engine;
+    then a 16-slot store, below the group."""
+    from lshrs_tpu_torch import LSHRS
+
+    lsh, X = t100["lsh"], t100["X"]
+    store = lsh._storage
+    rng = np.random.default_rng(seed + 80)
+    alive = store._ids[: store._size]
+    alive = alive[alive >= 0].cpu().numpy()
+    # Top-p recall@10 against exact float32 cosine over the alive rows, at
+    # 16 x 16 and after the rehash, on the same queries.
+    qx = X[rng.choice(alive, TOPP_QUERIES, replace=False)]
+    qx = qx + 0.5 * rng.standard_normal(qx.shape, dtype=np.float32)
+    exact = RunningTruth(qx)
+    exact.add(torch.from_numpy(X[alive]).to(DEVICE), 0)
+    truth = alive[exact.truth()]
+    del exact
+    topp = lambda: lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=TOPP_BATCH_100K)  # noqa: E731
+    recall = {"16x16": recall_at_10(topp()(qx)[0], truth)}
+    t0 = time.perf_counter()
+    lsh.rehash(num_bands=BANDS128[0], rows_per_band=BANDS128[1])
+    torch.cuda.synchronize()
+    rehash_s = time.perf_counter() - t0
+    stats = lsh.stats()
+    assert store.num_bands == BANDS128[0] and store.words == BANDS128[0], store.words
+    assert not stats["index"]["fast_path"] and stats["ranking"] == "collision", stats
+    engine = store._resolve_rerank_engine(None, None)[0]
+    try:
+        store._resolve_rerank_engine("gather", None)
+        gather_raises = False
+    except RuntimeError:
+        gather_raises = True
+    recall["128x2"] = recall_at_10(topp()(qx)[0], truth)
+
+    serve = lsh.serving_fn(top_k=TOP_K)
+    t0 = time.perf_counter()
+    batches = [(alive[s : s + QPS_BATCH_100K], X[alive[s : s + QPS_BATCH_100K]])
+               for s in range(0, alive.size, QPS_BATCH_100K)]
+    sm = self_match(serve, batches, N_100K)
+    sm_s = time.perf_counter() - t0
+    qw = lsh._hasher.hash_batch_words(qx[:CARRY_QUERIES])
+    cpu = carry_to_cpu(store)
+    t0 = time.perf_counter()
+    cpu_eq = same(store.query_topk(qw, TOP_K), cpu.query_topk(qw.cpu(), TOP_K))
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    queries = [rng.standard_normal((QPS_BATCH_100K, DIM), dtype=np.float32) for _ in range(2)]
+    qps = serving_qps(serve, queries, trials=2)
+    emit("slice_bands128_100k", card=label, bands=BANDS128[0], rows_per_band=BANDS128[1],
+         words=store.words, capacity=stats["index"]["capacity"], alive=int(alive.size),
+         fast_path=stats["index"]["fast_path"], rehash_s=rehash_s, self_match=sm,
+         self_match_s=sm_s, cpu_queries=CARRY_QUERIES, equals_cpu=cpu_eq, cpu_s=cpu_s,
+         qps=qps, batch=QPS_BATCH_100K, qps_16x16_b1=qps_16x16, topp_engine=engine,
+         topp_gather_raises=gather_raises, topp_recall_at_10=recall, topp_queries=TOPP_QUERIES)
+    assert sm == 1.0 and cpu_eq and engine == "full" and gather_raises, (sm, cpu_eq, engine)
+
+    # 16 slots (chunk_size=16, initial_capacity=16), below the group of 32.
+    tiny = LSHRS(dim=DIM, num_perm=NUM_PERM, num_bands=NUM_BANDS, rows_per_band=ROWS,
+                 initial_capacity=16, chunk_size=16, device=DEVICE)
+    xt = rng.standard_normal((12, DIM), dtype=np.float32)
+    tiny.index(np.arange(12), xt)
+    out = tiny.serving_fn(top_k=TOP_K)(xt)
+    qt = tiny._hasher.hash_batch_words(xt)
+    tiny_eq = same(tiny._storage.query_topk(qt, TOP_K), carry_to_cpu(tiny._storage).query_topk(qt.cpu(), TOP_K))
+    tstats = tiny.stats()["index"]
+    emit("slice_tiny_16", capacity=tstats["capacity"], group_size=tiny._storage.group,
+         fast_path=tstats["fast_path"], self_match=float((out[:, 0] == np.arange(12)).mean()),
+         equals_cpu=tiny_eq, answer=out[:2].tolist())
+    assert tstats["capacity"] == 16 and not tstats["fast_path"] and tiny_eq
+    assert (out[:, 0] == np.arange(12)).all(), out
+
+
+# ---------------------------------------------------------------------------
 # phase 13: sharding (four shards on the one card)
 # ---------------------------------------------------------------------------
 
@@ -3155,7 +3409,11 @@ def main() -> int:
     emit("build", card=label, rows=N_16M, batch=INGEST_BATCH, vectors_per_s=N_16M / s16m["build_s"],
          seconds=s16m["build_s"], note="four shards on the card; includes drawing the data on the "
          "card and its round trip through the host")
-    del c8m, s16m
+    del s16m
+    # Phase 14: cascade_8m's words ranked exactly through the chunked
+    # fallbacks, in turns with cascade_8m; the oracles launch B2 / B3.
+    drive("exact_8m", (B2, B3), lambda: phase_exact_8m(c8m, s1m, args.seed, label))
+    del c8m
 
     # Phase 11 (the bucketed engine): the 100k and 1M words, before the
     # lifecycle mutates the 100k index.
@@ -3221,6 +3479,8 @@ def main() -> int:
     del t1m
     drive("mips_100k", B1, lambda: phase_mips_100k(t100, args.seed, label))
     drive("topp_lifecycle_100k", "group_max_keys", lambda: phase_topp_lifecycle(t100, args.seed))
+    # Phase 14: the same index rehashed past 64 bands, and a 16-slot store.
+    drive("bands128_100k", (), lambda: phase_bands128_100k(t100, qps_100k, args.seed, label))
     del t100
     drive("family_lifecycle_100k", B1, lambda: phase_family_lifecycle(args.seed),
           b1_shapes=[(NUM_BANDS, 2), (CP_BANDS, 2), (CP_BANDS, 4)])

@@ -27,8 +27,10 @@ pipeline. The bucket backends of the reference run on the host:
 Sharding: ``LSHRS(shards=N)`` and `lshrs_tpu_torch.parallel`
 (``make_mesh``, ``ShardedDeviceStore``) split the slots over devices, or
 over one card repeated, and merge every shard's exact top-k.
-Not ported: the single-pass engines past the int32 key ceiling of a store
-or a shard (they raise ``NotImplementedError``).
+Past the grouped engines' int32 key ceiling of a store or a shard, with
+more than 64 bands or below the group size, queries rank through the
+chunked fallbacks (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the
+Hamming and asymmetric chunked cores), as the reference's do.
 """
 
 import importlib.metadata

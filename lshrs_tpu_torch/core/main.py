@@ -58,11 +58,10 @@ Same public contract as the reference for these paths: validation
 messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
 rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 ``_AUTO_HAMMING_CAPACITY`` slots (pinned and persisted), and
-buffer-restore-on-failed-flush semantics.
-
-Not ported yet (the argument that asks for one raises
-``NotImplementedError`` naming its ROADMAP Queue A item): sharding (item
-7) and the single-pass engines past the int32 key ceiling (item 8).
+buffer-restore-on-failed-flush semantics. Stores past the grouped
+engines' int32 key ceiling (more than 2**22 slots at 256 bits), with more
+than 64 bands or below the group size rank through the chunked fallbacks,
+as the reference's do.
 """
 
 from __future__ import annotations

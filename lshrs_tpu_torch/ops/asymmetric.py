@@ -26,8 +26,11 @@ Formulation (the same int8 kernel as symmetric Hamming, B2):
   top-k slot can be displaced only by one whose shifted key ties it: a
   dot gap under ``2**shift`` (32 of ±32512 at 2**20 slots).
 
-Not ported yet: the chunked-selection core (ROADMAP Queue A item 8), used
-by the reference only where the capacity is not a multiple of the group.
+The chunked core (:func:`asymmetric_topk_chunked_core`) takes the stores
+whose capacity is not a multiple of the group, as the reference's does:
+keys ``(dots + offset + 1) * chunk + (chunk - 1 - rank)`` with each slot's
+id rank within its chunk, which pack into int32 with no shift, so its
+order is the exact ``(dots desc, id asc)``.
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ import numpy as np
 import torch
 
 from lshrs_tpu_torch.ops.group_max import asymmetric_shift, hamming_group_max_keys, key_scale
-from lshrs_tpu_torch.ops.scan import gather_refine
+from lshrs_tpu_torch.ops.hamming import int8_dots
+from lshrs_tpu_torch.ops.scan import chunk_key_terms, chunk_step, chunked_topk_scan, gather_refine
 
 __all__ = [
     "QMAX",
     "QMAX4",
     "asymmetric_shift",
+    "asymmetric_topk_chunked_core",
     "asymmetric_topk_core",
     "pack_coords_int4_np",
     "quantize_coords",
@@ -251,3 +256,51 @@ def asymmetric_topk_core(
     return _exact_pool_order(
         dots, cand_ids.reshape(q, -1), cand_tie.reshape(q, -1) >= 0, k, offset
     )
+
+
+def asymmetric_topk_chunked_core(
+    planes: torch.Tensor,
+    ids: torch.Tensor,
+    ranks: torch.Tensor,
+    qcoords: torch.Tensor,
+    *,
+    k: int,
+    chunk: int,
+    qmax: int = QMAX,
+    num_perm: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k by (asymmetric dot desc, id asc), chunked selection (the
+    fallback where the capacity is not a multiple of the group).
+
+    The key ``(dots + offset + 1) * chunk + (chunk - 1 - rank)``, ``offset
+    = P * qmax``, packs into int32 with no shift (at chunk 2048 and
+    ``P * qmax = 32512``), so the order is exact in the unquantised dots.
+
+    Args:
+        planes: ``(C, Pp)`` int8 +-1 store bitplanes, zero past ``num_perm``
+            columns; C a multiple of ``chunk``.
+        ids / ranks: ``(C,)`` int32 slot ids (-1 dead) and id ranks within
+            each chunk (`lshrs_tpu_torch.ops.scan.compute_chunk_ranks`).
+        qcoords: ``(Q, Pp)`` int8 quantised coordinates, zero-padded like
+            ``planes``.
+        num_perm: signature bits P (default ``Pp``).
+
+    Returns:
+        ``(dots (Q, k) int32, ids (Q, k) int32)``; empty tail entries carry
+        id -1 and dots ``-(P * qmax + 1)``.
+    """
+    p = planes.shape[1] if num_perm is None else num_perm
+    offset = p * qmax
+    if (2 * offset + 2) * chunk >= 2**31:
+        raise ValueError(
+            f"chunk {chunk} too wide for exact asymmetric packing at "
+            f"num_perm*qmax={offset}"
+        )
+    q = qcoords.shape[0]
+    mult, bias = chunk_key_terms(ids, ranks, mult=chunk, bias=(offset + 1) * chunk, chunk=chunk)
+
+    def keys(s: int, e: int) -> torch.Tensor:
+        return torch.addcmul(bias[None, s:e], int8_dots(qcoords, planes[s:e]), mult[None, s:e])
+
+    scaled, out_ids = chunked_topk_scan(keys, ids, q=q, k=k, chunk=chunk, step=chunk_step(q, chunk))
+    return torch.where(out_ids >= 0, scaled - offset - 1, -(offset + 1)), out_ids

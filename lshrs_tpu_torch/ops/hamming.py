@@ -22,8 +22,18 @@ the packed words (XOR + popcount), gathered from the grouped refine table.
 The refinement cascade (:func:`hamming_topk_cascade_core`) runs B2 on a
 prefix of the bitplanes, refines a deep pool of groups at full width, and
 keys its refine in int64 past the int32 ceiling: it serves stores the
-single-pass engines cannot. Not ported yet: the single-pass engines'
-chunked fallbacks past that ceiling (ROADMAP Queue A item 8).
+single-pass engines cannot.
+
+The chunked cores (:func:`hamming_topk_chunked_core` on bitplanes,
+:func:`hamming_topk_packed_chunked_core` on packed words) serve the rest
+of those stores exactly: past the int32 ceiling (more than 2**22 slots at
+256 bits) and below the group. Their keys embed each slot's id rank
+within its chunk (`lshrs_tpu_torch.ops.scan.chunked_topk_scan`); the
+dots are one exact int8 product per step (:func:`int8_dots`,
+``torch._int_mm``). The packed core unpacks each step's words to +-1
+planes over all ``32 * BW`` bits, where ``hamming = (32 * BW - dot) / 2``
+(unused high bits are zero on both sides and agree), so no bitplane array
+outlives a step.
 """
 
 from __future__ import annotations
@@ -36,14 +46,23 @@ from lshrs_tpu_torch.ops.group_max import (
     hamming_packed_group_max_keys,
     key_scale,
 )
-from lshrs_tpu_torch.ops.scan import gather_refine_group_rows, gather_refine_slots
+from lshrs_tpu_torch.ops.scan import (
+    chunk_key_terms,
+    chunk_step,
+    chunked_topk_scan,
+    gather_refine_group_rows,
+    gather_refine_slots,
+)
 
 __all__ = [
     "cascade_coarse_scale",
     "cascade_slice_queries",
     "hamming_topk_cascade_core",
+    "hamming_topk_chunked_core",
     "hamming_topk_core",
+    "hamming_topk_packed_chunked_core",
     "hamming_topk_packed_core",
+    "int8_dots",
     "plane_width",
     "popcount32",
     "supports_hamming_grouped",
@@ -217,8 +236,9 @@ def _select_refine(
     wide = (p + 2) * scale >= 2**31
     if wide and m_groups is None:
         raise NotImplementedError(
-            "Hamming ranking past the int32 key ceiling needs the chunked "
-            "fallback or int64 keys (ROADMAP Queue A item 8)"
+            "the single-pass Hamming engines' keys are int32: past the "
+            "ceiling rank with hamming_topk_chunked_core or "
+            "hamming_topk_packed_chunked_core"
         )
     m = min(k if m_groups is None else max(k, m_groups), ng)
     top_groups = torch.topk(gmax, m, dim=1).indices
@@ -329,4 +349,118 @@ def hamming_topk_cascade_core(
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
         sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups,
+    )
+
+
+def int8_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ b.T`` of int8 ``(m, K)`` and ``(n, K)`` operands, ``(m, n)``
+    int32, by ``torch._int_mm``. Its CUDA route needs more than 16 rows and
+    ``K``, ``n`` multiples of 8: ``a``'s rows are zero-padded to a multiple
+    of 8 past 16 and ``b``'s rows to a multiple of 8 (zero rows and
+    columns add nothing); ``b.T`` is the column-major operand it takes."""
+    m, kdim = a.shape
+    n = b.shape[0]
+    if kdim % 8:
+        raise ValueError(f"K={kdim} must be a multiple of 8")
+    mp = max(24, -(-m // 8) * 8)
+    np_ = -(-n // 8) * 8
+    if mp != m:
+        a = torch.nn.functional.pad(a, (0, 0, 0, mp - m))
+    if np_ != n:
+        b = torch.nn.functional.pad(b, (0, 0, 0, np_ - n))
+    out = torch._int_mm(a, b.T)
+    return out[:m, :n] if (mp, np_) != (m, n) else out
+
+
+def _hamming_chunked(dots_of, ids, ranks, *, q, k, chunk, step, offset, p):
+    """Shared tail of the Hamming chunked cores: ``dots_of(s, e)`` gives the
+    ``(Q, e - s)`` int32 dots with ``dots + offset = 2 * (P + 1 - hamming)``
+    at every alive slot. The key ranks that doubled similarity, ``(dots +
+    offset) * chunk + (chunk - 1 - rank)``: one fused multiply-add per
+    step, the same order as the reference's halved key."""
+    mult, bias = chunk_key_terms(ids, ranks, mult=chunk, bias=offset * chunk, chunk=chunk)
+
+    def keys(s, e):
+        return torch.addcmul(bias[None, s:e], dots_of(s, e), mult[None, s:e])
+
+    scaled2, out_ids = chunked_topk_scan(keys, ids, q=q, k=k, chunk=chunk, step=step)
+    return torch.where(out_ids >= 0, p + 1 - scaled2 // 2, p + 1), out_ids
+
+
+def hamming_topk_chunked_core(
+    planes: torch.Tensor,
+    ids: torch.Tensor,
+    ranks: torch.Tensor,
+    qbits: torch.Tensor,
+    *,
+    k: int,
+    chunk: int,
+    num_perm: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (hamming asc, id asc) on bitplanes, chunked selection
+    (the fallback where the grouped key does not pack into int32, or the
+    capacity is below the group).
+
+    Args:
+        planes: ``(C, Pp)`` int8 +-1 store bitplanes, zero past ``num_perm``
+            columns (``Pp`` a multiple of 8); C a multiple of ``chunk``.
+        ids: ``(C,)`` int32 slot ids, -1 dead.
+        ranks: ``(C,)`` int32 id rank within each chunk
+            (`lshrs_tpu_torch.ops.scan.compute_chunk_ranks`).
+        qbits: ``(Q, Pp)`` int8 query bits, padded like ``planes``.
+        num_perm: signature bits P (default ``Pp``): the padding columns
+            add nothing to the dot, but the distance is ``P``'s.
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry id
+        -1 and hamming P+1.
+    """
+    p = planes.shape[1] if num_perm is None else num_perm
+    q = qbits.shape[0]
+    # dots = P - 2 * hamming.
+    return _hamming_chunked(
+        lambda s, e: int8_dots(qbits, planes[s:e]), ids, ranks,
+        q=q, k=k, chunk=chunk, step=chunk_step(q, chunk), offset=p + 2, p=p,
+    )
+
+
+def hamming_topk_packed_chunked_core(
+    sig_t: torch.Tensor,
+    ids: torch.Tensor,
+    ranks: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_perm: int,
+    k: int,
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (hamming asc, id asc) from PACKED words, chunked
+    selection; results equal :func:`hamming_topk_chunked_core`'s.
+
+    Each step unpacks its slots' words to +-1 int8 over all ``32 * BW``
+    bits and takes one int8 product with the query's bits, ``dot = 32 * BW
+    - 2 * hamming`` (bits past a band's rows are zero in both words), so
+    the store keeps no bitplanes.
+
+    Args:
+        sig_t: ``(BW, C)`` int32 transposed signatures; C a multiple of
+            ``chunk``.
+        ids / ranks: as for :func:`hamming_topk_chunked_core`.
+        qwords: ``(Q, BW)`` int32 query words.
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry id
+        -1 and hamming ``num_perm + 1``.
+    """
+    bw = sig_t.shape[0]
+    q = qwords.shape[0]
+    # Each word unpacked as a band of 32 rows: dots = 32 * BW - 2 * hamming.
+    qbits = unpack_bitplanes(qwords, num_bands=bw, rows_per_band=32)
+    return _hamming_chunked(
+        lambda s, e: int8_dots(
+            qbits, unpack_bitplanes(sig_t[:, s:e].T, num_bands=bw, rows_per_band=32)
+        ),
+        ids, ranks,
+        q=q, k=k, chunk=chunk, step=chunk_step(q, chunk, slot_bytes=8 * 32 * bw),
+        offset=2 * (num_perm + 1) - 32 * bw, p=num_perm,
     )

@@ -26,8 +26,18 @@ engine) and :func:`collision_nnz_core` (each query's number of colliding
 candidates, without the ``(Q, C)`` matrix), both plain PyTorch stepped
 over the slot axis.
 
-Not ported yet: the chunked fallback engine for stores whose key does
-not pack into int32 (ROADMAP Queue A).
+The chunked fallback (:func:`collision_topk_core`) serves the stores the
+grouped key cannot: more than 64 bands, a key past int32
+(``(num_bands + 1) * key_scale(C) >= 2**31``) or a capacity below the
+group. Its keys embed each slot's rank WITHIN its ``chunk``-slot chunk
+(:func:`compute_chunk_ranks`), ``key = count * chunk + (chunk - 1 -
+rank)``, which packs into int32 at any capacity; each chunk's top
+``min(k, chunk)`` goes to a running exact merge by ``(count desc, id
+asc)`` (:func:`merge_topk_pools`). :func:`chunked_topk_scan` is the
+selection shared with the Hamming and asymmetric chunked cores: it steps
+over the slot axis at :func:`chunk_step` slots, one ``torch.topk`` over
+the ``(Q, chunks, chunk)`` keys per step, so the ``(Q, C)`` matrix never
+exists.
 """
 
 from __future__ import annotations
@@ -45,9 +55,14 @@ from lshrs_tpu_torch.ops.group_max import (
 __all__ = [
     "band_counts_t",
     "build_grouped_refine_rows",
+    "chunk_key_terms",
+    "chunk_step",
+    "chunked_topk_scan",
     "collision_counts_core",
     "collision_nnz_core",
+    "collision_topk_core",
     "collision_topk_grouped_core",
+    "compute_chunk_ranks",
     "count_step",
     "gather_refine",
     "gather_refine_group_rows",
@@ -73,6 +88,17 @@ def count_step(q: int, floor: int) -> int:
     return max(floor, _COUNT_STEP_PAIRS // max(1, q))
 
 
+def chunk_step(q: int, chunk: int, *, slot_bytes: int = 0) -> int:
+    """Slots per step of the chunked cores for a ``q``-query batch: about
+    :func:`count_step`'s ``(Q, slots)`` int32 keys, and at most ~1 GiB of
+    ``slot_bytes``-byte per-slot temporaries (the packed core's unpacked
+    bits), in whole chunks."""
+    step = count_step(q, chunk)
+    if slot_bytes:
+        step = min(step, (1 << 30) // slot_bytes)
+    return max(chunk, step // chunk * chunk)
+
+
 def merge_topk_pools(
     pool_counts: torch.Tensor, pool_ids: torch.Tensor, *, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,6 +118,88 @@ def merge_topk_pools(
         counts_out = torch.nn.functional.pad(counts_out, (0, k - out_k))
         ids_out = torch.nn.functional.pad(ids_out, (0, k - out_k), value=-1)
     return counts_out, ids_out
+
+
+def chunked_topk_scan(keys, ids, *, q: int, k: int, chunk: int, step: int):
+    """Exact top-k of chunk-ranked selection keys, ``(scaled (Q, k), ids
+    (Q, k))`` int32, ordered by ``(scaled desc, id asc)``.
+
+    ``keys(s, e)`` returns the ``(Q, e - s)`` int32 keys ``scaled * chunk +
+    (chunk - 1 - rank)`` of slots ``[s, e)``, ``scaled`` 0 at a dead slot
+    and ``rank`` the slot's id rank within its chunk: within a chunk the
+    keys are distinct, so ``torch.topk``'s order among equal values never
+    matters. ``ids``: ``(C,)`` int32, ``C`` a multiple of ``chunk``;
+    ``step`` a multiple of ``chunk``. Each step's per-chunk top
+    ``min(k, chunk)`` folds into a running top-k through
+    :func:`merge_topk_pools`, whose ``(-scaled, id)`` order is total, so
+    the running merge equals one merge of every chunk's pool; empty
+    entries (scaled 0) carry id -1.
+    """
+    c = ids.shape[0]
+    kc = min(k, chunk)
+    best = None
+    for s in range(0, c, step):
+        e = min(c, s + step)
+        nc = (e - s) // chunk
+        top_key, top_pos = keys(s, e).view(q, nc, chunk).topk(kc, dim=-1)
+        pool_ids = ids[s:e].view(1, nc, chunk).expand(q, nc, chunk).gather(2, top_pos)
+        pool_scaled = (top_key // chunk).reshape(q, nc * kc)
+        pool_ids = pool_ids.reshape(q, nc * kc)
+        if best is not None:
+            pool_scaled = torch.cat([best[0], pool_scaled], dim=1)
+            pool_ids = torch.cat([best[1], pool_ids], dim=1)
+        best = merge_topk_pools(pool_scaled, pool_ids, k=k)
+    return best
+
+
+def chunk_key_terms(ids: torch.Tensor, ranks: torch.Tensor, *, mult: int, bias: int, chunk: int):
+    """Per-slot ``(m, b)`` of the affine chunked key ``value * m + b``:
+    ``m = mult``, ``b = bias + chunk - 1 - rank`` at alive slots, and ``m =
+    0``, ``b = chunk - 1 - rank`` at dead ones (scaled 0)."""
+    alive = ids >= 0
+    rev = chunk - 1 - ranks
+    return (
+        torch.where(alive, mult, 0).to(torch.int32),
+        torch.where(alive, rev + bias, rev).to(torch.int32),
+    )
+
+
+def collision_topk_core(
+    sig_t: torch.Tensor,
+    ids: torch.Tensor,
+    ranks: torch.Tensor,
+    qwords: torch.Tensor,
+    *,
+    num_bands: int,
+    k: int,
+    chunk: int,
+    probes: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (count desc, id asc), chunked selection (the
+    fallback where the grouped key cannot run: more than 64 bands, a key
+    past int32, a capacity below the group).
+
+    Args:
+        sig_t: ``(BW, C)`` int32 transposed signatures, C a multiple of
+            ``chunk``.
+        ids: ``(C,)`` int32 slot ids, -1 for dead / empty slots.
+        ranks: ``(C,)`` int32 rank of each slot's id within its chunk
+            (:func:`compute_chunk_ranks`).
+        qwords: ``(Q, probes * BW)`` int32, probe-major (see
+            :func:`band_counts_t`, which loops over any number of bands).
+
+    Returns:
+        ``(counts, ids)``, each ``(Q, k)`` int32; zero-count tail entries
+        carry id -1.
+    """
+    q = qwords.shape[0]
+    mult, bias = chunk_key_terms(ids, ranks, mult=chunk, bias=0, chunk=chunk)
+
+    def keys(s: int, e: int) -> torch.Tensor:
+        counts = band_counts_t(sig_t[:, s:e], qwords, num_bands, probes)
+        return torch.addcmul(bias[None, s:e], counts, mult[None, s:e])
+
+    return chunked_topk_scan(keys, ids, q=q, k=k, chunk=chunk, step=chunk_step(q, chunk))
 
 
 def build_grouped_refine_rows(sig_rows_ext: torch.Tensor, *, group: int) -> torch.Tensor:
@@ -335,6 +443,19 @@ def collision_nnz_core(
         counts = band_counts_t(sig_t[:, s:e], qwords, num_bands, probes)
         acc += ((counts > 0) & (ids[None, s:e] >= 0)).sum(dim=1, dtype=torch.int32)
     return acc
+
+
+def compute_chunk_ranks(ids: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """Rank of each slot's id within its chunk (dead slots included),
+    ``(C,)`` int32: order-isomorphic to the ids among a chunk's slots, all
+    the chunked cores need for exact id tie-breaking. The sort is stable,
+    like the reference's ``jnp.argsort``, so duplicate ids (``dedupe=False``)
+    rank by slot."""
+    c = ids.shape[0]
+    order = torch.argsort(ids.reshape(c // chunk, chunk), dim=1, stable=True)
+    ranks = torch.empty_like(order)
+    ranks.scatter_(1, order, torch.arange(chunk, device=ids.device).expand_as(order))
+    return ranks.reshape(c).to(torch.int32)
 
 
 def global_tie_core(ids: torch.Tensor) -> torch.Tensor:

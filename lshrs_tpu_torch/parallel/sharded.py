@@ -7,7 +7,10 @@ reference's placement (`lshrs_tpu/parallel/sharded.py`). Each shard is a
 `DeviceStore` of ``L`` slots on its own device that owns its tensors
 outright (transposed words, rows, ids, tie keys, bitplanes, payload,
 refine table), all contiguous, so every kernel (B1, B2, B3) runs on a
-shard's whole block as it would on an unsharded store of ``L`` slots. A
+shard's whole block as it would on an unsharded store of ``L`` slots; a
+shard the grouped engines cannot take (past the int32 key ceiling, more
+than 64 bands) ranks through its own store's chunked route, with
+shard-local chunk ranks, as the reference's ``_sharded_*`` cores do. A
 query runs as:
 
     query words to every shard  ->  shard-local scan + exact local top-k
@@ -158,7 +161,8 @@ class ShardedDeviceStore(DeviceStore):
     def _query_dev_batch(self) -> int:
         """Queries per slice of a serving batch: one shard's group-max keys
         ``(Q, L / group)`` int32 stay near 2 GiB (8,192 queries at 2^22
-        rows per shard, group 64)."""
+        rows per shard, group 64). A chunked shard bounds its own steps
+        (`lshrs_tpu_torch.ops.scan.chunk_step`)."""
         groups = self._local_rows() // min(self.group, self._local_rows())
         return max(1, (1 << 31) // (4 * groups))
 

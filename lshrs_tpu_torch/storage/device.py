@@ -10,6 +10,8 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         sig_rows (capacity, num_bands * W)  int32  row-major twin
         ids      (capacity,)                int32  vector id, -1 = dead
         tie      (capacity,)                int32  global id-rank key
+        ranks    (capacity,)                int32  id rank within each chunk
+                                                   (chunked routes, lazy)
         planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily); Pp is num_perm
@@ -37,9 +39,12 @@ engine on kernel B1). Collision counting and top-p take multi-probe query
 words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
 every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
 the kernels read the filtered tie column, refinement gathers per slot).
-Stores the single-pass engines cannot take — a selection key
-past int32, more than 64 bands — raise ``NotImplementedError`` (ROADMAP
-Queue A item 8: the chunked fallback or int64 keys).
+Stores the grouped engines cannot take — a selection key past int32
+(more than 2**22 slots at 256 bits), more than 64 bands, a capacity
+below the group — rank through the chunked fallbacks, as the reference's
+do (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the Hamming and
+asymmetric chunked cores: keys embed each slot's id rank within its
+chunk, ``ranks``, computed on first use). They launch no kernel.
 
 Mutation model: appends write the tail in place; re-ingesting an id
 overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
@@ -76,6 +81,7 @@ from lshrs_tpu_torch.ops.asymmetric import (
     QMAX,
     QMAX4,
     asymmetric_shift,
+    asymmetric_topk_chunked_core,
     asymmetric_topk_core,
     unpack_coords_int4,
 )
@@ -83,7 +89,9 @@ from lshrs_tpu_torch.ops.bucketed import bucketed_topk, build_bucket_index
 from lshrs_tpu_torch.ops.hamming import (
     cascade_slice_queries,
     hamming_topk_cascade_core,
+    hamming_topk_chunked_core,
     hamming_topk_core,
+    hamming_topk_packed_chunked_core,
     hamming_topk_packed_core,
     plane_width,
     supports_hamming_grouped,
@@ -98,7 +106,9 @@ from lshrs_tpu_torch.ops.scan import (
     build_grouped_refine_rows,
     collision_counts_core,
     collision_nnz_core,
+    collision_topk_core,
     collision_topk_grouped_core,
+    compute_chunk_ranks,
     count_step,
     global_tie_core,
     supports_fast_path,
@@ -114,10 +124,6 @@ _PAYLOAD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8":
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
 
 
 def _cast_payload_rows(
@@ -310,6 +316,8 @@ class DeviceStore(BaseStorage):
         self._sig_rows = torch.zeros((cap, self.words), dtype=torch.int32, device=dev)
         self._ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        # Id ranks within each chunk: only the chunked routes read them.
+        self._ranks: torch.Tensor | None = None
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
         # Sorted per-band bucket index (query_mode="bucket"), lazy.
         self._bucket_index: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -407,6 +415,7 @@ class DeviceStore(BaseStorage):
     def _refresh_ranks(self) -> None:
         """Mark selection keys stale after a mutation (recomputed lazily)."""
         self._ranks_dirty = True
+        self._ranks = None
         self._refine = None
         self._bucket_index = None
         self._generation += 1
@@ -416,6 +425,15 @@ class DeviceStore(BaseStorage):
         if self._ranks_dirty:
             self._tie = global_tie_core(self._ids)
             self._ranks_dirty = False
+
+    def _chunk_ranks(self) -> torch.Tensor:
+        """The chunked routes' id ranks within each chunk, computed on first
+        use after a mutation (call under the lock). Under ``where=`` they go
+        in with the filtered ids, as the reference's do: a filtered-out
+        slot scores 0 whatever its rank."""
+        if self._ranks is None:
+            self._ranks = compute_chunk_ranks(self._ids, chunk=self.chunk)
+        return self._ranks
 
     def _ensure_planes(self) -> None:
         """Build the int8 bitplanes on first Hamming use (call under the
@@ -803,7 +821,9 @@ class DeviceStore(BaseStorage):
         ones (it bakes in the unfiltered tie column), stores past
         `supports_fast_path` (its key packs into int32) and ``bucket=False``
         (serving closures, as the reference's snapshot closes over the scan
-        state only): those take the scan (kernel B1)."""
+        state only): those take the scan — kernel B1, or the chunked core
+        where the grouped key cannot run (past int32, more than 64 bands,
+        below the group)."""
         if (
             bucket
             and self.query_mode == "bucket"
@@ -824,13 +844,14 @@ class DeviceStore(BaseStorage):
             )
             self._bucket_overflows += int(overflows)
             return counts, ids
-        if not self._use_grouped():
-            raise _not_ported(
-                f"collision ranking at {self.num_bands} bands x "
-                f"{self._capacity} slots (the chunked fallback or int64 keys)", 8
-            )
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
+        if not self._use_grouped():
+            return collision_topk_core(
+                self._sig_t, ids_x, self._chunk_ranks(), qw,
+                num_bands=self.num_bands, k=max(1, min(k, self._capacity)),
+                chunk=self.chunk, probes=probes,
+            )
         return collision_topk_grouped_core(
             self._sig_t, tie_x, qw,
             self._refine_rows() if where is None else None,
@@ -887,32 +908,29 @@ class DeviceStore(BaseStorage):
     def _query_hamming_dev(self, qw: torch.Tensor, k: int, where=None):
         """Device-resident Hamming top-k (call under the lock)."""
         p = self.num_bands * self.rows_per_band
-        if self.hamming_cascade:
+        aligned = self._capacity % self.group == 0
+        if self.hamming_cascade and aligned:
             # The coarse key packs at any capacity (its tie is shifted past
             # the ceiling) and the refine keys in int64.
-            if self._capacity % self.group:
-                raise _not_ported(
-                    f"the cascade at {self._capacity} slots (group {self.group}): "
-                    "the packed-words chunked fallback", 8
-                )
             return self._query_cascade_dev(qw, k, where)
-        if not (
-            supports_hamming_grouped(p, self._capacity)
-            and self._capacity % self.group == 0
-        ):
-            raise _not_ported(
-                f"Hamming ranking at {p} bits x {self._capacity} slots (the "
-                "chunked fallback or int64 keys)", 8
-            )
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
+        k_eff = max(1, min(k, self._capacity))
+        if not (aligned and supports_hamming_grouped(p, self._capacity)):
+            # The chunked fallbacks. A cascade store's planes are a prefix
+            # only, so it ranks on the packed words, as the reference's does.
+            if self.hamming_storage == "packed" or self.hamming_cascade:
+                return hamming_topk_packed_chunked_core(
+                    self._sig_t, ids_x, self._chunk_ranks(), qw,
+                    num_perm=p, k=k_eff, chunk=self.chunk,
+                )
+            self._ensure_planes()
+            return hamming_topk_chunked_core(
+                self._planes, ids_x, self._chunk_ranks(), self._planes_rows(qw),
+                k=k_eff, chunk=self.chunk, num_perm=p,
+            )
         rows = self._refine_rows() if where is None else None
-        kw = dict(
-            k=max(1, min(k, self._capacity)),
-            group=self._group(),
-            narrow_r=self._refine_narrow_r,
-            ids=ids_x,
-        )
+        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
         if self.hamming_storage == "packed":
             return hamming_topk_packed_core(
                 self._sig_t, tie_x, qw, rows, num_perm=p, **kw
@@ -1029,18 +1047,20 @@ class DeviceStore(BaseStorage):
         """Device-resident asymmetric top-k of padded int8 coordinates
         (call under the lock)."""
         self._require_asymmetric_planes()
-        if self._capacity % self._group():
-            raise _not_ported(
-                f"asymmetric ranking at {self._capacity} slots (the chunked fallback)", 8
-            )
         self._ensure_ranks()
         self._ensure_planes()
         ids_x, tie_x = self._filtered_ids_tie(where)
         p = self.num_bands * self.rows_per_band
+        k_eff = max(1, min(k, self._capacity))
+        if self._capacity % self._group():
+            return asymmetric_topk_chunked_core(
+                self._planes, ids_x, self._chunk_ranks(), qc,
+                k=k_eff, chunk=self.chunk, qmax=qmax, num_perm=p,
+            )
         return asymmetric_topk_core(
             self._planes, tie_x, qc, self._refine_rows() if where is None else None,
             num_bands=self.num_bands, rows_per_band=self.rows_per_band,
-            k=max(1, min(k, self._capacity)), group=self._group(),
+            k=k_eff, group=self._group(),
             shift=asymmetric_shift(p, self._capacity, qmax=qmax), qmax=qmax,
             narrow_r=self._refine_narrow_r if where is None else 0,
             sig_t=self._sig_t, ids=ids_x,
@@ -1570,7 +1590,7 @@ class DeviceStore(BaseStorage):
     def close(self) -> None:
         """Drop the device tensors (the store is unusable afterwards)."""
         with self._lock:
-            self._sig_t = self._sig_rows = self._ids = self._tie = None
+            self._sig_t = self._sig_rows = self._ids = self._tie = self._ranks = None
             self._planes = self._refine = self._bucket_index = None
             self._payload = self._pnorm = self._pscale = None
 

@@ -133,9 +133,10 @@ def test_bucket_mode_validation():
 
 def test_bucket_falls_back_when_keys_would_overflow(hasher, rng, monkeypatch):
     """Past the int32 (count, tie) packing the bucket engine yields to the
-    scan, which raises there (ROADMAP Queue A item 8) instead of
-    corrupting keys; below it the scan answers the filtered and the
-    multi-probe queries the bucket index cannot."""
+    scan, whose chunked fallback answers there == the reference's chunked
+    scan instead of corrupting keys; below it the scan answers the
+    filtered and the multi-probe queries the bucket index cannot."""
+    import lshrs_tpu.storage.device as jdevice_mod
     import lshrs_tpu_torch.storage.device as device_mod
 
     scan, bucket = make_pair()
@@ -154,10 +155,15 @@ def test_bucket_falls_back_when_keys_would_overflow(hasher, rng, monkeypatch):
     probe = np.stack([words[:6], words[6:12]], axis=1)  # (Q, T=2, BW)
     np.testing.assert_array_equal(bucket.query_topk(probe, 10)[1], scan.query_topk(probe, 10)[1])
     assert not called
-    monkeypatch.setattr(device_mod, "supports_fast_path", lambda *a: False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bucket.query_topk(qw, 10)
+    ref, _ = _both()
+    ref.add_signature_batch(np.arange(200), words)
+    for mod in (device_mod, jdevice_mod):
+        monkeypatch.setattr(mod, "supports_fast_path", lambda *a: False)
+    got = bucket.query_topk(qw, 10)
     assert not called  # the bucket engine was gated off
+    np.testing.assert_array_equal(got[1], np.asarray(ref.query_topk(qw, 10)[1]))
+    np.testing.assert_array_equal(got[0], np.asarray(ref.query_topk(qw, 10)[0]))
+    assert bucket._ranks is not None  # the chunked scan's ranks
 
 
 # -- parity with lshrs_tpu ------------------------------------------------

@@ -678,3 +678,44 @@ def test_kernels_refuse_a_strided_shard_view(dev, rng):
         gm.group_max_keys(block, tie, qw, num_bands=bw, words=1, **kw).cpu().numpy(),
         gm.group_max_keys_ref(block, tie, qw, num_bands=bw, words=1, **kw).cpu().numpy(),
     )
+
+
+@pytest.mark.parametrize("q", [1, 17, 512])
+def test_chunked_hamming_core_on_the_gpu_matches_the_cpu_and_b2(q, dev, rng):
+    """The chunked Hamming cores (one ``torch._int_mm`` per step, its query
+    rows padded past 16) on the card == the same cores on the CPU, and ==
+    the grouped B2 engine at 2^16 slots (below the ceiling both apply)."""
+    from lshrs_tpu_torch.ops import hamming as ham
+    from lshrs_tpu_torch.ops.scan import compute_chunk_ranks
+
+    c, nb, r, chunk = 1 << 16, 16, 16, 2048
+    words = rng.integers(0, 2**r, (c, nb), dtype=np.uint32)
+    ids = rng.permutation(c).astype(np.int32)
+    ids[rng.random(c) < 0.1] = -1
+    flips = (rng.random((q, nb)) < 0.2).astype(np.uint32) << rng.integers(0, r, (q, nb)).astype(np.uint32)
+    qw = words[rng.integers(0, c, q)] ^ flips
+
+    def run(device):
+        w = torch.from_numpy(words.view(np.int32)).to(device)
+        qwt = torch.from_numpy(qw.view(np.int32)).to(device)
+        idt = torch.from_numpy(ids).to(device)
+        planes = ham.unpack_bitplanes(w, num_bands=nb, rows_per_band=r, width=ham.plane_width(nb * r))
+        qbits = ham.unpack_bitplanes(qwt, num_bands=nb, rows_per_band=r, width=ham.plane_width(nb * r))
+        ranks = compute_chunk_ranks(idt, chunk=chunk)
+        sig_t = w.T.contiguous()
+        out = [
+            ham.hamming_topk_chunked_core(planes, idt, ranks, qbits, k=10, chunk=chunk, num_perm=nb * r),
+            ham.hamming_topk_packed_chunked_core(sig_t, idt, ranks, qwt, num_perm=nb * r, k=10, chunk=chunk),
+        ]
+        if device != "cpu":
+            out.append(ham.hamming_topk_core(
+                planes, global_tie_core(idt), qbits, qwt, None, k=10, group=64,
+                num_perm=nb * r, sig_t=sig_t, ids=idt,
+            ))
+        return [tuple(t.cpu().numpy() for t in pair) for pair in out]
+
+    cpu, gpu = run("cpu"), run(dev)
+    for got in gpu:
+        for a, b in zip(cpu[0], got):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(cpu[1][0], cpu[0][0])

@@ -292,15 +292,38 @@ def test_packed_wrapper_rejects_other_devices_and_bad_inputs():
         gm.hamming_packed_group_max_keys(sig, tie, qw, **{**kw, "scale": 1 << 25})
 
 
-def test_packed_store_past_the_int32_key_ceiling_raises(monkeypatch):
+def test_packed_store_past_the_int32_key_ceiling_raises(monkeypatch, rng):
     """Past (P + 2) * S >= 2**31 (more than 2**22 slots at 256 bits) both
-    storages raise; the chunked fallback is not ported."""
+    storages used to raise; they now rank through the chunked fallbacks
+    (packed words, bitplanes) == the reference's on the same words, and
+    the single-pass engine's selection still refuses int32-overflowing
+    keys."""
+    import lshrs_tpu.storage.device as jdevice_mod
     import lshrs_tpu_torch.storage.device as device_mod
 
-    ts = TorchStore(hamming_storage="packed", device="cpu", **STORE_KW)
-    ts.add_signature_batch([1, 2], np.zeros((2, NB), np.uint32))
-    monkeypatch.setattr(device_mod, "supports_hamming_grouped", lambda *a: False)
-    with pytest.raises(NotImplementedError, match="int64 keys"):
-        ts.query_hamming(np.zeros((1, NB), np.uint32), 3)
+    words = rng.integers(0, 2**R, (60, NB), dtype=np.uint32)
+    qw = np.concatenate([words[:3], rng.integers(0, 2**R, (3, NB), dtype=np.uint32)])
+    stores = []
+    for storage in ("packed", "planes"):
+        ts = TorchStore(hamming_storage=storage, device="cpu", **STORE_KW)
+        js = JaxStore(hamming_storage=storage, **STORE_KW)
+        for s in (ts, js):
+            s.add_signature_batch(np.arange(60) * 3, words)
+        stores.append((ts, js))
+    for mod in (device_mod, jdevice_mod):
+        monkeypatch.setattr(mod, "supports_hamming_grouped", lambda *a: False)
+    answers = []
+    for ts, js in stores:
+        got, want = ts.query_hamming(qw, 7), js.query_hamming(qw, 7)
+        np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+        assert ts._ranks is not None and ts._refine is None  # the chunked route
+        answers.append(got)
+    np.testing.assert_array_equal(answers[0][1], answers[1][1])
+    with pytest.raises(NotImplementedError, match="int32"):
+        tham._select_refine(
+            torch.zeros((1, 1 << 17), dtype=torch.int32), torch.zeros((1, 8), dtype=torch.int32),
+            None, p=256, k=3, group=64,
+        )
     assert not tham.supports_hamming_grouped(256, 1 << 23)
     assert tham.supports_hamming_grouped(256, 1 << 22)

@@ -276,12 +276,15 @@ def test_rehash_drops_the_bucket_index_and_moves_the_banding(rng):
 
 
 def test_rehash_past_64_bands_meets_the_item_8_raise(rng):
-    """128 bands x 1 row: the reference falls back to its chunked core,
-    which the port does not have yet (ROADMAP Queue A item 8)."""
-    lsh, X = _device_lsh(rng, num_perm=128, num_bands=16, rows_per_band=8)
-    lsh.rehash(num_bands=128, rows_per_band=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lsh.query_batch(X[:2], top_k=3)
+    """128 bands x 1 row: where the port used to raise, both packages now
+    fall back to their chunked collision cores, with equal answers."""
+    jl, tl, X = _pair_lsh(rng, num_perm=128, num_bands=16, rows_per_band=8,
+                          hash_family="structured")
+    for lsh in (jl, tl):
+        lsh.rehash(num_bands=128, rows_per_band=1, seed=5)
+    assert not tl._storage._use_grouped() and tl._storage.words == 128
+    assert tl.query_batch(X[:12], top_k=6) == jl.query_batch(X[:12], top_k=6)
+    assert tl.query_batch(X[:2], top_k=3)[0][0] == 0
 
 
 def test_rehash_rules(rng):
