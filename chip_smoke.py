@@ -13,8 +13,12 @@ then runs these phases and prints JSON lines as it goes:
    bit-exact (``torch.equal``; tolerance 0: every output is an integer
    key), at the main path's shapes (B1 also at the gather rerank's
    C=2**20, Q=256; B2 also at the 1M serving batch, Q=8192, at P=512 with
-   group 128, and at 30 bits padded to 32 columns), ragged query counts,
-   dead slots and every template instantiation;
+   group 128, and at 30 bits padded to 32 columns; B3 on random full
+   words and on the store's words at ``word_bits`` = rows_per_band, 16 x
+   16 and 32 x 8, at Q=1, 17 and 512, streamed at BW=32 and 64, and at
+   the packed_4m batch, Q=8192 over 2**22 slots, where it must also equal
+   B2 on the same words' planes), ragged query counts, dead slots and
+   every template instantiation;
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -27,13 +31,16 @@ then runs these phases and prints JSON lines as it goes:
    vectors (the largest capacity whose packed key fits int32 at 256
    bits), ranked by kernel B3 with no bitplanes allocated: self-match
    1.0, ids and distances equal to the bitplane path (kernel B2) and to
-   the plain versions on the same store words; then 1% of the ids are
-   deleted and none may come back;
+   the plain versions on the same store words; the peak memory of one
+   8,192-query batch at most the planes batch's plus the query operand
+   (never a (C, K) array); then 1% of the ids are deleted and none may
+   come back;
 6. times: each kernel against its plain version (median CUDA-event ms)
    and its bound (the least time the card could take: operations at their
-   peak rate or bytes at the HBM rate, whichever is larger), B2 also
-   against ``torch._int_mm`` on the same operands (the library yardstick,
-   never called by the port),
+   peak rate or bytes at the HBM rate, whichever is larger; B3 counted
+   as the int8 product it runs, 2 * Q * C * K), B2 and B3 also against
+   ``torch._int_mm`` on the same +-1 operands (the library yardstick,
+   never called by the port), B3 beside B2 on the same words' planes,
    serving QPS at 100k, 1M and 4M (packed, and planes on the same
    words), a torch.profiler breakdown of the serving batches (device time
    by kernel, device-busy share), and the 100k build rate;
@@ -236,7 +243,8 @@ and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
 error, ms, plain, bound and library ms; B1 once per timed instantiation,
-B2 once more per phase-10 packing and at sharded_16m's shard), and last ``{"ok": true, "device":
+B2 once more per phase-10 packing, at sharded_16m's shard and on B3's
+timed words, B3 once more at the packed_4m batch), and last ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
@@ -276,12 +284,11 @@ TOPP_QPS_BATCHES_1M = (1024, 8192)
 RECALL_FLOOR_1M = 0.70
 DEVICE = "cuda"
 # Peak rates of one H100 SXM at its 700 W limit, for each kernel's bound:
-# int8 tensor cores and HBM from NVIDIA's data sheet; int32 ALU lanes and
-# __popc issue slots per clock per SM at the 1.98 GHz boost clock.
+# int8 tensor cores and HBM from NVIDIA's data sheet; int32 ALU lanes per
+# clock per SM at the 1.98 GHz boost clock.
 H100_INT8_OPS = 1.979e15
 H100_HBM_BYTES = 3.35e12
 H100_INT32_OPS = 64 * 132 * 1.98e9
-H100_POPC_OPS = 16 * 132 * 1.98e9
 # The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
 KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
 B1, B2, B3 = KERNELS
@@ -326,6 +333,12 @@ N_16M = 1 << 24
 N_100K_SHARD = (1 << 17) // SHARDS
 SMALL_CASCADE = 1 << 16
 B2_SHARDED_16M = "hamming_group_max_keys@sharded_16m"
+# B3 at the packed_4m serving batch, B3 on random full 32-bit words (K =
+# 512), and B2 on the same store words' planes as B3's timed cases.
+B3_PACKED_4M = "hamming_packed_group_max_keys@packed_4m"
+B3_FULL_WORDS = "hamming_packed_group_max_keys@full_words_k512"
+B2_B3_WORDS = {N_1M: "hamming_group_max_keys@b3_words_1m",
+               N_4M: "hamming_group_max_keys@b3_words_4m"}
 # B2 at the key packings of phase 10, timed at Q=512: (C, P, qmax or None
 # for the cascade's coarse pass) -> the kernels line's name.
 B2_TIMED_NEW = {
@@ -384,9 +397,11 @@ def kernel_bound(name: str, shape: dict) -> tuple[float, str]:
         p, width = shape["P"], plane_width(shape["P"])
         ops, rate = 2 * q * c * p, H100_INT8_OPS
         nbytes = c * width + 4 * c + q * width + 4 * q * (c // shape["group"])
-    else:  # B3: one popcount per (query, slot, word)
+    else:  # B3: the same int8 +-1 product as B2, K = BW * word_bits padded to 32
+        from lshrs_tpu_torch.ops.hamming import plane_width
+
         bw = shape["BW"]
-        ops, rate = q * c * bw, H100_POPC_OPS
+        ops, rate = 2 * q * c * plane_width(bw * shape["word_bits"]), H100_INT8_OPS
         nbytes = 4 * (bw * c + c + q * bw + q * (c // shape["group"]))
     op_ms, byte_ms = ops / rate * 1e3, nbytes / H100_HBM_BYTES * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
@@ -537,6 +552,31 @@ def b3_inputs(rng, *, bw, c, q, dev):
     )
 
 
+def b3_words_on_card(gen, *, bw, word_bits, c, q, dev):
+    """Store words drawn on the card: ``word_bits`` random low bits per
+    word (a band of ``word_bits`` rows; 32: full words), ~10% dead slots;
+    half the queries are stored slots with ~10% of those bits flipped."""
+    from lshrs_tpu_torch.ops.scan import global_tie_core
+
+    def draw(*shape):
+        w = torch.randint(-(2**31), 2**31, shape, generator=gen, device=dev, dtype=torch.int64)
+        w = w & ((1 << word_bits) - 1) if word_bits < 32 else w
+        return w.to(torch.int32)
+
+    sig_t = draw(bw, c)
+    ids = torch.randperm(c, generator=gen, device=dev).to(torch.int32)
+    ids[torch.rand(c, generator=gen, device=dev) < 0.1] = -1
+    qw = draw(q, bw)
+    h = q // 2
+    pick = torch.randint(0, c, (h,), generator=gen, device=dev)
+    bit = torch.arange(word_bits, device=dev, dtype=torch.int64)
+    flip = (torch.rand((h, bw, word_bits), generator=gen, device=dev) < 0.1).to(torch.int64)
+    flips = (flip << bit).sum(-1) & 0xFFFFFFFF
+    flips = torch.where(flips >= 2**31, flips - 2**32, flips).to(torch.int32)
+    qw[:h] = sig_t[:, pick].T ^ flips
+    return sig_t.contiguous(), global_tie_core(ids), qw.contiguous()
+
+
 def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
     """Phase 2's B2 checks at phase 10's key packings; adds to ``err`` and
     ``timed`` as :func:`phase_kernels` does."""
@@ -620,6 +660,82 @@ def check_b2_shards(gen, dev, err: dict, timed: dict) -> None:
             del planes, tie, qb
 
 
+def check_b3(sig_t, tie, qw, kw, err: dict) -> float:
+    """Kernel B3 against its plain version on the card, bit-exact (the
+    plain version over query slices of at most 2**33 / C rows); adds to
+    ``err``; returns the plain version's CUDA-event ms over all slices."""
+    from lshrs_tpu_torch.ops.group_max import (
+        hamming_packed_group_max_keys,
+        hamming_packed_group_max_keys_ref,
+        packed_width,
+    )
+
+    (bw, c), q = sig_t.shape, qw.shape[0]
+    got = hamming_packed_group_max_keys(sig_t, tie, qw, **kw)
+    step = max(1, (1 << 33) // c)
+    diff, ok = 0, True
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in range(0, q, step):
+        want = hamming_packed_group_max_keys_ref(sig_t, tie, qw[s : s + step], **kw)
+        diff = max(diff, int((got[s : s + step].long() - want.long()).abs().max()))
+        ok = ok and torch.equal(got[s : s + step], want)
+    end.record()
+    end.synchronize()
+    err[B3] = max(err[B3], diff)
+    wb = kw.get("word_bits", 32)
+    emit("kernel_check", kernel=B3, BW=bw, C=c, Q=q, group=kw["group"], word_bits=wb,
+         K=packed_width(bw, wb), equal=ok, max_abs_err=diff)
+    if not ok:
+        raise AssertionError(f"B3 kernel != plain at BW={bw}, C={c}, Q={q}, {kw}")
+    return start.elapsed_time(end)
+
+
+def time_b3(name, sig_t, tie, qw, kw, timed: dict, *, b2_name=None, plain_ms=None) -> None:
+    """B3's timed entry: the kernel, its plain version (or the ms its check
+    took, for a plain version of tens of seconds) and, where the (Q, C)
+    int32 product fits (2 GiB at Q=512, C=2**20), ``torch._int_mm`` of the
+    two +-1 operands (built before, not timed). With ``b2_name``, also B2
+    on the same words' planes (the symmetric key) as its own entry."""
+    from lshrs_tpu_torch.ops.group_max import (
+        hamming_group_max_keys,
+        hamming_group_max_keys_ref,
+        hamming_packed_group_max_keys,
+        hamming_packed_group_max_keys_ref,
+        packed_operand,
+    )
+
+    (bw, c), q = sig_t.shape, qw.shape[0]
+    wb = kw.get("word_bits", 32)
+    qop = packed_operand(qw, word_bits=wb)
+    sop = torch.cat([packed_operand(sig_t[:, s : s + (1 << 20)].T, word_bits=wb)
+                     for s in range(0, c, 1 << 20)])
+    library = None
+    if q * c <= 1 << 29:
+        library = lambda qop=qop, sop=sop: torch._int_mm(qop, sop.t())  # noqa: E731
+    timed[name] = (
+        lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys(*a, **kw),
+        plain_ms if plain_ms is not None
+        else lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys_ref(*a, **kw),
+        dict(C=c, Q=q, BW=bw, group=kw["group"], word_bits=wb), library,
+    )
+    if b2_name:
+        # At n = BW * word_bits = P the symmetric B2 key on the planes is
+        # B3's key: the two kernels must agree on the same words.
+        b2kw = dict(group=kw["group"], scale=kw["scale"], num_perm=kw["num_perm"])
+        same = torch.equal(hamming_group_max_keys(sop, tie, qop, **b2kw),
+                           hamming_packed_group_max_keys(sig_t, tie, qw, **kw))
+        emit("kernel_check", kernel=B2, compared_with=B3, C=c, Q=q, P=kw["num_perm"],
+             word_bits=wb, equal=same)
+        if not same:
+            raise AssertionError(f"B2 on the planes != B3 on the words at C={c}, Q={q}")
+        timed[b2_name] = (
+            lambda a=(sop, tie, qop), kw=b2kw: hamming_group_max_keys(*a, **kw),
+            lambda a=(sop, tie, qop), kw=b2kw: hamming_group_max_keys_ref(*a, **kw),
+            dict(C=c, Q=q, P=kw["num_perm"], group=kw["group"]), library,
+        )
+
+
 def phase_kernels(rng, dev) -> dict:
     """Phase 2: every kernel against its plain version, bit-exact; returns
     the worst |kernel - plain| per kernel and the timed cases."""
@@ -629,8 +745,6 @@ def phase_kernels(rng, dev) -> dict:
         group_max_keys_ref,
         hamming_group_max_keys,
         hamming_group_max_keys_ref,
-        hamming_packed_group_max_keys,
-        hamming_packed_group_max_keys_ref,
         key_scale,
     )
 
@@ -743,33 +857,46 @@ def phase_kernels(rng, dev) -> dict:
     check_b2_packings(gen, dev, err, timed)
     check_b2_shards(gen, dev, err, timed)
 
+    # B3 on random full 32-bit words (word_bits 32, K = 512 at BW = 16),
+    # drawn on the host with NumPy.
     b3_cases = [  # (BW, C, Q, group)
         (16, 1 << 20, 512, 64),
         (16, 1 << 20, 300, 64),  # ragged Q
-        (8, 1 << 18, 512, 32),   # the BW=8 instantiation
-        (12, 1 << 16, 200, 128), # generic (non-register) instantiation
+        (8, 1 << 18, 512, 32),   # BW=8
+        (12, 1 << 16, 200, 128), # K = 384: one resident slot buffer
         (16, 1 << 16, 100, 16),
         (16, 1 << 20, CARRY_QUERIES, 64),  # sharded_parity: a 4M store's shard
     ]
     for bw, c, q, group in b3_cases:
         sig_t, tie, qw = b3_inputs(rng, bw=bw, c=c, q=q, dev=dev)
         kw = dict(num_perm=32 * bw, group=group, scale=key_scale(c))
-        got = hamming_packed_group_max_keys(sig_t, tie, qw, **kw)
-        want = hamming_packed_group_max_keys_ref(sig_t, tie, qw, **kw)
-        torch.cuda.synchronize()
-        diff = int((got.long() - want.long()).abs().max())
-        err["hamming_packed_group_max_keys"] = max(err["hamming_packed_group_max_keys"], diff)
-        ok = torch.equal(got, want)
-        emit("kernel_check", kernel="hamming_packed_group_max_keys", BW=bw, C=c, Q=q,
-             group=group, equal=ok, max_abs_err=diff)
-        if not ok:
-            raise AssertionError(f"B3 kernel != plain at {(bw, c, q, group)}")
+        check_b3(sig_t, tie, qw, kw, err)
         if (bw, c, q) == (16, 1 << 20, 512):
-            timed["hamming_packed_group_max_keys"] = (
-                lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys(*a, **kw),
-                lambda a=(sig_t, tie, qw), kw=kw: hamming_packed_group_max_keys_ref(*a, **kw),
-                dict(C=c, Q=q, BW=bw, group=group), None,
-            )
+            time_b3(B3_FULL_WORDS, sig_t, tie, qw, kw, timed)
+    # B3 on the store's words (word_bits = rows_per_band, as the store
+    # passes it), drawn on the card: 16 x 16 and 32 x 8 (K = 256), one and
+    # 17 queries, the streamed expansion at 32 bits (K = 1024 and 2048),
+    # and the packed_4m serving batch.
+    b3_store_cases = [  # (BW, C, Q, group, word_bits)
+        (16, N_1M, 512, 64, ROWS),   # timed: the kernels line's B3 row
+        (32, N_1M, 512, 64, 8),      # 32 x 8
+        (16, N_1M, 1, 64, ROWS),
+        (16, N_1M, 17, 64, ROWS),
+        (16, N_1M, CARRY_QUERIES, 64, ROWS),  # sharded_parity: a 4M store's shard
+        (32, 1 << 18, 512, 64, 32),  # K = 1024: streamed
+        (64, 1 << 16, 300, 64, 32),  # K = 2048: streamed, the widest BW
+        (16, N_4M, QPS_BATCH_1M, 64, ROWS),  # packed_4m's batch (timed)
+    ]
+    for bw, c, q, group, word_bits in b3_store_cases:
+        sig_t, tie, qw = b3_words_on_card(gen, bw=bw, word_bits=word_bits, c=c, q=q, dev=dev)
+        kw = dict(num_perm=bw * word_bits, group=group, scale=key_scale(c), word_bits=word_bits)
+        plain_ms = check_b3(sig_t, tie, qw, kw, err)
+        if (bw, c, q) == (16, N_1M, 512):
+            time_b3(B3, sig_t, tie, qw, kw, timed, b2_name=B2_B3_WORDS[N_1M])
+        elif c == N_4M:
+            time_b3(B3_PACKED_4M, sig_t, tie, qw, kw, timed, b2_name=B2_B3_WORDS[N_4M],
+                    plain_ms=plain_ms)
+        del sig_t, tie, qw
     return {"max_abs_err": err, "timed": timed}
 
 
@@ -1066,6 +1193,33 @@ def phase_packed_4m(seed: int) -> dict:
         _assert_same_topk("plain B2", packed_topk(qwords[:64]), plain_topk(qwords[:64], packed=False))
 
     check_paths()
+
+    # Peak memory of one QPS_BATCH_1M-query batch over what is allocated
+    # before it, on each engine (the planes, materialised above, are not
+    # part of a batch): the packed batch needs at most its query operand
+    # (Q * K bytes) more than the planes batch, whose peak is what the
+    # packed batch needed before B3 took an operand (the group-max keys and
+    # the selection's temporaries), so it never holds a (C, K) array; the
+    # store holds no planes after serving.
+    from lshrs_tpu_torch.ops.group_max import packed_width
+
+    qw_batch = lsh._hasher.hash_batch_words(keep)
+    peak = {}
+    for name, topk in (("packed", packed_topk), ("planes", planes_topk)):
+        topk(qw_batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        topk(qw_batch)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    k_cols = packed_width(NUM_BANDS, store._packed_word_bits())
+    operand, c_by_k = QPS_BATCH_1M * k_cols, N_4M * k_cols
+    emit("memory_packed_4m", batch=QPS_BATCH_1M, K=k_cols, packed_batch_peak_bytes=peak["packed"],
+         planes_batch_peak_bytes=peak["planes"], query_operand_bytes=operand,
+         c_by_k_bytes=c_by_k, store_planes_allocated=store._planes is not None)
+    assert peak["packed"] <= peak["planes"] + operand and store._planes is None, peak
+    del qw_batch
 
     deleted = rng.choice(N_4M, N_4M // 100, replace=False)
     lsh.delete(deleted.tolist())
@@ -1749,7 +1903,8 @@ def phase_filters(s1m: dict, t1m: dict, seed: int, label: str) -> None:
             qw_dev = torch.from_numpy(
                 np.ascontiguousarray(qw_np).view(np.int32).reshape(CARRY_QUERIES, -1)).to(DEVICE)
             kw = dict(num_perm=NUM_PERM, group=store._group(),
-                      scale=group_max.key_scale(store._capacity))
+                      scale=group_max.key_scale(store._capacity),
+                      word_bits=store._packed_word_bits())
             counted = wrapper.launches  # a comparison launch is no launch of the path
             keys = group_max.hamming_packed_group_max_keys(store._sig_t, tie_f, qw_dev, **kw)
             wrapper.launches = counted
@@ -3314,6 +3469,7 @@ def main() -> int:
 
     b1_by_shape = {}
     b2_by_packing = {}
+    b3_by_shape = {}
     packings = b2_packings()
 
     def drive(path: str, kernel, run, *, b1_shapes=(), b2_packings=()):
@@ -3325,15 +3481,19 @@ def main() -> int:
             w.launches = 0
         wrappers[B1].launches_by_shape.clear()
         wrappers[B2].launches_by_packing.clear()
+        wrappers[B3].launches_by_shape.clear()
         t0 = time.perf_counter()
         out = run()
         seconds = time.perf_counter() - t0
         counts = {name: w.launches for name, w in wrappers.items()}
         shapes = dict(wrappers[B1].launches_by_shape)
         by_packing = dict(wrappers[B2].launches_by_packing)
+        b3_shapes = dict(wrappers[B3].launches_by_shape)
         emit("launches", path=path, seconds=seconds, **counts,
              b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())},
-             b2_by_width_offset_shift={f"{w}/{o}/{h}": n for (w, o, h), n in sorted(by_packing.items())})
+             b2_by_width_offset_shift={f"{w}/{o}/{h}": n for (w, o, h), n in sorted(by_packing.items())},
+             b3_by_bw_word_bits={f"{bw}x{wb}": n for (bw, wb), n in sorted(b3_shapes.items())})
+        b3_by_shape[path] = b3_shapes
         for name in ([kernel] if isinstance(kernel, str) else kernel):
             if counts[name] == 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3354,14 +3514,20 @@ def main() -> int:
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
     s1m = drive("1m", "hamming_group_max_keys", lambda: phase_1m(args.seed))
     ref1m = s1m["answers"]
-    s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed))
+    s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed),
+                b2_packings=[packings["symmetric"]])
+    if b3_by_shape["packed_4m"].get((NUM_BANDS, ROWS), 0) == 0:
+        raise AssertionError("B3 was not launched at (BW, word_bits)=(16, 16) on packed_4m")
 
     times = {}
     for name, (run, plain, shape, library) in kern["timed"].items():
         bound_ms, bound_by = kernel_bound(name, shape)
-        # A plain version past 2**33 key elements takes ~1 s a call: timed thrice.
+        # A plain version past 2**33 key elements takes ~1 s a call: timed
+        # thrice; B3's at packed_4m (tens of seconds) was timed once, in
+        # its phase-2 check.
         plain_reps = 3 if shape["C"] * shape["Q"] > 1 << 33 else 10
-        times[name] = {"ms": median_ms(run), "plain_ms": median_ms(plain, reps=plain_reps),
+        plain_ms = plain if isinstance(plain, float) else median_ms(plain, reps=plain_reps)
+        times[name] = {"ms": median_ms(run), "plain_ms": plain_ms,
                        "library_ms": median_ms(library) if library else None,
                        "bound_ms": bound_ms, "bound_by": bound_by, **shape}
         emit("kernel_time", card=label, kernel=name, **times[name])
@@ -3376,6 +3542,7 @@ def main() -> int:
         serve = s4m["serve"] if name == "packed" else s4m["serve_planes"]
         emit("serving", card=label, rows=N_4M, batch=QPS_BATCH_1M, engine="hamming",
              hamming_storage=name, qps=serving_qps(serve, s4m["queries"], trials=2))
+    assert s4m["lsh"]._storage._planes is None, "the packed store built planes"
     emit("profile", card=label, rows=N_100K, batch=QPS_BATCH_100K, engine="collision",
          **serving_profile(s100["serve"], s100["queries"][:3]))
     emit("profile", card=label, rows=N_1M, batch=QPS_BATCH_1M, engine="hamming",
@@ -3534,6 +3701,24 @@ def main() -> int:
          "max_abs_err": kern["max_abs_err"][B2],
          **{key: times[B2_SHARDED_16M][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # B3 once more at packed_4m's batch (its launches there), and B2 on the
+    # same words' planes as B3's two timed entries (B2's symmetric
+    # launches on the packed_4m path, which holds the two engines equal).
+    src, rep = sources[B3]
+    kernels.append(
+        {"name": B3_PACKED_4M, "route": "cuda", "source": src, "replaces": rep,
+         "launches": b3_by_shape["packed_4m"][NUM_BANDS, ROWS],
+         "max_abs_err": kern["max_abs_err"][B3],
+         **{key: times[B3_PACKED_4M][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    src, rep = sources[B2]
+    for variant in B2_B3_WORDS.values():
+        kernels.append(
+            {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+             "launches": b2_by_packing["packed_4m", packings["symmetric"]],
+             "max_abs_err": kern["max_abs_err"][B2],
+             **{key: times[variant][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # B1 once more per timed multi-probe / 32-word instantiation: the same
     # source, its launches on the main path at that (BW, probes).
     src, rep = sources[B1]

@@ -146,8 +146,8 @@ class LSHRS:
             sizing and engine knobs, see `DeviceStore`.
         enable_hamming: make full-signature Hamming ranking available.
         hamming_storage: ``"planes"`` (int8 bitplanes, kernel B2,
-            ``num_perm`` bytes per slot) or ``"packed"`` (XOR + popcount
-            over the stored words, kernel B3, zero extra bytes); ``None``
+            ``num_perm`` bytes per slot) or ``"packed"`` (the stored words,
+            expanded to +-1 on the card by kernel B3, zero extra bytes); ``None``
             (default) means ``"planes"``. An explicit ``"packed"`` is kept
             when the auto/hamming engine turns Hamming ranking on.
         hamming_cascade / hamming_cascade_refine: the two-pass refinement

@@ -32,6 +32,9 @@ _SOURCES = (
     "hamming_group_max.cu",
     "hamming_packed_group_max.cu",
 )
+# Included by the sources above (B2 and B3 share its pipeline): part of the
+# library's hash, so an edited header rebuilds too.
+_HEADERS = ("hamming_wgmma.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -48,8 +51,9 @@ _SIGNATURES = {
     # planes, tie, qbits, out, q, c, p, group, scale, offset, shift,
     # dead_bias, stream
     "lshrs_hamming_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    # sig_t, tie, qwords, out, q, c, bw, group, scale, num_perm, stream
-    "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    # sig_t, tie, qop, out, q, c, bw, word_bits, kp, group, scale,
+    # num_perm, stream
+    "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
@@ -115,7 +119,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             h = hashlib.sha256(" ".join(_FLAGS).encode())
-            for name in _SOURCES:
+            for name in _SOURCES + _HEADERS:
                 h.update(name.encode())
                 h.update((_CSRC / name).read_bytes())
             so_path = BUILD_DIR / f"lshrs_kernels-{h.hexdigest()[:16]}.so"

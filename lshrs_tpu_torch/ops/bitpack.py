@@ -40,6 +40,7 @@ __all__ = [
     "narrow_refine_r",
     "narrow_words_count",
     "pack_words_narrow",
+    "popcount31",
     "popcount32",
 ]
 
@@ -82,6 +83,17 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+
+
+def popcount31(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of non-negative int32 values (below 2**31), in int32: every
+    SWAR step stays non-negative and below 2**31, so unlike
+    :func:`popcount32` nothing is widened (half the bytes per step)."""
+    v = x - ((x >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    return (v + (v >> 16)) & 0x3F
 
 
 def words_per_band(rows_per_band: int) -> int:

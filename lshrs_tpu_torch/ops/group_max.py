@@ -16,17 +16,21 @@ exactly (`lshrs_tpu_torch.ops.scan`, `lshrs_tpu_torch.ops.hamming`).
   / ``-maxscaled * S`` dead, on operands zero-padded to a multiple of 16
   (the store: 32) columns. CUDA source ``csrc/hamming_group_max.cu``
   (wgmma on int8 tensor cores, TMA loads).
-- **B3** :func:`hamming_packed_group_max_keys` — XOR + popcount Hamming
-  over the packed words: ``key = bias - ham * S``, bias
+- **B3** :func:`hamming_packed_group_max_keys` — Hamming over the low
+  ``word_bits`` bits of each packed word: ``key = bias - ham * S``, bias
   ``(P + 1) * S + tie`` alive / ``0`` dead. CUDA source
-  ``csrc/hamming_packed_group_max.cu``.
+  ``csrc/hamming_packed_group_max.cu``: B2's pipeline, the store's words
+  expanded to +-1 tiles in shared memory and the queries by
+  :func:`packed_operand`, so ``dot = n - 2 * ham`` over ``n = BW *
+  word_bits`` columns.
 
 Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
 kernel launches it makes in its ``launches`` attribute (B1 also by
 ``(BW, probes)`` in ``launches_by_shape``, B2 by its key packing
-``(width, offset, shift)`` in ``launches_by_packing``).
+``(width, offset, shift)`` in ``launches_by_packing``, B3 by ``(BW,
+word_bits)`` in ``launches_by_shape``).
 
 Key packing requires ``(num_bands + 1) * S < 2**31`` (B1),
 ``(maxscaled + 2) * S < 2**31`` (B2) and ``(P + 2) * S < 2**31`` (B3)
@@ -42,7 +46,7 @@ import collections
 import torch
 
 from lshrs_tpu_torch.ops import _build
-from lshrs_tpu_torch.ops.bitpack import popcount32
+from lshrs_tpu_torch.ops.bitpack import popcount31, popcount32
 
 __all__ = [
     "asymmetric_shift",
@@ -54,6 +58,8 @@ __all__ = [
     "hamming_packed_group_max_keys",
     "hamming_packed_group_max_keys_ref",
     "key_scale",
+    "packed_operand",
+    "packed_width",
     "supports_fast_path",
 ]
 
@@ -115,6 +121,55 @@ def _hamming_offset(width: int, offset: int | None, num_perm: int | None) -> int
     if offset is not None:
         return offset
     return width if num_perm is None else num_perm
+
+
+# (device, word_bits) -> (the bit shifts, the -1 / +1 pair) of packed_operand.
+_OPERAND_CONSTANTS: dict = {}
+
+
+def _operand_constants(device: torch.device, word_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device, word_bits)
+    if key not in _OPERAND_CONSTANTS:
+        _OPERAND_CONSTANTS[key] = (
+            torch.arange(word_bits, dtype=torch.int32, device=device),
+            torch.tensor([-1, 1], dtype=torch.int8, device=device),
+        )
+    return _OPERAND_CONSTANTS[key]
+
+
+def packed_width(bw: int, word_bits: int) -> int:
+    """Columns K of kernel B3's +-1 operands: ``BW * word_bits`` rounded up
+    to a multiple of 32, the row width B2's pipeline takes."""
+    return -(-bw * word_bits // 32) * 32
+
+
+def packed_operand(
+    words: torch.Tensor, *, word_bits: int = 32, width: int | None = None
+) -> torch.Tensor:
+    """Packed int32 words ``(n, BW)`` -> ``(n, width)`` int8 +-1 operand.
+
+    Column ``w * word_bits + b`` is +1 where bit ``b`` of word ``w`` is set
+    and -1 where it is clear (the bits above ``word_bits`` are left out);
+    columns from ``BW * word_bits`` on are zero. This is kernel B3's column
+    order: its queries go to the kernel in this form, and its slots are
+    expanded the same way on the card. With one word per band
+    (``rows_per_band <= 32``) and ``word_bits = rows_per_band`` it equals
+    the store's bitplanes (`lshrs_tpu_torch.ops.hamming.unpack_bitplanes`).
+    ``width`` defaults to :func:`packed_width`.
+    """
+    n, bw = words.shape
+    nbits = bw * word_bits
+    width = packed_width(bw, word_bits) if width is None else width
+    if width < nbits:
+        raise ValueError(f"width={width} is below BW * word_bits = {nbits}")
+    shifts, pm1 = _operand_constants(words.device, word_bits)
+    # (word >> s) & 1 is bit s even under the arithmetic shift of int32;
+    # three launches in all, as the wrapper builds this for every call.
+    bits = (words.reshape(n, bw, 1) >> shifts) & 1
+    out = pm1.index_select(0, bits.reshape(-1)).reshape(n, nbits)
+    if width == nbits:
+        return out
+    return torch.nn.functional.pad(out, (0, width - nbits))
 
 
 def _hamming_packed_key_bias(
@@ -274,12 +329,15 @@ def hamming_group_max_keys_ref(
     offset: int | None = None,
     shift: int = 1,
     num_perm: int | None = None,
+    dead_bias: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B2 (see :func:`hamming_group_max_keys`).
 
     The dot is a float32 matmul of the int8 operands, exact because
     ``|dot| <= P * 127 < 2**24``; slots go through in blocks of
-    ``_REF_SLOTS`` to bound the ``(Q, slots)`` temporaries.
+    ``_REF_SLOTS`` to bound the ``(Q, slots)`` temporaries. ``dead_bias``
+    replaces the dead slots' bias ``-((2 * offset) >> shift) * scale``
+    (kernel B3's key is B2's with ``dead_bias = -P * scale``).
     """
     c, p = planes.shape
     q = qbits.shape[0]
@@ -287,6 +345,8 @@ def hamming_group_max_keys_ref(
         raise ValueError(f"P={p} is too wide for an exact float32 dot")
     off = _hamming_offset(p, offset, num_perm)
     bias = _hamming_key_bias(tie, scale=scale, maxscaled=(2 * off) >> shift)
+    if dead_bias is not None:
+        bias = torch.where(tie >= 0, bias, dead_bias)
     qf = qbits.to(torch.float32)
     out = torch.empty((q, c // group), dtype=torch.int32, device=planes.device)
     step = group * max(1, _REF_SLOTS // group)
@@ -380,20 +440,28 @@ def hamming_packed_group_max_keys_ref(
     num_perm: int,
     group: int,
     scale: int,
+    word_bits: int = 32,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B3 (see
-    :func:`hamming_packed_group_max_keys`); slots go through in blocks of
-    ``_REF_SLOTS`` to bound the ``(Q, slots)`` temporaries."""
+    :func:`hamming_packed_group_max_keys`): XOR, the low ``word_bits``
+    bits, popcount; slots go through in blocks of ``_REF_SLOTS`` to bound
+    the ``(Q, slots)`` temporaries."""
     bw, c = sig_t.shape
     q = qwords.shape[0]
     bias = _hamming_packed_key_bias(tie, scale=scale, num_perm=num_perm)
+    mask = (1 << word_bits) - 1
+
+    def pop(x):
+        # Below 32 bits the masked XOR is non-negative: int32 arithmetic.
+        return popcount32(x) if word_bits == 32 else popcount31(x & mask)
+
     out = torch.empty((q, c // group), dtype=torch.int32, device=sig_t.device)
     step = group * max(1, _REF_SLOTS // group)
     for s in range(0, c, step):
         e = min(c, s + step)
-        ham = popcount32(sig_t[0, s:e][None, :] ^ qwords[:, 0][:, None])
+        ham = pop(sig_t[0, s:e][None, :] ^ qwords[:, 0][:, None])
         for w in range(1, bw):
-            ham += popcount32(sig_t[w, s:e][None, :] ^ qwords[:, w][:, None])
+            ham += pop(sig_t[w, s:e][None, :] ^ qwords[:, w][:, None])
         key = bias[None, s:e] - ham * scale
         out[:, s // group : e // group] = key.reshape(q, (e - s) // group, group).amax(-1)
     return out
@@ -407,6 +475,7 @@ def hamming_packed_group_max_keys(
     num_perm: int,
     group: int,
     scale: int,
+    word_bits: int = 32,
 ) -> torch.Tensor:
     """Per-group maxima of packed (P + 1 - hamming, tie) keys — kernel B3.
 
@@ -419,6 +488,9 @@ def hamming_packed_group_max_keys(
         group: slots per group, a power of two dividing C (16, 32, 64 or
             128 for the CUDA kernel, which also needs BW <= 64).
         scale: ``key_scale(C)``; ``(P + 2) * scale`` must fit int32.
+        word_bits: the low bits of each word that count (1..32); the store
+            passes ``rows_per_band`` where a band is one word. The CUDA
+            kernel multiplies ``packed_width(BW, word_bits)`` columns.
 
     Returns:
         ``(Q, C // group)`` int32 group-max keys, contiguous groups.
@@ -434,10 +506,13 @@ def hamming_packed_group_max_keys(
         raise ValueError(
             f"(num_perm + 2) * scale = {(num_perm + 2) * scale} does not fit int32"
         )
+    if not 1 <= word_bits <= 32:
+        raise ValueError(f"word_bits must be in 1..32; got {word_bits}")
     dev = _device(sig_t, tie, qwords)
     if dev.type == "cpu":
         return hamming_packed_group_max_keys_ref(
-            sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale
+            sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale,
+            word_bits=word_bits,
         )
     if not (sig_t.is_contiguous() and tie.is_contiguous() and qwords.is_contiguous()):
         raise ValueError("hamming_packed_group_max_keys: CUDA inputs must be contiguous")
@@ -448,16 +523,23 @@ def hamming_packed_group_max_keys(
             f"the CUDA kernel needs group in (16, 32, 64, 128) and BW <= 64; "
             f"got group={group}, BW={bw}"
         )
-    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
     if q == 0:
-        return out
+        return torch.empty((0, c // group), dtype=torch.int32, device=dev)
+    kp = packed_width(bw, word_bits)
+    # The queries' +-1 operand (Q * K bytes) before the output: its
+    # temporaries are gone before the (Q, C / group) keys exist.
+    qop = packed_operand(qwords, word_bits=word_bits, width=kp)
+    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
     _launch(
         "lshrs_hamming_packed_group_max", dev,
-        sig_t.data_ptr(), tie.data_ptr(), qwords.data_ptr(), out.data_ptr(),
-        q, c, bw, group, scale, num_perm,
+        sig_t.data_ptr(), tie.data_ptr(), qop.data_ptr(), out.data_ptr(),
+        q, c, bw, word_bits, kp, group, scale, num_perm,
     )
     hamming_packed_group_max_keys.launches += 1
+    hamming_packed_group_max_keys.launches_by_shape[bw, word_bits] += 1
     return out
 
 
 hamming_packed_group_max_keys.launches = 0
+# The same launches, by (words BW, word_bits): the expansion a path reached.
+hamming_packed_group_max_keys.launches_by_shape = collections.Counter()

@@ -8,8 +8,10 @@ results bit for bit:
     "planes": signatures as +-1 int8 bitplanes (C, num_perm), num_perm
               bytes per slot; dots = qbits . planes, kernel B2,
               dot = P - 2 * hamming
-    "packed": XOR + popcount over the packed words the collision scan
-              already stores, zero extra bytes; kernel B3
+    "packed": the packed words the collision scan already stores, zero
+              extra bytes; kernel B3 expands them to +-1 tiles on the
+              card and scores them as B2 does (popcount in its plain
+              version)
     select by (hamming asc, id asc)    packed keys + contiguous group max,
                                        top-k groups, popcount-exact refine
 
@@ -182,11 +184,12 @@ def hamming_topk_packed_core(
     group: int,
     narrow_r: int = 0,
     ids: torch.Tensor | None = None,
+    word_bits: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc) from the PACKED words only.
 
-    No bitplane array: kernel B3 scores every slot by XOR + popcount over
-    the same ``(BW, C)`` store the collision scan uses. Results equal
+    No bitplane array: kernel B3 scores every slot from the same
+    ``(BW, C)`` store the collision scan uses. Results equal
     :func:`hamming_topk_core`'s bit for bit.
 
     Args:
@@ -196,6 +199,9 @@ def hamming_topk_packed_core(
         qwords: ``(Q, BW)`` int32 query words.
         sig_rows: grouped refine table, as for :func:`hamming_topk_core`
             (``None``: per-slot refinement, which needs ``ids``).
+        word_bits: the low bits of each word that hold signature bits
+            (kernel B3 multiplies ``BW * word_bits`` columns); higher bits
+            must be zero on both sides.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -203,7 +209,7 @@ def hamming_topk_packed_core(
     """
     gmax = hamming_packed_group_max_keys(
         sig_t, tie, qwords, num_perm=num_perm, group=group,
-        scale=key_scale(sig_t.shape[1]),
+        scale=key_scale(sig_t.shape[1]), word_bits=word_bits,
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,

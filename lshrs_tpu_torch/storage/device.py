@@ -173,9 +173,10 @@ class DeviceStore(BaseStorage):
             ranking) available.
         hamming_storage: ``"planes"`` (default) ranks on +-1 int8
             bitplanes (kernel B2), ``num_perm`` bytes per slot, built
-            lazily on the first Hamming use; ``"packed"`` ranks by XOR +
-            popcount over the packed words the store already holds
-            (kernel B3), zero extra bytes. Results are identical.
+            lazily on the first Hamming use; ``"packed"`` ranks on the
+            packed words the store already holds (kernel B3 expands each
+            slot tile to +-1 in shared memory), zero extra bytes. Results
+            are identical.
         hamming_cascade: prefix width (bits) of the two-pass refinement
             cascade; 0 (default) is off. The store then holds only the
             first ``hamming_cascade`` bitplane columns, ranks them with
@@ -458,6 +459,12 @@ class DeviceStore(BaseStorage):
         """The cascade's refine pool in groups: ``hamming_cascade_refine``
         slots rounded up to whole groups, at least ``k``."""
         return max(k, -(-self.hamming_cascade_refine // self._group()))
+
+    def _packed_word_bits(self) -> int:
+        """The low bits of each stored word that hold signature bits: a
+        band of at most 32 rows is one word with its rows in bits
+        ``0 .. r-1`` (the rest zero), so kernel B3 expands only those."""
+        return min(self.rows_per_band, 32)
 
     def _planes_rows(self, words: torch.Tensor) -> torch.Tensor:
         """Bitplane rows of ``words`` at the stored width (stores and
@@ -933,7 +940,8 @@ class DeviceStore(BaseStorage):
         kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
         if self.hamming_storage == "packed":
             return hamming_topk_packed_core(
-                self._sig_t, tie_x, qw, rows, num_perm=p, **kw
+                self._sig_t, tie_x, qw, rows, num_perm=p,
+                word_bits=self._packed_word_bits(), **kw
             )
         self._ensure_planes()
         return hamming_topk_core(

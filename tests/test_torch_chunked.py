@@ -546,3 +546,31 @@ def test_grouped_routes_never_compute_chunk_ranks(hasher, rng):
     ts.query_topk(qw, 5)
     ts.query_hamming(qw, 5)
     assert ts._use_grouped() and ts._ranks is None
+
+
+@pytest.mark.parametrize("storage", ["planes", "packed"])
+def test_hamming_below_the_group_chunk_answers_where_the_reference_raises(storage, rng):
+    """A kept difference: at ``chunk_size < group_size`` on a store that
+    takes the grouped Hamming route, the reference's XLA core fails on the
+    first query (``key.reshape(q, chunk // group, group)`` in
+    ``lshrs_tpu/ops/hamming.py``). The port answers, with the ids the
+    reference gives at ``chunk_size == group_size`` on the same words."""
+    kw = dict(dim=32, num_perm=32, num_bands=8, rows_per_band=4, initial_capacity=128,
+              group_size=64, engine="hamming", hamming_storage=storage,
+              hash_family="structured", hash_mode="host", seed=3)
+    X = rng.standard_normal((100, 32)).astype(np.float32)
+    Q = X[:20] + 0.3 * rng.standard_normal((20, 32)).astype(np.float32)
+    faulty = JaxLSHRS(chunk_size=32, **kw)
+    faulty.index(np.arange(100), X)
+    with pytest.raises(TypeError, match="reshape"):
+        faulty.query_batch(Q[:3], top_k=5)
+    ref = JaxLSHRS(chunk_size=64, **kw)
+    port = TorchLSHRS(chunk_size=32, device="cpu", **kw)
+    for lsh in (ref, port):
+        lsh.index(np.arange(100), X)
+    np.testing.assert_array_equal(
+        port._storage._sig_t[:, :100].numpy(), _t(np.asarray(ref._storage._sig_t)[:, :100]).numpy())
+    assert port.query_batch(Q, top_k=5) == ref.query_batch(Q, top_k=5)
+    assert port.query_hamming_batch(Q, top_k=5) == ref.query_hamming_batch(Q, top_k=5)
+    np.testing.assert_array_equal(port.serving_fn(top_k=5)(Q), np.asarray(ref.serving_fn(top_k=5)(Q)))
+    np.testing.assert_array_equal(port.serving_fn(top_k=1)(X[:50])[:, 0], np.arange(50))

@@ -131,27 +131,37 @@ def test_b2_kernel_matches_plain(p, c, q, group, mode, dev, rng):
 
 
 @pytest.mark.parametrize(
-    "bw,c,q,group",
+    "bw,c,q,group,word_bits",
     [
-        (16, 8192, 256, 64),
-        (16, 8192, 100, 16),  # ragged Q
-        (16, 4096, 300, 128),  # Q past one block's 256 queries
-        (8, 4096, 77, 32),
-        (12, 4096, 70, 64),   # generic (non-register) instantiation
-        (16, 256, 9, 64),     # store smaller than one block's 1024 slots
+        (16, 8192, 256, 64, 32),
+        (16, 8192, 100, 16, 32),  # ragged Q
+        (16, 4096, 300, 128, 32),  # Q past one block's 256 queries
+        (8, 4096, 77, 32, 32),
+        (12, 4096, 70, 64, 32),   # K = 384: one resident slot buffer
+        (16, 256, 9, 64, 32),     # store smaller than one slot tile
+        (16, 8192, 256, 64, 16),  # the 16 x 16 store's words: K = 256
+        (32, 8192, 200, 64, 8),   # the 32 x 8 store's words: K = 256
+        (10, 4096, 33, 16, 3),    # 10 x 3: 30 bits padded to 32 columns
+        (32, 4096, 130, 64, 32),  # K = 1024: the streamed expansion
+        (64, 2048, 70, 32, 32),   # K = 2048, the widest BW
+        (16, 8192, 1, 64, 16),    # one query
+        (16, 8192, 17, 64, 16),
     ],
 )
-def test_b3_kernel_matches_plain(bw, c, q, group, dev, rng):
-    # Full 32-bit words, so num_perm = 32 * BW; half the queries are
-    # stored slots with ~10% of their bits flipped.
-    sig = rng.integers(-(2**31), 2**31, (bw, c), dtype=np.int64).astype(np.int32)
-    qw = rng.integers(-(2**31), 2**31, (q, bw), dtype=np.int64).astype(np.int32)
+def test_b3_kernel_matches_plain(bw, c, q, group, word_bits, dev, rng):
+    # Words with word_bits random low bits (32: full words), so num_perm
+    # = BW * word_bits; half the queries are stored slots with ~10% of
+    # their bits flipped.
+    mask = (1 << word_bits) - 1
+    sig = (rng.integers(0, 2**32, (bw, c), dtype=np.uint64) & mask).astype(np.uint32).view(np.int32)
+    qw = (rng.integers(0, 2**32, (q, bw), dtype=np.uint64) & mask).astype(np.uint32).view(np.int32)
     flips = np.where(rng.random((q // 2, bw, 32)) < 0.1, 1, 0) << np.arange(32)
-    qw[: q // 2] = sig[:, rng.integers(0, c, q // 2)].T ^ flips.sum(-1).astype(np.uint32).view(np.int32)
-    sig_t = torch.from_numpy(sig).to(dev)
-    qwords = torch.from_numpy(qw).to(dev)
+    flips = (flips.sum(-1) & mask).astype(np.uint32).view(np.int32)
+    qw[: q // 2] = sig[:, rng.integers(0, c, q // 2)].T ^ flips
+    sig_t = torch.from_numpy(np.ascontiguousarray(sig)).to(dev)
+    qwords = torch.from_numpy(np.ascontiguousarray(qw)).to(dev)
     tie = _tie(rng, c, dev)
-    kw = dict(num_perm=32 * bw, group=group, scale=gm.key_scale(c))
+    kw = dict(num_perm=bw * word_bits, group=group, scale=gm.key_scale(c), word_bits=word_bits)
     before = gm.hamming_packed_group_max_keys.launches
     got = gm.hamming_packed_group_max_keys(sig_t, tie, qwords, **kw)
     assert gm.hamming_packed_group_max_keys.launches == before + 1

@@ -16,6 +16,7 @@ from lshrs_tpu.ops.bitpack import pack_words_narrow as j_pack_narrow
 from lshrs_tpu_torch.ops import hamming as tham
 from lshrs_tpu_torch.ops import scan as tscan
 from lshrs_tpu_torch.ops.bitpack import pack_words_narrow as t_pack_narrow
+from lshrs_tpu_torch.ops.bitpack import popcount31
 
 C, Q, GROUP, CHUNK = 1024, 12, 64, 256
 
@@ -89,6 +90,17 @@ def test_popcount32_matches_numpy(rng):
     x[:4] = [0, 1, 0x80000000, 0xFFFFFFFF]
     want = np.unpackbits(x.view(np.uint8)).reshape(-1, 32).sum(1)
     got = tham.popcount32(torch.from_numpy(x.view(np.int32)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_popcount31_matches_numpy_below_bit_31(rng):
+    """The int32 popcount of kernel B3's plain version (words masked below
+    32 bits, so non-negative)."""
+    x = rng.integers(0, 2**31, 4096, dtype=np.int64).astype(np.int32)
+    x[:4] = [0, 1, 0x40000000, 0x7FFFFFFF]
+    want = np.unpackbits(x.view(np.uint8)).reshape(-1, 32).sum(1)
+    got = popcount31(torch.from_numpy(x))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -30,6 +30,7 @@ from lshrs_tpu_torch.ops import _build
 from lshrs_tpu_torch.ops import group_max as gm
 from lshrs_tpu_torch.ops import hamming as tham
 from lshrs_tpu_torch.ops import scan as tscan
+from lshrs_tpu_torch.ops.bitpack import pack_bits_to_words
 from lshrs_tpu_torch.ops.bitpack import pack_words_narrow as t_pack_narrow
 from lshrs_tpu_torch.storage.device import DeviceStore as TorchStore
 
@@ -98,6 +99,14 @@ def test_packed_group_max_ref_matches_pallas(num_bands, rows, q, group, rng):
     np.testing.assert_array_equal(got, pallas)
     alive = (tie.reshape(-1, group) >= 0).any(-1)
     assert (got[:, ~alive] <= 0).all() and (got[:, alive] >= scale).all()
+    # Masked to the low rows_per_band bits of each word (what the store
+    # passes where a band is one word): the same keys, the store's words
+    # carry nothing above them.
+    masked = gm.hamming_packed_group_max_keys_ref(
+        _t(sig_t), _t(tie), _t(qwords), num_perm=p, group=group, scale=scale,
+        word_bits=min(rows, 32),
+    ).numpy()
+    np.testing.assert_array_equal(masked, pallas)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -155,6 +164,125 @@ def test_packed_core_matches_jax(num_bands, rows, k, narrow, use_pallas, rng):
         k=k, group=group, narrow_r=narrow_r,
     )
     assert torch.equal(b_ham, t_ham) and torch.equal(b_ids, t_ids)
+
+
+def _store_words(rng, num_bands, rows, n):
+    """Words as the store packs them: ``rows`` random bits per band, the
+    bits above them zero."""
+    bits = torch.from_numpy(rng.integers(0, 2, (n, num_bands * rows)).astype(np.int32))
+    return pack_bits_to_words(bits, num_bands=num_bands, rows_per_band=rows)
+
+
+@pytest.mark.parametrize("num_bands,rows", [(8, 8), (16, 16), (32, 8), (10, 3)])
+def test_packed_operand_equals_unpack_bitplanes(num_bands, rows, rng):
+    """One word per band, word_bits = rows_per_band: kernel B3's operand
+    columns are the store's bitplanes, padded alike to whole 32 columns."""
+    words = _store_words(rng, num_bands, rows, 50)
+    width = tham.plane_width(num_bands * rows)
+    got = gm.packed_operand(words, word_bits=rows)
+    assert got.dtype == torch.int8 and got.shape == (50, width)
+    assert gm.packed_width(num_bands, rows) == width
+    want = tham.unpack_bitplanes(words, num_bands=num_bands, rows_per_band=rows, width=width)
+    assert torch.equal(got, want)
+    # Random full words at 32 bits: bit b of word w in column 32 w + b.
+    full = torch.from_numpy(rng.integers(-(2**31), 2**31, (7, 3), dtype=np.int64).astype(np.int32))
+    op = gm.packed_operand(full).numpy()
+    bits = (full.numpy().view(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(op, (2 * bits.astype(np.int8) - 1).reshape(7, 96))
+    with pytest.raises(ValueError, match="width"):
+        gm.packed_operand(words, word_bits=rows, width=num_bands * rows - 1)
+
+
+# (kind, BW, word_bits, num_perm): random full words (num_perm = 32 * BW),
+# the store's words at word_bits = rows_per_band (4 x 40: two words per
+# band, so 32), and 16 x 16 words at the default 32 bits (offset 0).
+@pytest.mark.parametrize("group", [16, 64])
+@pytest.mark.parametrize("kind,num_bands,rows,word_bits", [
+    ("full", 16, 32, 32), ("full", 12, 32, 32),
+    ("store", 8, 8, 8), ("store", 16, 16, 16), ("store", 32, 8, 8),
+    ("store", 4, 40, 32), ("store", 10, 3, 3), ("store", 16, 16, 32),
+])
+def test_b2_plain_on_packed_operands_equals_b3_plain(kind, num_bands, rows, word_bits, group, rng):
+    """The CUDA kernel B3 is B2's pipeline on +-1 expansions of the packed
+    words: with n = BW * word_bits columns, dot = n - 2 * ham, so B2's key
+    at offset 2P - n, shift 1 and dead bias -P * scale is B3's key, bit
+    for bit, alive and dead slots alike."""
+    c, q = 1024, 21
+    if kind == "full":
+        bw = num_bands
+        p = 32 * bw
+        sig = torch.from_numpy(rng.integers(-(2**31), 2**31, (c, bw), dtype=np.int64).astype(np.int32))
+        qw = torch.from_numpy(rng.integers(-(2**31), 2**31, (q, bw), dtype=np.int64).astype(np.int32))
+    else:
+        p = num_bands * rows
+        sig = _store_words(rng, num_bands, rows, c)
+        qw = _store_words(rng, num_bands, rows, q)
+        bw = sig.shape[1]
+    qw[: q // 2] = sig[rng.integers(0, c, q // 2)]  # stored slots: small distances
+    qw[: q // 4] ^= torch.from_numpy((rng.random((q // 4, bw)) < 0.3).astype(np.int32) << 2)
+    ids = rng.permutation(c).astype(np.int32)
+    ids[rng.random(c) < 0.2] = -1
+    ids[256:512] = -1  # whole dead groups
+    tie = tscan.global_tie_core(torch.from_numpy(ids))
+    scale = gm.key_scale(c)
+    want = gm.hamming_packed_group_max_keys_ref(
+        sig.T.contiguous(), tie, qw, num_perm=p, group=group, scale=scale, word_bits=word_bits)
+    n = bw * word_bits
+    got = gm.hamming_group_max_keys_ref(
+        gm.packed_operand(sig, word_bits=word_bits), tie, gm.packed_operand(qw, word_bits=word_bits),
+        group=group, scale=scale, offset=2 * p - n, shift=1, dead_bias=-p * scale)
+    assert torch.equal(got, want)
+    dead = (tie.reshape(-1, group) < 0).all(-1)
+    assert dead.any() and (~dead).any()
+    assert (want[:, dead] <= 0).all() and (want[:, ~dead] >= scale).all()
+
+
+@pytest.mark.parametrize("hash_mode", ["device", "host"])
+@pytest.mark.parametrize("num_bands,rows", [(8, 8), (16, 16), (4, 40), (10, 3)])
+def test_packed_store_words_carry_no_bit_above_rows_per_band(num_bands, rows, hash_mode, rng):
+    """Kernel B3 expands only the low min(rows_per_band, 32) bits of each
+    word: a packed store's words hold nothing above a band's rows."""
+    lsh = TorchLSHRS(dim=24, num_perm=num_bands * rows, num_bands=num_bands, rows_per_band=rows,
+                     hash_mode=hash_mode, engine="hamming", hamming_storage="packed", seed=4,
+                     device="cpu")
+    lsh.index(np.arange(300), rng.standard_normal((300, 24)).astype(np.float32))
+    store = lsh._storage
+    words = store._sig_t[:, :300].numpy().view(np.uint32)  # (BW, n)
+    per_band = words.reshape(num_bands, -1, 300)
+    top = rows - 32 * (per_band.shape[1] - 1)  # bits used in a band's last word
+    assert top == 32 or (per_band[:, -1] >> np.uint32(top) == 0).all()
+    assert store._packed_word_bits() == min(rows, 32)
+    assert (words != 0).any()
+
+
+def test_packed_serving_passes_word_bits_and_builds_no_planes(monkeypatch, rng):
+    """Serving a packed index: B3 gets word_bits = rows_per_band, the ids
+    equal the planes index's, and no bitplane array is ever built."""
+    seen = []
+    real = tham.hamming_packed_group_max_keys
+
+    def spy(*args, **kw):
+        seen.append(kw["word_bits"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tham, "hamming_packed_group_max_keys", spy)
+    kw = dict(dim=24, num_perm=128, num_bands=16, rows_per_band=8, hash_mode="host", seed=9,
+              engine="hamming", initial_capacity=512, device="cpu")
+    packed = TorchLSHRS(hamming_storage="packed", **kw)
+    planes = TorchLSHRS(hamming_storage="planes", **kw)
+    X = rng.standard_normal((500, 24)).astype(np.float32)
+    for lsh in (packed, planes):
+        lsh.index(np.arange(500), X)
+    Q = X[:40] + 0.3 * rng.standard_normal((40, 24)).astype(np.float32)
+    out = packed.serving_fn(top_k=10)(Q)
+    np.testing.assert_array_equal(out, planes.serving_fn(top_k=10)(Q))
+    assert packed.query_hamming_batch(Q, top_k=5) == planes.query_hamming_batch(Q, top_k=5)
+    packed.delete([1, 2, 3])
+    packed.serving_fn(top_k=10)(Q)
+    assert seen and set(seen) == {8}
+    assert packed._storage._planes is None
+    assert packed.stats()["index"]["hamming_plane_bytes"] == 0
+    assert planes._storage._planes is not None
 
 
 NB, R, DIM = 4, 8, 32
@@ -290,6 +418,9 @@ def test_packed_wrapper_rejects_other_devices_and_bad_inputs():
         gm.hamming_packed_group_max_keys(sig, tie, qw, **{**kw, "group": 48})
     with pytest.raises(ValueError, match="int32"):
         gm.hamming_packed_group_max_keys(sig, tie, qw, **{**kw, "scale": 1 << 25})
+    for word_bits in (0, 33):
+        with pytest.raises(ValueError, match="word_bits"):
+            gm.hamming_packed_group_max_keys(sig, tie, qw, **kw, word_bits=word_bits)
 
 
 def test_packed_store_past_the_int32_key_ceiling_raises(monkeypatch, rng):
