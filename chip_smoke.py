@@ -238,7 +238,12 @@ then runs these phases and prints JSON lines as it goes:
       (``chunk_size=16``, ``initial_capacity=16``, below the group): its
       answer, self-match, == a CPU copy.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-14
+15. bench_smoke, last: ``bench_cuda.main(["--smoke"])``, the port's
+    benchmark at its smoke size on the card (every configuration, its own
+    checks: self-match 1.0, packed == planes, each row's kernel launched);
+    its exit code must be 0 and its one stdout line is emitted here.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-15
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -254,6 +259,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import itertools
 import json
 import shutil
@@ -3436,6 +3442,21 @@ def phase_sharded_checkpoint(seed: int, label: str) -> None:
     assert any("restoring unsharded" in w for w in warned), warned
 
 
+def phase_bench_smoke() -> dict:
+    """``bench_cuda.py`` at its smoke size on the card: exit code 0 and
+    exactly one stdout line, which is emitted (parsed)."""
+    import bench_cuda
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_cuda.main(["--smoke"])
+    lines = out.getvalue().splitlines()
+    assert rc == 0 and len(lines) == 1, f"bench_cuda --smoke: exit {rc}, {len(lines)} stdout lines"
+    line = json.loads(lines[0])
+    emit("bench_smoke", line=line)
+    return line
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3667,6 +3688,8 @@ def main() -> int:
              "(tests/test_torch_io.py, tests/test_torch_bucket_backends.py) hold them to "
              "lshrs_tpu")
     del f100
+    # Phase 15: the port's benchmark at its smoke size, every row.
+    drive("bench_smoke", KERNELS, phase_bench_smoke)
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
