@@ -243,13 +243,28 @@ then runs these phases and prints JSON lines as it goes:
     checks: self-match 1.0, packed == planes, each row's kernel launched);
     its exit code must be 0 and its one stdout line is emitted here.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-15
+16. recall_capacity_smoke, last: ``benchmarks/torch_capacity_bench.py
+    --smoke`` (2**14 and 2**23 slots: the grouped exact engine on B2, the
+    chunked exact engine with no kernel, cascade128 and cascade64 on B2's
+    coarse packings) and ``benchmarks/torch_recall_bench.py --smoke``
+    (16,384 clustered vectors at the five sweep bandings 64 x 4 to 4 x 64:
+    B1 at 64, 32, 16 and 8 band words in the ``<64, 1, 1>``, ``<32, 1,
+    1>``, ``<16, 1, 1>``, ``<8, 1, 1>`` and ``<8, 2, 1>`` instantiations,
+    with 2 probes, B2 on the Hamming and asymmetric columns), each with
+    its own checks; both must exit 0 (phase 2 also holds B1 at every
+    sweep banding at C=2**20, Q=512, the generic instantiation on
+    ``<64, 1, 1>``'s compares beside it, and B2 at the capacity bench's
+    coarse packings, P=128 and 64, up to 2**24 slots).
+
+Every launch counter is reset just before each path of phases 3-5 and 7-16
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
 error, ms, plain, bound and library ms; B1 once per timed instantiation,
-B2 once more per phase-10 packing, at sharded_16m's shard and on B3's
-timed words, B3 once more at the packed_4m batch), and last ``{"ok": true, "device":
+and per recall-sweep banding at 2**20 slots the main path launched, B2
+once more per phase-10 packing, at sharded_16m's shard, on B3's timed
+words and at phase 16's cascade64 coarse packing, B3 once more at the
+packed_4m batch), and last ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
@@ -259,6 +274,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import itertools
 import json
@@ -314,6 +330,22 @@ B1_TIMED_1M = {
     (16, 1, N_1M, 256, 4): "group_max_keys@gather_1m_probes4",
     (32, 1, N_1M, 256, 1): "group_max_keys@gather_1m_bw32",
 }
+# B1 at the recall sweep's bandings at 2**20 slots and its 512-query batch
+# (num_bands, words, C, Q, probes): 64 x 4 in the <64, 1, 1> registers, 32
+# x 8 (with 4 probes too), 16 x 16, 8 x 32 and 4 x 64 (<8, 2, 1>). Each is
+# timed; the instantiations the main path launches are lines of the
+# kernels record, by their template <BW, W, P>.
+B1_RECALL_1M = {
+    (64, 1, N_1M, 512, 1): "group_max_keys@recall_1m_64x4",
+    (32, 1, N_1M, 512, 1): "group_max_keys@recall_1m_32x8",
+    (32, 1, N_1M, 512, 4): "group_max_keys@recall_1m_32x8_probes4",
+    (16, 1, N_1M, 512, 1): "group_max_keys@recall_1m_16x16",
+    (8, 1, N_1M, 512, 1): "group_max_keys@recall_1m_8x32",
+    (4, 2, N_1M, 512, 1): "group_max_keys@recall_1m_4x64",
+}
+# The generic instantiation on <64, 1, 1>'s word compares (32 bands of 2
+# words): timed beside it, never launched by the main path.
+B1_GENERIC_64 = (32, 2, N_1M, 512, 1)
 # Plain B1 holds a (Q, C) int32 key matrix: past this many elements it is
 # run over slices of the queries.
 B1_PLAIN_ELEMENTS = 1 << 28
@@ -352,6 +384,10 @@ B2_TIMED_NEW = {
     (N_4M, CASCADE_BITS, None): "hamming_group_max_keys@cascade_coarse_4m",
     (N_8M, CASCADE_BITS, None): "hamming_group_max_keys@cascade_coarse_8m",
 }
+# The capacity bench's cascade64 prefix; its coarse pass at 2**23 slots
+# (phase 16) is timed at Q=512 too.
+CASCADE64_BITS = 64
+B2_CASCADE64_8M = "hamming_group_max_keys@cascade64_coarse_8m"
 
 
 def b2_packings() -> dict:
@@ -360,13 +396,15 @@ def b2_packings() -> dict:
     shift 5 and 1 at 2**20 slots) and the cascade's coarse pass over the
     128-column prefix (the symmetric offset and shift); on phase 13's: the
     symmetric 256-bit key and the asymmetric wires at a 2**18-row shard's
-    shift."""
+    shift; on phase 16's: the cascade64 coarse pass over the 64-column
+    prefix."""
     from lshrs_tpu_torch.ops.group_max import asymmetric_shift
 
     return {
         "asymmetric_int8": (NUM_PERM, NUM_PERM * 127, asymmetric_shift(NUM_PERM, N_1M)),
         "asymmetric_int4": (NUM_PERM, NUM_PERM * 7, asymmetric_shift(NUM_PERM, N_1M, qmax=7)),
         "cascade_coarse": (CASCADE_BITS, CASCADE_BITS, 1),
+        "cascade64_coarse": (CASCADE64_BITS, CASCADE64_BITS, 1),
         "symmetric": (NUM_PERM, NUM_PERM, 1),
         "sharded_asymmetric_int8": (NUM_PERM, NUM_PERM * 127,
                                     asymmetric_shift(NUM_PERM, N_1M // SHARDS)),
@@ -507,7 +545,8 @@ def b2_inputs_on_card(gen, *, c, p, q, qmax, dev):
     from lshrs_tpu_torch.ops.hamming import cascade_coarse_scale
     from lshrs_tpu_torch.ops.scan import global_tie_core
 
-    planes = (2 * torch.randint(0, 2, (c, p), generator=gen, device=dev) - 1).to(torch.int8)
+    # drawn as int8: an int64 draw of 2**24 x 128 would take 16 GiB
+    planes = torch.randint(0, 2, (c, p), generator=gen, device=dev, dtype=torch.int8) * 2 - 1
     ids = torch.randperm(c, generator=gen, device=dev).to(torch.int32)
     ids[torch.rand(c, generator=gen, device=dev) < 0.1] = -1
     tie = global_tie_core(ids)
@@ -593,18 +632,30 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
     # on the card: 1 GiB of planes at 2**23), each at the timed Q=512 and at
     # the query counts its path launches: the whole serving batch for the
     # asymmetric wires, the store's query slices (and the last, ragged one)
-    # for the coarse pass. The plain version runs over 256-query slices.
-    for c, p, qmax in [(N_1M, NUM_PERM, 127), (N_1M, NUM_PERM, 7),
-                       (N_4M, CASCADE_BITS, None), (N_8M, CASCADE_BITS, None)]:
+    # for the coarse pass. Then the capacity bench's coarse passes (phase 16
+    # and its full run): P=128 and 64 at 2**17 slots (--smoke at 2**14
+    # rows, 256-query batches), 2**22, 2**23 and 2**24 slots (its 12.5M
+    # rows; 2 GiB of planes at P=128), at its batches' slices. The plain
+    # version runs over query slices of at most 2**31 keys.
+    for c, p, qmax, smoke_q in [
+        (N_1M, NUM_PERM, 127, None), (N_1M, NUM_PERM, 7, None),
+        (N_4M, CASCADE_BITS, None, None), (N_8M, CASCADE_BITS, None, 256),
+        (1 << 17, CASCADE_BITS, None, 256), (1 << 17, CASCADE64_BITS, None, 256),
+        (N_4M, CASCADE64_BITS, None, None), (N_8M, CASCADE64_BITS, None, 256),
+        (N_16M, CASCADE_BITS, None, None), (N_16M, CASCADE64_BITS, None, None),
+    ]:
         qs = [512, QPS_BATCH_1M] if qmax else [512, *cascade_path_queries(c)]
+        if smoke_q:
+            qs.append(smoke_q)
         planes, tie, qb, kw = b2_inputs_on_card(gen, c=c, p=p, q=max(qs), qmax=qmax, dev=dev)
+        step = min(256, (1 << 31) // c)
         for q in qs:
             got = hamming_group_max_keys(planes, tie, qb[:q], **kw)
             diff, ok = 0, True
-            for s in range(0, q, 256):
-                want = hamming_group_max_keys_ref(planes, tie, qb[s : min(q, s + 256)], **kw)
-                diff = max(diff, int((got[s : s + 256].long() - want.long()).abs().max()))
-                ok = ok and torch.equal(got[s : s + 256], want)
+            for s in range(0, q, step):
+                want = hamming_group_max_keys_ref(planes, tie, qb[s : min(q, s + step)], **kw)
+                diff = max(diff, int((got[s : s + step].long() - want.long()).abs().max()))
+                ok = ok and torch.equal(got[s : s + step], want)
             torch.cuda.synchronize()
             err["hamming_group_max_keys"] = max(err["hamming_group_max_keys"], diff)
             emit("kernel_check", kernel="hamming_group_max_keys", C=c, P=p, Q=q, group=64,
@@ -614,6 +665,8 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
                 raise AssertionError(f"B2 kernel != plain at C={c}, P={p}, Q={q}, qmax={qmax}")
             del got, want
         name = B2_TIMED_NEW.get((c, p, qmax))
+        if (c, p, qmax) == (N_8M, CASCADE64_BITS, None):
+            name = B2_CASCADE64_8M
         if name:
             q512 = qb[:512]
             timed[name] = (
@@ -777,6 +830,8 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, N_100K_SHARD, CARRY_QUERIES, 1),  # sharded_parity: a 100k store's shard
         (16, 1, N_1M // SHARDS, 256, 1),  # sharded top-p gather: a 1M store's shard
         (16, 1, 16384, CARRY_QUERIES, 1),  # sharded checkpoint restored unsharded
+        *B1_RECALL_1M,  # the recall sweep's bandings at 2**20 slots
+        B1_GENERIC_64,  # the generic instantiation on <64, 1, 1>'s compares
     ]
     for nb, w, c, q, probes in b1_cases:
         sig_t, tie, qw = b1_inputs(rng, bw=nb * w, c=c, q=q, probes=probes, dev=dev)
@@ -800,7 +855,9 @@ def phase_kernels(rng, dev) -> dict:
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
                 dict(C=c, Q=q, bands=nb, probes=probes), None,
             )
-        variant = B1_VARIANTS.get((nb, w, c, q, probes))
+        variant = B1_VARIANTS.get((nb, w, c, q, probes)) or B1_RECALL_1M.get((nb, w, c, q, probes))
+        if (nb, w, c, q, probes) == B1_GENERIC_64:
+            variant = "group_max_keys@generic_32x2_1m"
         if variant:
             timed[variant] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
@@ -3457,6 +3514,44 @@ def phase_bench_smoke() -> dict:
     return line
 
 
+def load_benchmark(name: str):
+    """The script ``benchmarks/<name>.py`` as a module."""
+    path = Path(__file__).resolve().parent / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_recall_capacity_smoke(label: str) -> dict:
+    """Phase 16: ``torch_capacity_bench.py --smoke`` and
+    ``torch_recall_bench.py --smoke`` on the card. Each runs its own checks
+    (self-match, ids in range, each column's kernel launched, none on the
+    chunked route) and must exit 0; their rows are emitted here and must
+    cover every route and banding."""
+    rows = {}
+    for name in ("torch_capacity_bench", "torch_recall_bench"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = load_benchmark(name).main(["--smoke"])
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        assert rc == 0 and lines, f"{name} --smoke: exit {rc}, {len(lines)} stdout lines"
+        rows[name] = [line for line in lines if "summary" not in line]
+        emit("recall_capacity_smoke", card=label, script=name, seconds=time.perf_counter() - t0,
+             rows=rows[name])
+    routes = [(r["slots"], r["engine"], r["route"]) for r in rows["torch_capacity_bench"]]
+    assert routes == [
+        (slots, engine, route)
+        for slots, exact in ((1 << 14, "grouped"), (N_8M, "chunked"))
+        for engine, route in (("exact", exact), ("cascade128:8192", "cascade"),
+                              ("cascade64:8192", "cascade"))
+    ], routes
+    bands = [r["bands"] for r in rows["torch_recall_bench"]]
+    assert bands == ["64x4", "32x8", "16x16", "8x32", "4x64"], bands
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3489,18 +3584,21 @@ def main() -> int:
     launches = {name: 0 for name in KERNELS}
 
     b1_by_shape = {}
+    b1_by_template = {}
     b2_by_packing = {}
     b3_by_shape = {}
     packings = b2_packings()
 
-    def drive(path: str, kernel, run, *, b1_shapes=(), b2_packings=()):
+    def drive(path: str, kernel, run, *, b1_shapes=(), b1_templates=(), b2_packings=()):
         """Run one path with every launch counter at 0 just before it and
         read just after: each kernel named (one name or several) must have
-        been launched, B1 at each ``(BW, probes)`` of ``b1_shapes`` and B2
-        at each ``(width, offset, shift)`` of ``b2_packings``."""
+        been launched, B1 at each ``(BW, probes)`` of ``b1_shapes`` and in
+        each ``<BW, W, P>`` of ``b1_templates``, and B2 at each ``(width,
+        offset, shift)`` of ``b2_packings``."""
         for w in wrappers.values():
             w.launches = 0
         wrappers[B1].launches_by_shape.clear()
+        wrappers[B1].launches_by_template.clear()
         wrappers[B2].launches_by_packing.clear()
         wrappers[B3].launches_by_shape.clear()
         t0 = time.perf_counter()
@@ -3508,10 +3606,12 @@ def main() -> int:
         seconds = time.perf_counter() - t0
         counts = {name: w.launches for name, w in wrappers.items()}
         shapes = dict(wrappers[B1].launches_by_shape)
+        templates = dict(wrappers[B1].launches_by_template)
         by_packing = dict(wrappers[B2].launches_by_packing)
         b3_shapes = dict(wrappers[B3].launches_by_shape)
         emit("launches", path=path, seconds=seconds, **counts,
              b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())},
+             b1_by_template={f"{bw}x{w}x{t}": n for (bw, w, t), n in sorted(templates.items())},
              b2_by_width_offset_shift={f"{w}/{o}/{h}": n for (w, o, h), n in sorted(by_packing.items())},
              b3_by_bw_word_bits={f"{bw}x{wb}": n for (bw, wb), n in sorted(b3_shapes.items())})
         b3_by_shape[path] = b3_shapes
@@ -3521,6 +3621,9 @@ def main() -> int:
         for shape in b1_shapes:
             if shapes.get(shape, 0) == 0:
                 raise AssertionError(f"B1 was not launched at (BW, probes)={shape} on the {path} path")
+        for template in b1_templates:
+            if templates.get(template, 0) == 0:
+                raise AssertionError(f"B1 was not launched in <BW, W, P>={template} on the {path} path")
         for packing in b2_packings:
             if by_packing.get(packing, 0) == 0:
                 raise AssertionError(f"B2 was not launched at (width, offset, shift)={packing} "
@@ -3530,6 +3633,8 @@ def main() -> int:
             launches[name] += n
         for shape, n in shapes.items():
             b1_by_shape[shape] = b1_by_shape.get(shape, 0) + n
+        for template, n in templates.items():
+            b1_by_template[template] = b1_by_template.get(template, 0) + n
         return out
 
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
@@ -3690,6 +3795,14 @@ def main() -> int:
     del f100
     # Phase 15: the port's benchmark at its smoke size, every row.
     drive("bench_smoke", KERNELS, phase_bench_smoke)
+    # Phase 16: the capacity and recall benches at their smoke sizes: B1 in
+    # the sweep's register instantiations, B2 symmetric and at both
+    # cascade prefixes' coarse packings.
+    drive("recall_capacity_smoke", (B1, B2), lambda: phase_recall_capacity_smoke(label),
+          b1_shapes=[(64, 1), (32, 1), (16, 1), (8, 1), (32, 2)],
+          b1_templates=[(64, 1, 1), (8, 1, 1), (8, 2, 1)],
+          b2_packings=[packings["symmetric"], packings["cascade_coarse"],
+                       packings["cascade64_coarse"]])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
@@ -3752,6 +3865,24 @@ def main() -> int:
              "launches": b1_by_shape[t["bands"], t["probes"]],
              "max_abs_err": kern["max_abs_err"][B1],
              **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # B1 once more per recall-sweep instantiation the main path launched
+    # (by its template: 8 x 32 and 4 x 64 share the band-word count), and
+    # B2 at the cascade64 coarse packing (its phase-16 launches).
+    for (nb, w, _, _, probes), variant in B1_RECALL_1M.items():
+        n = b1_by_template.get((nb * w, w, probes), 0)
+        if n:
+            t = times[variant]
+            kernels.append(
+                {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": n, "max_abs_err": kern["max_abs_err"][B1],
+                 **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    src, rep = sources[B2]
+    kernels.append(
+        {"name": B2_CASCADE64_8M, "route": "cuda", "source": src, "replaces": rep,
+         "launches": b2_by_packing["recall_capacity_smoke", packings["cascade64_coarse"]],
+         "max_abs_err": kern["max_abs_err"][B2],
+         **{key: times[B2_CASCADE64_8M][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit("done", script_s=time.perf_counter() - start)
     print(label)
     print(json.dumps({"kernels": kernels}))

@@ -33,12 +33,17 @@
 //   <32, 1, 1>       64       0 / 0
 //   <32, 1, 2>      180       0 / 0
 //   <32, 1, 4>      255      80 / 80   (128 query words per thread)
-//   <8, 1, 1> 48, <4, 1, 1> 32, <4, 2, 1> 39, generic <0, 0, 0> 32: no spills.
+//   <64, 1, 1>       96       0 / 0    (64 x 4 bands: 64 query words)
+//   <8, 1, 1> 48, <8, 2, 1> 48 (4 x 64 bands), <4, 1, 1> 32, <4, 2, 1> 39,
+//   generic <0, 0, 0> 32: no spills.
 // <32, 1, 4> spills 20 of its words to local memory and stays in registers
 // all the same: on an H100 it takes 3.2 ms at Q=1024, C=131072 where the
 // generic instantiation, which re-reads every query word through L1 in the
 // inner loop, takes several times longer on the same count of word
-// compares (benchmarks/torch_b1_probe.py times both).
+// compares (benchmarks/torch_b1_probe.py times both). The same holds at 64
+// band words: on an H100 <64, 1, 1> takes 5.0 ms at Q=512, C=2^20, where
+// the generic instantiation takes 56.7 ms on the same compares (32 bands
+// of 2 words; chip_smoke.py phase 2 times both).
 
 #include <climits>
 #include <cstdint>
@@ -211,6 +216,8 @@ extern "C" int lshrs_collision_group_max(
   LSHRS_B1_CASE(8, 1, 1)
   LSHRS_B1_CASE(4, 1, 1)
   LSHRS_B1_CASE(4, 2, 1)
+  LSHRS_B1_CASE(64, 1, 1)
+  LSHRS_B1_CASE(8, 2, 1)
 #undef LSHRS_B1_CASE
   return launch<0, 0, 0>(s, t, qw, o, q, c, bw, words, probes, group, scale,
                          dead_bias, tile, spb, st);

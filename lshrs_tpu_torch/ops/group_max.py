@@ -28,7 +28,8 @@ Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
 kernel launches it makes in its ``launches`` attribute (B1 also by
-``(BW, probes)`` in ``launches_by_shape``, B2 by its key packing
+``(BW, probes)`` in ``launches_by_shape`` and by ``(BW, words, probes)`` in
+``launches_by_template``, B2 by its key packing
 ``(width, offset, shift)`` in ``launches_by_packing``, B3 by ``(BW,
 word_bits)`` in ``launches_by_shape``).
 
@@ -310,6 +311,7 @@ def group_max_keys(
     )
     group_max_keys.launches += 1
     group_max_keys.launches_by_shape[bw, probes] += 1
+    group_max_keys.launches_by_template[bw, words, probes] += 1
     return out
 
 
@@ -317,6 +319,9 @@ group_max_keys.launches = 0
 # The same launches, by (band words BW, probes): which template
 # instantiation a path reached.
 group_max_keys.launches_by_shape = collections.Counter()
+# ... and by (BW, words per band W, probes), the template's <BW, W, P>:
+# 8 x 32 and 4 x 64 both hold 8 band words, in different instantiations.
+group_max_keys.launches_by_template = collections.Counter()
 
 
 def hamming_group_max_keys_ref(

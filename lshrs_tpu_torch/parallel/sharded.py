@@ -365,18 +365,11 @@ class ShardedDeviceStore(DeviceStore):
         """`DeviceStore.snapshot_query_fn` over the shards, serving a batch
         ``dev_batch`` queries at a time (default: :meth:`_query_dev_batch`,
         one shard's group-max keys near 2 GiB)."""
-        if dev_batch is not None and dev_batch <= 0:
-            raise ValueError("dev_batch must be greater than zero")
-        serve = super().snapshot_query_fn(k, wire=wire, mode=mode, probes=probes, where=where)
-        step = dev_batch or self._query_dev_batch()
-
-        def serve_sliced(q) -> torch.Tensor:
-            n = q.shape[0]
-            if n <= step:
-                return serve(q)
-            return torch.cat([serve(q[s : s + step]) for s in range(0, n, step)])
-
-        return serve_sliced
+        if dev_batch is None:
+            dev_batch = self._query_dev_batch()
+        return super().snapshot_query_fn(
+            k, wire=wire, dev_batch=dev_batch, mode=mode, probes=probes, where=where
+        )
 
     def query_counts(self, qwords, *, where=None) -> tuple[np.ndarray, np.ndarray]:
         """Each shard's counts and ids, concatenated in slot order."""

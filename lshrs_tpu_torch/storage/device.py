@@ -1110,6 +1110,7 @@ class DeviceStore(BaseStorage):
         k: int,
         *,
         wire: str = "words",
+        dev_batch: int | None = None,
         mode: str = "collision",
         probes: int = 1,
         where=None,
@@ -1131,6 +1132,10 @@ class DeviceStore(BaseStorage):
                 ``"coords4"`` the half-size nibble wire of
                 `lshrs_tpu_torch.ops.asymmetric.pack_coords_int4_np` (coords
                 quantised with ``qmax=QMAX4``).
+            dev_batch: optionally serve a batch in slices of this many
+                queries (bounds the working set of very large batches; the
+                ids do not depend on it). The cascade's own query slices and
+                the chunked cores' steps apply inside each slice.
             mode: ``"collision"`` (band-collision counting, kernel B1),
                 ``"hamming"`` (full-signature ranking, kernel B2 or B3 by
                 ``hamming_storage``, or the cascade; requires
@@ -1166,6 +1171,8 @@ class DeviceStore(BaseStorage):
             self._require_hamming()
         if mode == "asymmetric":
             self._check_asymmetric()
+        if dev_batch is not None and dev_batch <= 0:
+            raise ValueError("dev_batch must be greater than zero")
         qmax = QMAX4 if wire == "coords4" else QMAX
         where = as_filter(where)
         with self._lock:
@@ -1175,6 +1182,17 @@ class DeviceStore(BaseStorage):
                 self._require_asymmetric_planes()
             snapshot_gen = self._generation
 
+        def run_slice(q) -> torch.Tensor:
+            if mode == "asymmetric":
+                if wire == "coords4":  # packed nibbles -> int8 coords
+                    q = unpack_coords_int4(torch.as_tensor(q).to(self.device))
+                qc = self._query_coords(q)
+                return self._query_asymmetric_dev(qc, k, where, qmax)[1]
+            qw = self._wire_words(q, wire, probes)
+            if mode == "hamming":
+                return self._query_hamming_dev(qw, k, where)[1]
+            return self._query_topk_dev(qw, k, probes, where, bucket=False)[1]
+
         def serve(q) -> torch.Tensor:
             with self._lock:
                 if self._generation != snapshot_gen:
@@ -1183,15 +1201,11 @@ class DeviceStore(BaseStorage):
                         "after the snapshot was taken; call snapshot_query_fn "
                         "again"
                     )
-                if mode == "asymmetric":
-                    if wire == "coords4":  # packed nibbles -> int8 coords
-                        q = unpack_coords_int4(torch.as_tensor(q).to(self.device))
-                    qc = self._query_coords(q)
-                    return self._query_asymmetric_dev(qc, k, where, qmax)[1]
-                qw = self._wire_words(q, wire, probes)
-                if mode == "hamming":
-                    return self._query_hamming_dev(qw, k, where)[1]
-                return self._query_topk_dev(qw, k, probes, where, bucket=False)[1]
+                if dev_batch is None or len(q) <= dev_batch:
+                    return run_slice(q)
+                return torch.cat(
+                    [run_slice(q[s : s + dev_batch]) for s in range(0, len(q), dev_batch)]
+                )
 
         return serve
 

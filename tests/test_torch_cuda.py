@@ -55,6 +55,10 @@ def _tie(rng, c, dev):
         (16, 2, 4096, 70, 4),   # generic instantiation with probes
         (4, 3, 2048, 70, 1),    # generic (non-register) instantiation
         (8, 1, 256, 9, 1),      # store smaller than one block's slot range
+        (64, 1, 4096, 256, 1),  # <64, 1, 1>: 64 x 4 bands
+        (64, 1, 4096, 100, 1),  # ragged Q
+        (4, 2, 4096, 256, 1),   # <8, 2, 1>: 4 x 64 bands
+        (32, 2, 4096, 100, 1),  # generic, on <64, 1, 1>'s compares
     ],
 )
 def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
@@ -68,8 +72,10 @@ def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
     tie = _tie(rng, c, dev)
     kw = dict(num_bands=num_bands, words=words, group=64, scale=gm.key_scale(c), probes=probes)
     before = gm.group_max_keys.launches
+    template = gm.group_max_keys.launches_by_template[bw, words, probes]
     got = gm.group_max_keys(sig_t, tie, qwords, **kw)
     assert gm.group_max_keys.launches == before + 1
+    assert gm.group_max_keys.launches_by_template[bw, words, probes] == template + 1
     assert got.device == sig_t.device and got.shape == (q, c // 64)
     assert torch.equal(got, gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
 
