@@ -256,14 +256,23 @@ then runs these phases and prints JSON lines as it goes:
     ``<64, 1, 1>``'s compares beside it, and B2 at the capacity bench's
     coarse packings, P=128 and 64, up to 2**24 slots).
 
-Every launch counter is reset just before each path of phases 3-5 and 7-16
+17. profiles_smoke, last: the five stage profiles at ``--smoke``
+    (``benchmarks/torch_kernel_profile.py``, ``torch_hamming_profile.py``,
+    ``torch_cascade_profile.py``, ``torch_ingest_profile.py``,
+    ``torch_gather_rerank_bench.py``), each with its own checks (the
+    stages composed == the core == the store's closure, exact launch
+    counts per row); all must exit 0, B1 must launch (the collision
+    profile, the gather engine) and B2 at 256 columns and at the
+    cascade64 coarse packing.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-17
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
 error, ms, plain, bound and library ms; B1 once per timed instantiation,
 and per recall-sweep banding at 2**20 slots the main path launched, B2
 once more per phase-10 packing, at sharded_16m's shard, on B3's timed
-words and at phase 16's cascade64 coarse packing, B3 once more at the
+words and at the cascade64 coarse packing (phases 16 and 17), B3 once more at the
 packed_4m batch), and last ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
@@ -643,6 +652,9 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
         (1 << 17, CASCADE_BITS, None, 256), (1 << 17, CASCADE64_BITS, None, 256),
         (N_4M, CASCADE64_BITS, None, None), (N_8M, CASCADE64_BITS, None, 256),
         (N_16M, CASCADE_BITS, None, None), (N_16M, CASCADE64_BITS, None, None),
+        # phase 17's smoke sizes: the cascade profile's coarse pass and the
+        # Hamming profile's symmetric key over 2**16 slots, 1,024 queries
+        (1 << 16, CASCADE64_BITS, None, 1024), (1 << 16, NUM_PERM, 0, 1024),
     ]:
         qs = [512, QPS_BATCH_1M] if qmax else [512, *cascade_path_queries(c)]
         if smoke_q:
@@ -832,10 +844,16 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, 16384, CARRY_QUERIES, 1),  # sharded checkpoint restored unsharded
         *B1_RECALL_1M,  # the recall sweep's bandings at 2**20 slots
         B1_GENERIC_64,  # the generic instantiation on <64, 1, 1>'s compares
+        (16, 1, 131072, 256, 1),   # the gather rerank bench's slices (phase 17)
+        (16, 1, 1 << 16, 256, 1),  # and at its smoke size
     ]
-    for nb, w, c, q, probes in b1_cases:
+    # The collision profile's store groups 32 slots (phase 17): its full
+    # shape and its smoke size, checked but not timed.
+    b1_group32 = [(16, 1, 131072, 1024, 1), (16, 1, 1 << 14, 256, 1)]
+    for (nb, w, c, q, probes), group in [*((case, 64) for case in b1_cases),
+                                         *((case, 32) for case in b1_group32)]:
         sig_t, tie, qw = b1_inputs(rng, bw=nb * w, c=c, q=q, probes=probes, dev=dev)
-        kw = dict(num_bands=nb, words=w, group=64, scale=key_scale(c), probes=probes)
+        kw = dict(num_bands=nb, words=w, group=group, scale=key_scale(c), probes=probes)
         got = group_max_keys(sig_t, tie, qw, **kw)
         step = max(1, B1_PLAIN_ELEMENTS // c)
         diff, ok = 0, True
@@ -846,9 +864,11 @@ def phase_kernels(rng, dev) -> dict:
         torch.cuda.synchronize()
         err["group_max_keys"] = max(err["group_max_keys"], diff)
         emit("kernel_check", kernel="group_max_keys", bands=nb, words=w, C=c, Q=q,
-             probes=probes, equal=ok, max_abs_err=diff)
+             probes=probes, group=group, equal=ok, max_abs_err=diff)
         if not ok:
-            raise AssertionError(f"B1 kernel != plain at {(nb, w, c, q, probes)}")
+            raise AssertionError(f"B1 kernel != plain at {(nb, w, c, q, probes)}, group {group}")
+        if group != 64:
+            continue
         if (nb, w, c, q, probes) in B1_TIMED_1M:
             timed[B1_TIMED_1M[nb, w, c, q, probes]] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
@@ -3552,6 +3572,28 @@ def phase_recall_capacity_smoke(label: str) -> dict:
     return rows
 
 
+PROFILE_SCRIPTS = ("torch_kernel_profile", "torch_hamming_profile", "torch_cascade_profile",
+                   "torch_ingest_profile", "torch_gather_rerank_bench")
+
+
+def phase_profiles_smoke(label: str) -> dict:
+    """Phase 17: the stage profiles at ``--smoke`` on the card. Each runs
+    its own checks (its stages composed == its core == the store's closure,
+    every row's launches exact) and must exit 0; their rows are emitted."""
+    rows = {}
+    for name in PROFILE_SCRIPTS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = load_benchmark(name).main(["--smoke"])
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        assert rc == 0 and lines, f"{name} --smoke: exit {rc}, {len(lines)} stdout lines"
+        rows[name] = lines
+        emit("profiles_smoke", card=label, script=name, seconds=time.perf_counter() - t0,
+             rows=lines)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3803,6 +3845,11 @@ def main() -> int:
           b1_templates=[(64, 1, 1), (8, 1, 1), (8, 2, 1)],
           b2_packings=[packings["symmetric"], packings["cascade_coarse"],
                        packings["cascade64_coarse"]])
+    # Phase 17: the stage profiles at their smoke sizes: B1 in the collision
+    # profile and the gather engine, B2 at 256 columns and the cascade64
+    # coarse packing.
+    drive("profiles_smoke", (B1, B2), lambda: phase_profiles_smoke(label),
+          b2_packings=[packings["symmetric"], packings["cascade64_coarse"]])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
@@ -3867,7 +3914,7 @@ def main() -> int:
              **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # B1 once more per recall-sweep instantiation the main path launched
     # (by its template: 8 x 32 and 4 x 64 share the band-word count), and
-    # B2 at the cascade64 coarse packing (its phase-16 launches).
+    # B2 at the cascade64 coarse packing (its phase-16 and phase-17 launches).
     for (nb, w, _, _, probes), variant in B1_RECALL_1M.items():
         n = b1_by_template.get((nb * w, w, probes), 0)
         if n:
@@ -3879,7 +3926,8 @@ def main() -> int:
     src, rep = sources[B2]
     kernels.append(
         {"name": B2_CASCADE64_8M, "route": "cuda", "source": src, "replaces": rep,
-         "launches": b2_by_packing["recall_capacity_smoke", packings["cascade64_coarse"]],
+         "launches": sum(b2_by_packing[path, packings["cascade64_coarse"]]
+                         for path in ("recall_capacity_smoke", "profiles_smoke")),
          "max_abs_err": kern["max_abs_err"][B2],
          **{key: times[B2_CASCADE64_8M][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})

@@ -54,9 +54,11 @@ from lshrs_tpu_torch.ops.scan import (
     chunked_topk_scan,
     gather_refine_group_rows,
     gather_refine_slots,
+    select_top_groups,
 )
 
 __all__ = [
+    "cascade_coarse_keys",
     "cascade_coarse_scale",
     "cascade_slice_queries",
     "hamming_topk_cascade_core",
@@ -64,9 +66,13 @@ __all__ = [
     "hamming_topk_core",
     "hamming_topk_packed_chunked_core",
     "hamming_topk_packed_core",
+    "hamming_final_topk",
+    "hamming_refine_gather",
+    "hamming_select_terms",
     "int8_dots",
     "plane_width",
     "popcount32",
+    "refine_hamming",
     "supports_hamming_grouped",
     "unpack_bitplanes",
 ]
@@ -217,27 +223,13 @@ def hamming_topk_packed_core(
     )
 
 
-def _select_refine(
-    gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
-    m_groups=None,
-):
-    """Hamming selection tail: top-k groups by max, popcount-exact refine
-    from the gathered packed words, exact (hamming, id) order.
-
-    ``narrow_r`` nonzero means ``sig_rows`` is narrow-packed. Popcount is
-    layout-agnostic — the narrow words hold exactly the same set bits — so
-    only the word count and the query packing change. Without
-    ``sig_rows`` the candidates' words, ties and ids are gathered slot by
-    slot from ``sig_t``, ``tie`` and ``ids`` (word-aligned).
-
-    ``m_groups``: refine the top ``max(k, m_groups)`` groups (the
-    cascade's deep pool, whose coarse keys rank a prefix of the bits).
-    There the refine key is int64 once ``(p + 2) * key_scale(C)`` passes
-    int32 — the same ``(hamming asc, id asc)`` order. The single-pass
-    engines (``m_groups=None``) refuse that regime: their kernels' keys
-    are int32.
-    """
-    q, ng = gmax.shape
+def hamming_select_terms(
+    ng: int, group: int, *, p: int, k: int, m_groups: int | None = None
+) -> tuple[int, int, bool]:
+    """``(m, scale, wide)`` of the Hamming selection tail over ``ng``
+    groups: the groups refined, the refine key's scale, and whether that
+    key is int64 (``(p + 2) * key_scale(C)`` past int32, the cascade only:
+    the single-pass engines, ``m_groups=None``, refuse it)."""
     scale = key_scale(ng * group)
     wide = (p + 2) * scale >= 2**31
     if wide and m_groups is None:
@@ -246,30 +238,47 @@ def _select_refine(
             "ceiling rank with hamming_topk_chunked_core or "
             "hamming_topk_packed_chunked_core"
         )
-    m = min(k if m_groups is None else max(k, m_groups), ng)
-    top_groups = torch.topk(gmax, m, dim=1).indices
+    return min(k if m_groups is None else max(k, m_groups), ng), scale, wide
+
+
+def hamming_refine_gather(
+    qwords, sig_rows, top_groups, *, group, narrow_r=0, sig_t=None, tie=None, ids=None
+):
+    """The gather stage of the Hamming tail: ``(words (Q, m, nw, group),
+    tie (Q, m, group), ids (Q, m, group), query words (Q, nw))`` of the
+    selected groups, from the grouped refine table (narrow-packed when
+    ``narrow_r`` is nonzero: the queries are packed alike) or, without
+    ``sig_rows``, slot by slot from ``sig_t``, ``tie`` and ``ids``."""
     bw = qwords.shape[1]
     if sig_rows is None:
         if sig_t is None or ids is None:
             raise ValueError("sig_rows=None (per-slot refinement) needs sig_t and ids")
-        qcmp = qwords
-        cwords, cand_tie, cand_ids = gather_refine_slots(
-            sig_t, tie, ids, top_groups, group=group
-        )
+        return (*gather_refine_slots(sig_t, tie, ids, top_groups, group=group), qwords)
+    if narrow_r:
+        # narrow packing applies only when words-per-band == 1
+        nw = narrow_words_count(bw, narrow_r)
+        qcmp = pack_words_narrow(qwords, num_bands=bw, rows_per_band=narrow_r)
     else:
-        if narrow_r:
-            # narrow packing applies only when words-per-band == 1
-            nw = narrow_words_count(bw, narrow_r)
-            qcmp = pack_words_narrow(qwords, num_bands=bw, rows_per_band=narrow_r)
-        else:
-            nw = bw
-            qcmp = qwords
-        cwords, cand_tie, cand_ids = gather_refine_group_rows(
-            sig_rows, top_groups, bw=nw, group=group
-        )
-    hamming = popcount32(cwords ^ qcmp[:, None, :, None]).sum(2, dtype=torch.int32)
-    mg = m * group
-    hamming = hamming.reshape(q, mg)
+        nw = bw
+        qcmp = qwords
+    return (*gather_refine_group_rows(sig_rows, top_groups, bw=nw, group=group), qcmp)
+
+
+def refine_hamming(cwords: torch.Tensor, qcmp: torch.Tensor) -> torch.Tensor:
+    """The popcount stage: ``(Q, m, group)`` int32 Hamming distances of the
+    gathered words to the queries' (any packing: popcount is
+    layout-agnostic)."""
+    return popcount32(cwords ^ qcmp[:, None, :, None]).sum(2, dtype=torch.int32)
+
+
+def hamming_final_topk(hamming, cand_tie, cand_ids, *, p, k, scale, wide):
+    """Last stage of the Hamming tail: the ``(hamming asc, id asc)`` keys of
+    the refined candidates (int64 when ``wide``) and their exact top-k,
+    ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry id -1
+    and hamming ``p + 1``."""
+    q = hamming.shape[0]
+    hamming = hamming.reshape(q, -1)
+    mg = hamming.shape[1]
     cand_tie = cand_tie.reshape(q, mg)
     scaled = torch.where(cand_tie >= 0, p + 1 - hamming, 0)
     if wide:
@@ -287,6 +296,39 @@ def _select_refine(
     return out_h, sel_ids
 
 
+def _select_refine(
+    gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
+    m_groups=None,
+):
+    """Hamming selection tail: top-k groups by max, popcount-exact refine
+    from the gathered packed words, exact (hamming, id) order. Its stages:
+    :func:`select_top_groups`, :func:`hamming_refine_gather`,
+    :func:`refine_hamming`, :func:`hamming_final_topk`.
+
+    ``narrow_r`` nonzero means ``sig_rows`` is narrow-packed. Popcount is
+    layout-agnostic — the narrow words hold exactly the same set bits — so
+    only the word count and the query packing change. Without
+    ``sig_rows`` the candidates' words, ties and ids are gathered slot by
+    slot from ``sig_t``, ``tie`` and ``ids`` (word-aligned).
+
+    ``m_groups``: refine the top ``max(k, m_groups)`` groups (the
+    cascade's deep pool, whose coarse keys rank a prefix of the bits).
+    There the refine key is int64 once ``(p + 2) * key_scale(C)`` passes
+    int32 — the same ``(hamming asc, id asc)`` order. The single-pass
+    engines (``m_groups=None``) refuse that regime: their kernels' keys
+    are int32.
+    """
+    m, scale, wide = hamming_select_terms(gmax.shape[1], group, p=p, k=k, m_groups=m_groups)
+    top_groups = select_top_groups(gmax, m)
+    cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
+        qwords, sig_rows, top_groups, group=group, narrow_r=narrow_r,
+        sig_t=sig_t, tie=tie, ids=ids,
+    )
+    return hamming_final_topk(
+        refine_hamming(cwords, qcmp), cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide
+    )
+
+
 # A cascade batch goes through in query slices that keep the coarse
 # pass's (Q, C / group) int32 keys plus the refine's int64 (Q, pool, words)
 # popcount temporaries near this many bytes.
@@ -300,6 +342,18 @@ def cascade_slice_queries(capacity: int, *, group: int, pool_groups: int, words:
     128-query floor: it would overshoot the bound."""
     per_query = 4 * (capacity // group) + 8 * pool_groups * group * words
     return max(1, _CASCADE_SLICE_BYTES // per_query)
+
+
+def cascade_coarse_keys(
+    planes_prefix: torch.Tensor, tie: torch.Tensor, qbits_prefix: torch.Tensor, *, group: int
+) -> torch.Tensor:
+    """The cascade's coarse pass: kernel B2 over the prefix planes with the
+    coarse key of :func:`cascade_coarse_scale` (the tie shifted past the
+    ceiling), ``(Q, C / group)`` int32 group maxes."""
+    c, p_pre = planes_prefix.shape
+    scale, tie_shift = cascade_coarse_scale(p_pre, c)
+    tie_coarse = torch.where(tie >= 0, tie >> tie_shift, tie) if tie_shift else tie
+    return hamming_group_max_keys(planes_prefix, tie_coarse, qbits_prefix, group=group, scale=scale)
 
 
 def hamming_topk_cascade_core(
@@ -348,10 +402,7 @@ def hamming_topk_cascade_core(
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
         id -1 and hamming ``num_perm + 1``.
     """
-    c, p_pre = planes_prefix.shape
-    scale, tie_shift = cascade_coarse_scale(p_pre, c)
-    tie_coarse = torch.where(tie >= 0, tie >> tie_shift, tie) if tie_shift else tie
-    gmax = hamming_group_max_keys(planes_prefix, tie_coarse, qbits_prefix, group=group, scale=scale)
+    gmax = cascade_coarse_keys(planes_prefix, tie, qbits_prefix, group=group)
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
         sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups,

@@ -59,6 +59,7 @@ __all__ = [
     "chunk_step",
     "chunked_topk_scan",
     "collision_counts_core",
+    "collision_final_topk",
     "collision_nnz_core",
     "collision_topk_core",
     "collision_topk_grouped_core",
@@ -71,6 +72,7 @@ __all__ = [
     "key_scale",
     "merge_topk_pools",
     "refine_counts_vs_query",
+    "select_top_groups",
     "supports_fast_path",
 ]
 
@@ -364,7 +366,6 @@ def collision_topk_grouped_core(
         carry id -1.
     """
     bw, c = sig_t.shape
-    q = qwords.shape[0]
     w = bw // num_bands
     scale = key_scale(c)
     ng = c // group
@@ -372,16 +373,43 @@ def collision_topk_grouped_core(
         sig_t, tie, qwords, num_bands=num_bands, words=w, group=group,
         scale=scale, probes=probes,
     )
-    m = min(k, ng)
-    top_groups = torch.topk(gmax, m, dim=1).indices
-    mg = m * group
+    top_groups = select_top_groups(gmax, min(k, ng))
     cwords, cand_tie, cand_ids, narrow_r = gather_refine(
         sig_rows, sig_t, tie, ids, top_groups,
         num_bands=num_bands, group=group, narrow_r=narrow_r,
     )
     counts = refine_counts_vs_query(
         cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
-    ).reshape(q, mg)
+    )
+    return collision_final_topk(counts, cand_tie, cand_ids, k=k, scale=scale)
+
+
+def select_top_groups(gmax: torch.Tensor, m: int) -> torch.Tensor:
+    """The ``m`` groups of largest key per query, ``(Q, m)`` int64: one flat
+    ``torch.topk`` over the ``(Q, C / group)`` group maxes (the selection
+    stage of the grouped collision and Hamming cores)."""
+    return torch.topk(gmax, m, dim=1).indices
+
+
+def collision_final_topk(
+    counts: torch.Tensor, cand_tie: torch.Tensor, cand_ids: torch.Tensor, *, k: int, scale: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Last stage of :func:`collision_topk_grouped_core`: the refined
+    candidates' ``(count, tie)`` keys and their exact top-k.
+
+    Args:
+        counts / cand_tie / cand_ids: ``(Q, m, group)`` int32 recounts
+            (:func:`refine_counts_vs_query`), ties and ids of the gathered
+            candidates.
+        scale: ``key_scale(C)``.
+
+    Returns:
+        ``(counts, ids)``, each ``(Q, k)`` int32; zero-count tail entries
+        carry id -1.
+    """
+    q = counts.shape[0]
+    counts = counts.reshape(q, -1)
+    mg = counts.shape[1]
     cand_tie = cand_tie.reshape(q, mg)
     key = counts * (cand_tie >= 0) * scale + cand_tie.clamp(min=0)
 
