@@ -2,8 +2,9 @@
 
 Imported by ``benchmarks/torch_kernel_profile.py``,
 ``torch_hamming_profile.py``, ``torch_cascade_profile.py``,
-``torch_ingest_profile.py`` and ``torch_gather_rerank_bench.py``; not a
-script of its own.
+``torch_ingest_profile.py`` and ``torch_gather_rerank_bench.py``, and by
+the serving benches ``torch_{asymmetric,scale,rerank,auto_engine,cp}_bench.py``;
+not a script of its own.
 
 Timing (:func:`stage_ms`): a stage's inputs are computed before it is
 timed; the stage is called once to warm it up, then ``n_iter`` times back
@@ -23,6 +24,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -114,10 +116,12 @@ def launch_delta(before: dict) -> dict:
 
 
 def expect_launches(name: str, got: dict | None, device: torch.device, *, b1: int = 0,
-                    b2: int = 0, b3: int = 0, b2_width: int | None = None) -> None:
+                    b2: int = 0, b3: int = 0, b2_width: int | None = None,
+                    b2_packing: tuple | None = None) -> None:
     """On a device that counts launches: B1, B2 and B3 moved by exactly
-    ``b1``, ``b2`` and ``b3``, and every B2 launch was at ``b2_width``
-    operand columns when that is given."""
+    ``b1``, ``b2`` and ``b3``, every B2 launch was at ``b2_width`` operand
+    columns when that is given, and at the key packing ``b2_packing``
+    ``(width, offset, shift)`` when that is given."""
     if not counts_launches(device):
         return
     for kernel, n in ((B1, b1), (B2, b2), (B3, b3)):
@@ -125,11 +129,103 @@ def expect_launches(name: str, got: dict | None, device: torch.device, *, b1: in
     if b2_width is not None:
         widths = {int(k.split("/")[0]) for k in got["b2_by_packing"]}
         check(widths <= {b2_width}, f"{name}_launches_b2_width", {"want": b2_width, "got": got})
+    if b2_packing is not None and b2:
+        want = {"/".join(map(str, b2_packing)): b2}
+        check(got["b2_by_packing"] == want, f"{name}_launches_b2_packing",
+              {"want": want, "got": got})
 
 
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def reset_peak(device: torch.device) -> None:
+    """Start :func:`peak_bytes` from what is allocated now."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_bytes(device: torch.device) -> int | None:
+    """``torch.cuda.max_memory_allocated`` on a card, ``None`` on the CPU."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def platform(device: torch.device) -> str:
+    """What the reference's ``jax.devices()[0].platform`` field becomes."""
+    return "gpu" if device.type == "cuda" else "cpu"
+
+
+def to_host(t) -> np.ndarray:
+    """A NumPy copy of a tensor on any device (the completion barrier of a
+    read), or ``t`` as an array."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def check_ids(name: str, ids: np.ndarray, q: int, k: int, n: int) -> None:
+    """``ids`` is ``(q, k)`` and every entry is -1 or a stored id in ``[0, n)``."""
+    check(ids.shape == (q, k), f"{name}_shape", ids.shape)
+    check(bool(((ids >= -1) & (ids < n)).all()), f"{name}_range", "ids out of [-1, n)")
+
+
+def smoke_sizes(ap, args, sizes: dict) -> None:
+    """``--smoke``: each of ``sizes`` replaces its flag where the flag was
+    left at its default."""
+    for key, value in sizes.items():
+        if getattr(args, key) == ap.get_default(key):
+            setattr(args, key, value)
+
+
+def pipelined_trial(prep, serve, read, batches: list) -> tuple[float, list]:
+    """One trial of the serving benches' pipeline: a hasher thread runs
+    ``prep`` on each batch, this thread calls ``serve`` on each prepared
+    batch in order, a reader thread runs ``read`` (the completion barrier)
+    on each output. Returns the seconds and the reads, in order."""
+    with ThreadPoolExecutor(max_workers=1) as hash_pool, \
+            ThreadPoolExecutor(max_workers=1) as read_pool:
+        t0 = time.perf_counter()
+        hashed = [hash_pool.submit(prep, b) for b in batches]
+        reads = [read_pool.submit(read, serve(f.result())) for f in hashed]
+        out = [f.result() for f in reads]
+        return time.perf_counter() - t0, out
+
+
+def pooled_trial(serve, batches: list, read=to_host, workers: int = 3) -> tuple[float, list]:
+    """One trial with ``workers`` threads each calling ``serve`` on batches
+    (dispatches serialise on the store's lock); this thread reads each
+    output with ``read``. Returns the seconds and the reads, in order."""
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(serve, b) for b in batches]
+        out = [read(f.result()) for f in futs]
+        return time.perf_counter() - t0, out
+
+
+def repeated_trials(trial, trials: int, *, q: int, k: int, n: int,
+                    ids_of=lambda out: out) -> tuple[list[float], list]:
+    """Run ``trial()`` (seconds, outputs) ``trials`` times. Each output's ids
+    (``ids_of``) are checked (:func:`check_ids`), and every trial must serve
+    the ids of the first. Returns the trials' seconds, sorted, and the
+    first's outputs."""
+    ts, first, first_ids = [], None, None
+    for _ in range(trials):
+        dt, out = trial()
+        ids = [ids_of(o) for o in out]
+        for batch in ids:
+            check_ids("timed", batch, q, k, n)
+        if first is None:
+            first, first_ids = out, ids
+        check(all(np.array_equal(a, b) for a, b in zip(ids, first_ids)), "timed_repeatable",
+              "a trial served other ids than the first")
+        ts.append(dt)
+    return sorted(ts), first
+
+
+def device_ms_per_call(fn, device: torch.device) -> float:
+    """:func:`stage_ms` of a serving call on inputs already on the card
+    (4 calls a trial, 3 trials): what the card takes a batch, to hold
+    against the host's wall clock per batch."""
+    return stage_ms(fn, n_iter=4, trials=3, device=device)["ms"]
 
 
 def stage_ms(fn, *, n_iter: int, trials: int, device: torch.device) -> dict:

@@ -59,7 +59,7 @@ then runs these phases and prints JSON lines as it goes:
    (the 1M slice's data) with an int8 payload: the full and the gather
    engine (kernel B1) on 1,024 queries — gather equal to full on every
    query it proves exact, both equal to the store carried to the CPU on
-   256 of them (as at 100k), recall@10 of each against exact float32
+   64 of them (256 until phase 18 needed the time), recall@10 of each against exact float32
    cosine at least 0.70 — then serving QPS of each engine at Q=1024 and 8192 in turns and a
    profile of one 8192-query batch each; last, at 100k, delete 1,000 ids
    and compact (no deleted id comes back) and save / load with the
@@ -71,7 +71,8 @@ then runs these phases and prints JSON lines as it goes:
    top-k batch at 32 band words):
    - hash parity on the card: structured (16 x 16) and cross-polytope
      (32 x 8) words of 65,536 x 768 vectors from ``hash_batch_words``
-     (CUDA) == ``hash_batch_words_host`` (the native C FWHT, which must
+     (CUDA), the first 16,384 of them (65,536 until phase 18 needed the
+     time) == ``hash_batch_words_host`` (the native C FWHT, which must
      have loaded) == the NumPy FWHT; probe words host == device at T=4;
      hash times beside the gaussian matmul's;
    - structured_1m: ``LSHRS(hash_family="structured")`` over the 2**20
@@ -231,7 +232,8 @@ then runs these phases and prints JSON lines as it goes:
       memory;
     - bands128_100k, after topp_lifecycle_100k: that index rehashed to
       128 x 2 = 256 bits (the chunked collision core at 131,072 slots):
-      self-match 1.0 of its alive rows, == a CPU copy on 256 queries, QPS
+      self-match 1.0 of its first 32,768 alive rows (all 99,000 until
+      phase 18 needed the time), == a CPU copy on 256 queries, QPS
       at Q=16,384 beside the 16 x 16 B1 cell's; top-p resolves ``auto`` to
       the full engine (a pinned gather raises), its recall@10 against
       exact float32 cosine beside 16 x 16's; then a 16-slot store
@@ -265,7 +267,19 @@ then runs these phases and prints JSON lines as it goes:
     profile, the gather engine) and B2 at 256 columns and at the
     cascade64 coarse packing.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-17
+18. serving_benches_smoke, last: the five serving benches at ``--smoke``
+    (``benchmarks/torch_asymmetric_bench.py``, ``torch_scale_bench.py``,
+    ``torch_rerank_bench.py``, ``torch_auto_engine_bench.py``,
+    ``torch_cp_bench.py``), each with its own checks (self-match 1.0 where
+    its reference measures it, ids in range, each timed batch's launches
+    exact); all must exit 0 and print their row. B1 must launch at 16 and
+    32 band words (``<16, 1, 1>``: the scale bench's scan; ``<32, 1, 1>``:
+    the cross-polytope collision), B2 at the symmetric key (the default
+    index past 2**19 slots) and at the int8 wire's asymmetric packing
+    (offset 32,512, shift 5 at 2**20 slots). Phase 2 also holds B1 and B2
+    at the shapes these smokes and the scripts' full runs launch.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-18
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -273,7 +287,8 @@ error, ms, plain, bound and library ms; B1 once per timed instantiation,
 and per recall-sweep banding at 2**20 slots the main path launched, B2
 once more per phase-10 packing, at sharded_16m's shard, on B3's timed
 words and at the cascade64 coarse packing (phases 16 and 17), B3 once more at the
-packed_4m batch), and last ``{"ok": true, "device":
+packed_4m batch; B2's asymmetric entry counts phase 18's launches at
+its packing too), and last ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script
 exits non-zero without that last line; it also exits non-zero when no
 CUDA device is available.
@@ -360,6 +375,14 @@ B1_GENERIC_64 = (32, 2, N_1M, 512, 1)
 B1_PLAIN_ELEMENTS = 1 << 28
 CP_BANDS, CP_ROWS = 32, 8
 HASH_ROWS = 1 << 16
+# Rows of hash_parity's host comparisons (the native C and NumPy FWHT;
+# the host cross-polytope hash runs ~5k rows/s): all 65,536 until the
+# script with phase 18 passed 850 s on a slow host.
+HASH_HOST_ROWS = 1 << 14
+# Queries of topp_1m's CPU copy (CARRY_QUERIES until phase 18 needed the time).
+TOPP_CPU_QUERIES = 64
+# Alive rows of bands128_100k's self-match (all of them until phase 18).
+BANDS128_SELF_ROWS = 1 << 15
 FILTER_DENY = 1000
 PACKED_CPU_QUERIES = 64
 # The cascade of the reference's 4M bench row: a 128-bit prefix, an
@@ -397,6 +420,9 @@ B2_TIMED_NEW = {
 # (phase 16) is timed at Q=512 too.
 CASCADE64_BITS = 64
 B2_CASCADE64_8M = "hamming_group_max_keys@cascade64_coarse_8m"
+# The asymmetric serving bench's batch at its defaults (phase 18 runs its
+# smoke; phase 2 holds B2 at both).
+ASYMMETRIC_BENCH_BATCH = 16384
 
 
 def b2_packings() -> dict:
@@ -647,7 +673,9 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
     # rows; 2 GiB of planes at P=128), at its batches' slices. The plain
     # version runs over query slices of at most 2**31 keys.
     for c, p, qmax, smoke_q in [
-        (N_1M, NUM_PERM, 127, None), (N_1M, NUM_PERM, 7, None),
+        # the asymmetric bench's int8 wire at its smoke batch and its
+        # defaults' (phase 18)
+        (N_1M, NUM_PERM, 127, [1024, ASYMMETRIC_BENCH_BATCH]), (N_1M, NUM_PERM, 7, None),
         (N_4M, CASCADE_BITS, None, None), (N_8M, CASCADE_BITS, None, 256),
         (1 << 17, CASCADE_BITS, None, 256), (1 << 17, CASCADE64_BITS, None, 256),
         (N_4M, CASCADE64_BITS, None, None), (N_8M, CASCADE64_BITS, None, 256),
@@ -655,10 +683,12 @@ def check_b2_packings(gen, dev, err: dict, timed: dict) -> None:
         # phase 17's smoke sizes: the cascade profile's coarse pass and the
         # Hamming profile's symmetric key over 2**16 slots, 1,024 queries
         (1 << 16, CASCADE64_BITS, None, 1024), (1 << 16, NUM_PERM, 0, 1024),
+        # phase 18: the default index's smoke, 2**19 slots (auto -> Hamming)
+        (1 << 19, NUM_PERM, 0, 1024),
     ]:
         qs = [512, QPS_BATCH_1M] if qmax else [512, *cascade_path_queries(c)]
         if smoke_q:
-            qs.append(smoke_q)
+            qs += smoke_q if isinstance(smoke_q, list) else [smoke_q]
         planes, tie, qb, kw = b2_inputs_on_card(gen, c=c, p=p, q=max(qs), qmax=qmax, dev=dev)
         step = min(256, (1 << 31) // c)
         for q in qs:
@@ -846,6 +876,13 @@ def phase_kernels(rng, dev) -> dict:
         B1_GENERIC_64,  # the generic instantiation on <64, 1, 1>'s compares
         (16, 1, 131072, 256, 1),   # the gather rerank bench's slices (phase 17)
         (16, 1, 1 << 16, 256, 1),  # and at its smoke size
+        # the serving benches (phase 18): the scale bench's scan at its
+        # smoke size and at its defaults (and the default index's
+        # --engine collision there), the cross-polytope collision likewise
+        (16, 1, 1 << 16, 1024, 1),
+        (16, 1, N_1M, QPS_BATCH_1M, 1),
+        (32, 1, 1 << 14, 1024, 1),
+        (32, 1, 1 << 17, QPS_BATCH_1M, 1),
     ]
     # The collision profile's store groups 32 slots (phase 17): its full
     # shape and its smoke size, checked but not timed.
@@ -1524,16 +1561,16 @@ def phase_topp_1m(seed: int) -> dict:
                        "mean_candidates": float(res[2].mean())}
 
     # The card against the same store carried to the CPU (full engine,
-    # plain torch) on the first CARRY_QUERIES queries.
+    # plain torch) on the first TOPP_CPU_QUERIES queries.
     t0 = time.perf_counter()
     cpu = carry_to_cpu(store)
-    want = cpu.query_topp_batch(qw[:CARRY_QUERIES].cpu(), qx[:CARRY_QUERIES], TOP_K,
+    want = cpu.query_topp_batch(qw[:TOPP_CPU_QUERIES].cpu(), qx[:TOPP_CPU_QUERIES], TOP_K,
                                 engine="full")
     cpu_s = time.perf_counter() - t0
     del cpu
-    sub = exact[:CARRY_QUERIES]
-    vs_cpu = {"full": compare_rankings([x[:CARRY_QUERIES] for x in full], want),
-              "gather_on_exact": compare_rankings([x[:CARRY_QUERIES][sub] for x in gather],
+    sub = exact[:TOPP_CPU_QUERIES]
+    vs_cpu = {"full": compare_rankings([x[:TOPP_CPU_QUERIES] for x in full], want),
+              "gather_on_exact": compare_rankings([x[:TOPP_CPU_QUERIES][sub] for x in gather],
                                                   [x[sub] for x in want])}
 
     # The user's entry point on the gather engine: the same ids, through B1.
@@ -1545,7 +1582,7 @@ def phase_topp_1m(seed: int) -> dict:
                         and np.array_equal(served[2], gather[2]))
     emit("topp_1m_int8", queries=TOPP_QUERIES, payload_bytes=store.stats()["payload_bytes"],
          gather_exact=int(exact.sum()), gather_truncations=truncations,
-         gather_vs_full_on_exact=agree, card_vs_cpu=vs_cpu, cpu_queries=CARRY_QUERIES,
+         gather_vs_full_on_exact=agree, card_vs_cpu=vs_cpu, cpu_queries=TOPP_CPU_QUERIES,
          cpu_seconds=cpu_s, serving_equals_gather=served_equal, b1_launches=b1, **result)
     assert agree["rows_bad"] == 0 and agree["max_abs_cos_err"] < 1e-5, agree
     for name, a in vs_cpu.items():
@@ -1628,23 +1665,24 @@ def phase_hash_parity(seed: int, label: str) -> None:
     x = rng.standard_normal((HASH_ROWS, DIM), dtype=np.float32)
     x[:256] = rng.integers(-2, 3, (256, DIM))  # exact magnitude ties
     xd = torch.from_numpy(x).to(DEVICE)
-    numpy_rows = {"structured": HASH_ROWS, "crosspolytope": HASH_ROWS // 32}
+    numpy_rows = {"structured": HASH_HOST_ROWS, "crosspolytope": HASH_ROWS // 32}
     probe_rows = HASH_ROWS // 8
     for family, nb, r in (("structured", NUM_BANDS, ROWS), ("crosspolytope", CP_BANDS, CP_ROWS),
                           ("gaussian", NUM_BANDS, ROWS)):
         h = LSHHasher(nb, r, DIM, seed=42, hash_family=family, device=DEVICE)
         dev_words = h.hash_batch_words(xd)
         device_ms = median_ms(lambda h=h: h.hash_batch_words(xd), reps=5)
-        host_s, host_words = host_seconds(lambda h=h: h.hash_batch_words_host(x))
+        host_s, host_words = host_seconds(lambda h=h: h.hash_batch_words_host(x[:HASH_HOST_ROWS]))
         fields = dict(card=label, family=family, bands=nb, rows_per_band=r, rows=HASH_ROWS,
                       device_ms=device_ms, device_vectors_per_s=HASH_ROWS / device_ms * 1e3,
-                      host_s=host_s, host_vectors_per_s=HASH_ROWS / host_s)
+                      host_rows=HASH_HOST_ROWS, host_s=host_s,
+                      host_vectors_per_s=HASH_HOST_ROWS / host_s)
         if family == "gaussian":
             # A host sgemm and the card's matmul round differently: no
             # parity is claimed; the times stand beside the FWHT's.
             emit("hash", **fields)
             continue
-        equal_c = bool(np.array_equal(words_to_numpy(dev_words), host_words))
+        equal_c = bool(np.array_equal(words_to_numpy(dev_words)[:HASH_HOST_ROWS], host_words))
         n = numpy_rows[family]
         if family == "structured":
             bits = _structured_coords_numpy(x[:n], h.diagonals, nb * r) > 0
@@ -3176,8 +3214,9 @@ def phase_bands128_100k(t100: dict, qps_16x16: float, seed: int, label: str) -> 
 
     serve = lsh.serving_fn(top_k=TOP_K)
     t0 = time.perf_counter()
-    batches = [(alive[s : s + QPS_BATCH_100K], X[alive[s : s + QPS_BATCH_100K]])
-               for s in range(0, alive.size, QPS_BATCH_100K)]
+    rows = alive[:BANDS128_SELF_ROWS]
+    batches = [(rows[s : s + QPS_BATCH_100K], X[rows[s : s + QPS_BATCH_100K]])
+               for s in range(0, rows.size, QPS_BATCH_100K)]
     sm = self_match(serve, batches, N_100K)
     sm_s = time.perf_counter() - t0
     qw = lsh._hasher.hash_batch_words(qx[:CARRY_QUERIES])
@@ -3191,7 +3230,8 @@ def phase_bands128_100k(t100: dict, qps_16x16: float, seed: int, label: str) -> 
     emit("slice_bands128_100k", card=label, bands=BANDS128[0], rows_per_band=BANDS128[1],
          words=store.words, capacity=stats["index"]["capacity"], alive=int(alive.size),
          fast_path=stats["index"]["fast_path"], rehash_s=rehash_s, self_match=sm,
-         self_match_s=sm_s, cpu_queries=CARRY_QUERIES, equals_cpu=cpu_eq, cpu_s=cpu_s,
+         self_match_s=sm_s, self_match_rows=int(rows.size), cpu_queries=CARRY_QUERIES,
+         equals_cpu=cpu_eq, cpu_s=cpu_s,
          qps=qps, batch=QPS_BATCH_100K, qps_16x16_b1=qps_16x16, topp_engine=engine,
          topp_gather_raises=gather_raises, topp_recall_at_10=recall, topp_queries=TOPP_QUERIES)
     assert sm == 1.0 and cpu_eq and engine == "full" and gather_raises, (sm, cpu_eq, engine)
@@ -3543,23 +3583,30 @@ def load_benchmark(name: str):
     return module
 
 
+def run_smoke(phase: str, name: str, label: str) -> list[dict]:
+    """``benchmarks/<name>.py --smoke`` on the card, which runs its own
+    checks: it must exit 0 and print rows; they are emitted and returned."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = load_benchmark(name).main(["--smoke"])
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    assert rc == 0 and lines, f"{name} --smoke: exit {rc}, {len(lines)} stdout lines"
+    emit(phase, card=label, script=name, seconds=time.perf_counter() - t0, rows=lines)
+    return lines
+
+
 def phase_recall_capacity_smoke(label: str) -> dict:
     """Phase 16: ``torch_capacity_bench.py --smoke`` and
     ``torch_recall_bench.py --smoke`` on the card. Each runs its own checks
     (self-match, ids in range, each column's kernel launched, none on the
     chunked route) and must exit 0; their rows are emitted here and must
     cover every route and banding."""
-    rows = {}
-    for name in ("torch_capacity_bench", "torch_recall_bench"):
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = load_benchmark(name).main(["--smoke"])
-        lines = [json.loads(line) for line in out.getvalue().splitlines()]
-        assert rc == 0 and lines, f"{name} --smoke: exit {rc}, {len(lines)} stdout lines"
-        rows[name] = [line for line in lines if "summary" not in line]
-        emit("recall_capacity_smoke", card=label, script=name, seconds=time.perf_counter() - t0,
-             rows=rows[name])
+    rows = {
+        name: [line for line in run_smoke("recall_capacity_smoke", name, label)
+               if "summary" not in line]
+        for name in ("torch_capacity_bench", "torch_recall_bench")
+    }
     routes = [(r["slots"], r["engine"], r["route"]) for r in rows["torch_capacity_bench"]]
     assert routes == [
         (slots, engine, route)
@@ -3580,17 +3627,23 @@ def phase_profiles_smoke(label: str) -> dict:
     """Phase 17: the stage profiles at ``--smoke`` on the card. Each runs
     its own checks (its stages composed == its core == the store's closure,
     every row's launches exact) and must exit 0; their rows are emitted."""
+    return {name: run_smoke("profiles_smoke", name, label) for name in PROFILE_SCRIPTS}
+
+
+SERVING_SCRIPTS = ("torch_asymmetric_bench", "torch_scale_bench", "torch_rerank_bench",
+                   "torch_auto_engine_bench", "torch_cp_bench")
+
+
+def phase_serving_benches_smoke(label: str) -> dict:
+    """Phase 18: the serving benches at ``--smoke`` on the card. Each runs
+    its own checks (self-match, ids in range, each timed batch's launches
+    exact) and must exit 0 and print its one row, which is emitted here."""
     rows = {}
-    for name in PROFILE_SCRIPTS:
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = load_benchmark(name).main(["--smoke"])
-        lines = [json.loads(line) for line in out.getvalue().splitlines()]
-        assert rc == 0 and lines, f"{name} --smoke: exit {rc}, {len(lines)} stdout lines"
-        rows[name] = lines
-        emit("profiles_smoke", card=label, script=name, seconds=time.perf_counter() - t0,
-             rows=lines)
+    for name in SERVING_SCRIPTS:
+        (rows[name],) = run_smoke("serving_benches_smoke", name, label)
+    assert rows["torch_asymmetric_bench"]["b2_packing"] == list(b2_packings()["asymmetric_int8"])
+    assert rows["torch_auto_engine_bench"]["ranking"] == "hamming"
+    assert rows["torch_cp_bench"]["banding"] == f"{CP_BANDS}x{CP_ROWS}"
     return rows
 
 
@@ -3850,6 +3903,12 @@ def main() -> int:
     # coarse packing.
     drive("profiles_smoke", (B1, B2), lambda: phase_profiles_smoke(label),
           b2_packings=[packings["symmetric"], packings["cascade64_coarse"]])
+    # Phase 18: the serving benches at their smoke sizes: B1 at 16 and 32
+    # band words, B2 at the symmetric key and the int8 wire's packing.
+    drive("serving_benches_smoke", (B1, B2), lambda: phase_serving_benches_smoke(label),
+          b1_shapes=[(NUM_BANDS, 1), (CP_BANDS, 1)],
+          b1_templates=[(NUM_BANDS, 1, 1), (CP_BANDS, 1, 1)],
+          b2_packings=[packings["symmetric"], packings["asymmetric_int8"]])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
@@ -3867,14 +3926,18 @@ def main() -> int:
         for name, (src, rep) in sources.items()
     ]
     # B2 once more per phase-10 packing: its launches at that packing on
-    # that path (not the symmetric launches the path makes to compare).
+    # that path (not the symmetric launches the path makes to compare),
+    # the asymmetric one with phase 18's at the same packing.
     src, rep = sources[B2]
     for (c, p, qmax), variant in B2_TIMED_NEW.items():
         path = variant.split("@")[1].replace("_coarse", "")
         packing = packings["cascade_coarse" if qmax is None else "asymmetric_int8"]
+        n = b2_by_packing[path, packing]
+        if qmax is not None:
+            n += b2_by_packing["serving_benches_smoke", packing]
         kernels.append(
             {"name": variant, "route": "cuda", "source": src, "replaces": rep,
-             "launches": b2_by_packing[path, packing], "max_abs_err": kern["max_abs_err"][B2],
+             "launches": n, "max_abs_err": kern["max_abs_err"][B2],
              **{key: times[variant][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # B2 once more at sharded_16m's shard: its symmetric launches there.
