@@ -279,11 +279,27 @@ then runs these phases and prints JSON lines as it goes:
     (offset 32,512, shift 5 at 2**20 slots). Phase 2 also holds B1 and B2
     at the shapes these smokes and the scripts' full runs launch.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-18
+19. maintenance_benches_smoke, last: the four maintenance benches at
+    ``--smoke`` (``benchmarks/torch_rehash_bench.py``: 65,536 rows built
+    at 16 x 16, three in-place rehashes ending at 32 x 8, the self-match
+    of 1,024 stored rows; ``torch_ingest_bench.py``: 2**17 dense-wire rows
+    appended, no kernel; ``torch_sharded_build_bench.py``: one word stream
+    into one store and into 8 shards of 8,192 rows on the card, the spot
+    check of 4 queries; ``torch_ab_serving.py``: flat against blockwise
+    group selection on the 2**17-slot store, 1,024-query batches), each
+    with its own checks (self-match 1.0, stored words == the wire's host
+    decode, single == sharded ids, flat == blockwise ids, each stage's
+    launches exact); all must exit 0 and print their row. B1 must launch
+    at 32 band words (``<32, 1, 1>``: the self-match) and at 16 (``<16,
+    1, 1>``: the spot check and the A/B). Phase 2 also holds B1 at the
+    shapes these smokes and the scripts' full runs launch.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-19
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
-error, ms, plain, bound and library ms; B1 once per timed instantiation,
+error, ms, plain, bound and library ms; B1 once per timed instantiation
+(its launches counted over every phase, phase 19's included),
 and per recall-sweep banding at 2**20 slots the main path launched, B2
 once more per phase-10 packing, at sharded_16m's shard, on B3's timed
 words and at the cascade64 coarse packing (phases 16 and 17), B3 once more at the
@@ -883,6 +899,18 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, N_1M, QPS_BATCH_1M, 1),
         (32, 1, 1 << 14, 1024, 1),
         (32, 1, 1 << 17, QPS_BATCH_1M, 1),
+        # the maintenance benches (phase 19) at their defaults and smoke
+        # sizes: the rehash's 1,024-query self-match at 32 band words, the
+        # sharded build's 4-query spot check on the single store and on
+        # one of its 8 shards, and the A/B's 16,384-query batches (its
+        # smoke's 1,024 are held above)
+        (32, 1, N_1M, 1024, 1),
+        (32, 1, 1 << 16, 1024, 1),
+        (16, 1, N_1M, 4, 1),
+        (16, 1, 1 << 17, 4, 1),
+        (16, 1, 1 << 16, 4, 1),
+        (16, 1, 1 << 13, 4, 1),
+        (16, 1, 131072, 16384, 1),
     ]
     # The collision profile's store groups 32 slots (phase 17): its full
     # shape and its smoke size, checked but not timed.
@@ -3647,6 +3675,25 @@ def phase_serving_benches_smoke(label: str) -> dict:
     return rows
 
 
+MAINTENANCE_SCRIPTS = ("torch_rehash_bench", "torch_ingest_bench", "torch_sharded_build_bench",
+                       "torch_ab_serving")
+
+
+def phase_maintenance_benches_smoke(label: str) -> dict:
+    """Phase 19: the maintenance benches at ``--smoke`` on the card. Each
+    runs its own checks (self-match, equal ids of the single and sharded
+    stores and of both selections, stored words, each stage's launches
+    exact) and must exit 0 and print its one row, which is emitted here."""
+    rows = {}
+    for name in MAINTENANCE_SCRIPTS:
+        (rows[name],) = run_smoke("maintenance_benches_smoke", name, label)
+    rehash = rows["torch_rehash_bench"]
+    assert (rehash["banding"], rehash["self_match"]) == (f"{CP_BANDS}x{CP_ROWS}", 1.0), rehash
+    assert rows["torch_sharded_build_bench"]["capacity"]["rows_per_shard"] == 1 << 13
+    assert rows["torch_ab_serving"]["wide_route"].startswith("hierarchy"), rows["torch_ab_serving"]
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3909,6 +3956,12 @@ def main() -> int:
           b1_shapes=[(NUM_BANDS, 1), (CP_BANDS, 1)],
           b1_templates=[(NUM_BANDS, 1, 1), (CP_BANDS, 1, 1)],
           b2_packings=[packings["symmetric"], packings["asymmetric_int8"]])
+    # Phase 19: the maintenance benches at their smoke sizes: B1 at 32 band
+    # words (the rehash's self-match) and at 16 (the sharded build's spot
+    # check and both selections of the A/B).
+    drive("maintenance_benches_smoke", B1, lambda: phase_maintenance_benches_smoke(label),
+          b1_shapes=[(CP_BANDS, 1), (NUM_BANDS, 1)],
+          b1_templates=[(CP_BANDS, 1, 1), (NUM_BANDS, 1, 1)])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",

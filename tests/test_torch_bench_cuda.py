@@ -81,6 +81,20 @@ def run_main(argv, answers=None) -> tuple[int, list[str]]:
     return rc, out.getvalue().splitlines()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The script calls torch from three threads at once (the serving
+    pipeline's hasher, dispatch and reader threads, or three submitting
+    threads), and each calling thread gets its own team of intra-op
+    threads: beside the suite's other workers on a loaded CPU that costs
+    orders of magnitude. One intra-op thread keeps each run near its
+    serial cost."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke():
     """One smoke run of every configuration on the CPU: its exit code,

@@ -53,6 +53,20 @@ def _force_chunked(mp, *modules) -> None:
         mp.setattr(module, "supports_hamming_grouped", lambda *a: False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The script calls torch from three threads at once (the serving
+    pipeline's hasher, dispatch and reader threads, or three submitting
+    threads), and each calling thread gets its own team of intra-op
+    threads: beside the suite's other workers on a loaded CPU that costs
+    orders of magnitude. One intra-op thread keeps each run near its
+    serial cost."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """The grouped run (every engine) and the forced chunked run: exit
