@@ -254,8 +254,7 @@ then runs these phases and prints JSON lines as it goes:
     1>``, ``<16, 1, 1>``, ``<8, 1, 1>`` and ``<8, 2, 1>`` instantiations,
     with 2 probes, B2 on the Hamming and asymmetric columns), each with
     its own checks; both must exit 0 (phase 2 also holds B1 at every
-    sweep banding at C=2**20, Q=512, the generic instantiation on
-    ``<64, 1, 1>``'s compares beside it, and B2 at the capacity bench's
+    sweep banding at C=2**20, Q=512, and B2 at the capacity bench's
     coarse packings, P=128 and 64, up to 2**24 slots).
 
 17. profiles_smoke, last: the five stage profiles at ``--smoke``
@@ -294,7 +293,22 @@ then runs these phases and prints JSON lines as it goes:
     1, 1>``: the spot check and the A/B). Phase 2 also holds B1 at the
     shapes these smokes and the scripts' full runs launch.
 
-Every launch counter is reset just before each path of phases 3-5 and 7-19
+20. bandings, last: the bandings users get past the powers of two, with
+    the device hash. ``LSHRS(dim=768, num_perm=384,
+    similarity_threshold=0.6)`` (auto-tuned to 48 x 8, ``store_vectors``,
+    ``rerank_engine="gather"``) indexes 131,072 seeded gaussian vectors:
+    top-k at Q=1,024 through ``query_batch`` and ``serving_fn`` (B1 at 48
+    band words), a gather top-p batch; the default ``LSHRS(dim=768,
+    multiprobe=2)`` (8 x 16 with two probes) indexes the same vectors:
+    top-k. Each index: self-match 1.0 (top-p: cosine 1 within 1e-5), ids
+    (and top-p cosines within 1e-5) == the store carried to the CPU on 64
+    queries; B1 must launch at ``<48, 1, 1>`` and ``<8, 1, 2>``. Phase 2
+    holds B1 at this phase's shapes and times it at the six bandings
+    ``benchmarks/torch_b1_probe.py`` measures (48 x 8, 24 x 8, 12 x 16, 8 x
+    16 with 2 probes, 16 x 16 with 3, 32 bands of two words) at C=2**20,
+    Q=512.
+
+Every launch counter is reset just before each path of phases 3-5 and 7-20
 and read just after it; each path must launch its kernel, and its
 ``launches`` line carries the path's seconds. Then it prints the script's
 seconds, the nvidia-smi line, one JSON line with the kernels (launches,
@@ -383,9 +397,25 @@ B1_RECALL_1M = {
     (8, 1, N_1M, 512, 1): "group_max_keys@recall_1m_8x32",
     (4, 2, N_1M, 512, 1): "group_max_keys@recall_1m_4x64",
 }
-# The generic instantiation on <64, 1, 1>'s word compares (32 bands of 2
-# words): timed beside it, never launched by the main path.
-B1_GENERIC_64 = (32, 2, N_1M, 512, 1)
+# B1 at the bandings users get past the powers of two (num_bands, words,
+# C, Q, probes): the auto-tuner's 48 x 8 (num_perm=384, t=0.6), 24 x 8 and
+# 12 x 16 (num_perm=192 at t=0.7 and 0.5), the default 8 x 16 with
+# multiprobe=2, 16 x 16 with multiprobe=3 and 32 bands of two words, at
+# 2**20 slots and Q=512. Each is timed; those the main path launches
+# (phase 20: 48 x 8 and 8 x 16 with 2 probes) are lines of the kernels
+# record, by their shape <BW, W, P>.
+B1_BANDINGS_1M = {
+    (48, 1, N_1M, 512, 1): "group_max_keys@bandings_48x8",
+    (24, 1, N_1M, 512, 1): "group_max_keys@bandings_24x8",
+    (12, 1, N_1M, 512, 1): "group_max_keys@bandings_12x16",
+    (8, 1, N_1M, 512, 2): "group_max_keys@bandings_8x16_probes2",
+    (16, 1, N_1M, 512, 3): "group_max_keys@bandings_16x16_probes3",
+    (32, 2, N_1M, 512, 1): "group_max_keys@bandings_32x2words",
+}
+# Phase 20: vectors per index, its top-k batch and its CPU-copy queries.
+N_BANDINGS = 1 << 17
+BANDINGS_BATCH = 1024
+BANDINGS_CPU_QUERIES = 64
 # Plain B1 holds a (Q, C) int32 key matrix: past this many elements it is
 # run over slices of the queries.
 B1_PLAIN_ELEMENTS = 1 << 28
@@ -482,9 +512,13 @@ def kernel_bound(name: str, shape: dict) -> tuple[float, str]:
     rate and the bytes (each input read once, the output written once) at
     the HBM rate."""
     c, q = shape["C"], shape["Q"]
-    if name.startswith("group_max_keys"):  # B1: a compare and an add per band word
+    if name.startswith("group_max_keys"):
+        # B1: one compare per band word per probe. Each is an ISETP on the
+        # int32 ALU; the count's predicated add issues on the FMA pipe, and
+        # the two together take two of a sub-partition's one issue a clock,
+        # the same floor as the ALU's 16 lanes.
         bw, probes = shape["bands"], shape["probes"]
-        ops, rate = 2 * q * c * probes * bw, H100_INT32_OPS
+        ops, rate = q * c * probes * bw, H100_INT32_OPS
         nbytes = 4 * (bw * c + c + q * probes * bw + q * (c // 64))
     elif name.startswith("hamming_group_max_keys"):  # B2: int8 multiply-adds
         from lshrs_tpu_torch.ops.hamming import plane_width
@@ -871,7 +905,7 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, 131072, 1024, 1),
         (16, 1, 131072, 1024, 2),
         (16, 1, 131072, 1000, 1),  # ragged Q: not a multiple of 128
-        (4, 3, 16384, 200, 1),     # generic (non-register) instantiation
+        (4, 3, 16384, 200, 1),     # three-word bands: the generic instantiation
         (16, 1, N_1M, 256, 1),     # the gather rerank's slice at 1M slots
         (16, 1, N_1M, 200, 1),     # ragged
         (16, 1, 131072, 1024, 4),  # multi-probe, registers <16, 1, 4>
@@ -879,7 +913,8 @@ def phase_kernels(rng, dev) -> dict:
         (32, 1, 131072, 1024, 2),
         (32, 1, 131072, 1024, 4),
         (32, 1, 131072, 1000, 4),  # ragged
-        (16, 2, 131072, 1024, 4),  # generic instantiation with probes
+        (16, 2, 131072, 1024, 4),  # two-word bands, probes over two lanes
+        (8, 1, 16384, 200, 5),     # five probes over five lanes
         (16, 1, N_1M, 256, 4),     # multiprobe4_1m: the gather rerank's slice
         (16, 1, N_1M, 200, 4),     # ragged
         (32, 1, N_1M, 256, 1),     # cp_1m: the gather rerank's slice
@@ -889,7 +924,15 @@ def phase_kernels(rng, dev) -> dict:
         (16, 1, N_1M // SHARDS, 256, 1),  # sharded top-p gather: a 1M store's shard
         (16, 1, 16384, CARRY_QUERIES, 1),  # sharded checkpoint restored unsharded
         *B1_RECALL_1M,  # the recall sweep's bandings at 2**20 slots
-        B1_GENERIC_64,  # the generic instantiation on <64, 1, 1>'s compares
+        *B1_BANDINGS_1M,  # the bandings past the powers of two
+        # phase 20: top-k batches, ragged, the CPU copies' queries and the
+        # gather engine's 256-query slices at 48 x 8; 8 x 16 with 2 probes
+        (48, 1, N_BANDINGS, BANDINGS_BATCH, 1),
+        (48, 1, N_BANDINGS, 1000, 1),
+        (48, 1, N_BANDINGS, BANDINGS_CPU_QUERIES, 1),
+        (48, 1, N_BANDINGS, 256, 1),
+        (8, 1, N_BANDINGS, BANDINGS_BATCH, 2),
+        (8, 1, N_BANDINGS, BANDINGS_CPU_QUERIES, 2),
         (16, 1, 131072, 256, 1),   # the gather rerank bench's slices (phase 17)
         (16, 1, 1 << 16, 256, 1),  # and at its smoke size
         # the serving benches (phase 18): the scale bench's scan at its
@@ -940,9 +983,8 @@ def phase_kernels(rng, dev) -> dict:
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys_ref(sig_t, tie, qw, **kw),
                 dict(C=c, Q=q, bands=nb, probes=probes), None,
             )
-        variant = B1_VARIANTS.get((nb, w, c, q, probes)) or B1_RECALL_1M.get((nb, w, c, q, probes))
-        if (nb, w, c, q, probes) == B1_GENERIC_64:
-            variant = "group_max_keys@generic_32x2_1m"
+        variant = (B1_VARIANTS.get((nb, w, c, q, probes)) or B1_RECALL_1M.get((nb, w, c, q, probes))
+                   or B1_BANDINGS_1M.get((nb, w, c, q, probes)))
         if variant:
             timed[variant] = (
                 lambda sig_t=sig_t, tie=tie, qw=qw, kw=kw: group_max_keys(sig_t, tie, qw, **kw),
@@ -3694,6 +3736,62 @@ def phase_maintenance_benches_smoke(label: str) -> dict:
     return rows
 
 
+def phase_bandings(seed: int, label: str) -> dict:
+    """Phase 20: the auto-tuner's 48 x 8 (``num_perm=384``, t=0.6; top-k
+    and a gather top-p batch) and the default index with ``multiprobe=2``
+    (8 x 16, two probes; top-k) over 131,072 gaussian vectors, device hash:
+    self-match 1.0 and ids == the store carried to the CPU on 64 queries."""
+    from lshrs_tpu_torch import LSHRS
+
+    rng = np.random.default_rng(seed + 20)
+    X = rng.standard_normal((N_BANDINGS, DIM), dtype=np.float32)
+    xq = X[:BANDINGS_BATCH]
+    qx = X[:BANDINGS_CPU_QUERIES] + 0.5 * rng.standard_normal(
+        (BANDINGS_CPU_QUERIES, DIM), dtype=np.float32)
+    out = {}
+    for name, kw, banding in (
+        ("48x8", dict(num_perm=384, similarity_threshold=0.6, store_vectors=True,
+                      rerank_engine="gather"), (48, 8, 1)),
+        ("8x16_probes2", dict(multiprobe=2), (8, 16, 2)),
+    ):
+        t0 = time.perf_counter()
+        lsh = LSHRS(dim=DIM, device=DEVICE, **kw)
+        for i in range(0, N_BANDINGS, INGEST_BATCH):
+            lsh.index(np.arange(i, min(i + INGEST_BATCH, N_BANDINGS)), X[i : i + INGEST_BATCH])
+        st = lsh.stats()
+        assert (st["num_bands"], st["rows_per_band"], st["multiprobe"]) == banding, st
+        serve = lsh.serving_fn(top_k=TOP_K)
+        sm = self_match(serve, [(np.arange(BANDINGS_BATCH), xq)], N_BANDINGS)
+        assert st["ranking"] == "collision", st["ranking"]
+        batch = lsh.query_batch(xq, top_k=TOP_K)
+        batch_equal = all(row == [int(i) for i in ids if i >= 0]
+                          for row, ids in zip(batch, serve(xq)))
+        pw = lsh._hash_query_words(qx)
+        counts, ids = lsh._storage.query_topk(pw, TOP_K)
+        cpu = carry_to_cpu(lsh._storage)
+        counts_cpu, ids_cpu = cpu.query_topk(pw.cpu(), TOP_K)
+        equal = bool(np.array_equal(ids, ids_cpu) and np.array_equal(counts, counts_cpu))
+        row = {"self_match": sm, "query_batch_equals_serving": batch_equal,
+               "card_equals_cpu": equal, "qps": serving_qps(serve, [xq] * 4, trials=2),
+               "batch": BANDINGS_BATCH}
+        ok = sm == 1.0 and batch_equal and equal
+        if kw.get("store_vectors"):
+            tserve = lsh.serving_fn(top_k=TOP_K, mode="topp", batch_hint=BANDINGS_BATCH)
+            tsm, worst = topp_self_match(tserve, xq, BANDINGS_BATCH)
+            want = cpu.query_topp_batch(pw.cpu(), qx, TOP_K, engine="gather")
+            agree = compare_rankings(tserve(qx), want)
+            row.update(topp_engine=lsh._storage.stats()["rerank_engine"], topp_self_match=tsm,
+                       topp_max_abs_cos_minus_1=worst, topp_card_vs_cpu=agree)
+            ok = ok and tsm == 1.0 and worst < 1e-5 and agree["rows_bad"] == 0 \
+                and agree["max_abs_cos_err"] < 1e-5
+        del cpu
+        row["seconds"] = time.perf_counter() - t0
+        emit("bandings", card=label, banding=name, rows=N_BANDINGS, **row)
+        assert ok, (name, row)
+        out[name] = row
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3962,6 +4060,10 @@ def main() -> int:
     drive("maintenance_benches_smoke", B1, lambda: phase_maintenance_benches_smoke(label),
           b1_shapes=[(CP_BANDS, 1), (NUM_BANDS, 1)],
           b1_templates=[(CP_BANDS, 1, 1), (NUM_BANDS, 1, 1)])
+    # Phase 20: the bandings past the powers of two, through LSHRS: B1 at 48
+    # band words and at 8 with two probes.
+    drive("bandings", B1, lambda: phase_bandings(args.seed, label),
+          b1_templates=[(48, 1, 1), (8, 1, 2)])
 
     sources = {
         "group_max_keys": ("lshrs_tpu_torch/csrc/collision_group_max.cu",
@@ -4028,10 +4130,11 @@ def main() -> int:
              "launches": b1_by_shape[t["bands"], t["probes"]],
              "max_abs_err": kern["max_abs_err"][B1],
              **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
-    # B1 once more per recall-sweep instantiation the main path launched
-    # (by its template: 8 x 32 and 4 x 64 share the band-word count), and
-    # B2 at the cascade64 coarse packing (its phase-16 and phase-17 launches).
-    for (nb, w, _, _, probes), variant in B1_RECALL_1M.items():
+    # B1 once more per recall-sweep and phase-20 banding the main path
+    # launched (by its shape <BW, W, P>: 8 x 32 and 4 x 64 share the
+    # band-word count), and B2 at the cascade64 coarse packing (its
+    # phase-16 and phase-17 launches).
+    for (nb, w, _, _, probes), variant in {**B1_RECALL_1M, **B1_BANDINGS_1M}.items():
         n = b1_by_template.get((nb * w, w, probes), 0)
         if n:
             t = times[variant]

@@ -1,49 +1,66 @@
 // Kernel B1: band-collision count -> packed (count, tie) key -> group max.
 //
 // Replaces lshrs_tpu/ops/pallas_scan.py::group_max_keys (kernel body
-// _make_kernel). For each (query, slot): count the bands whose words all
-// equal the query's, counting a match against any probe; key =
-// count * scale + bias, bias = tie for alive slots (tie >= 0) and
-// -num_bands * scale for dead ones; write the max key of each group of
-// `group` CONTIGUOUS slots (group g = slots g*group .. g*group+group-1).
-// The TPU kernel grouped slots strided within a chunk, for Mosaic; this
-// one does not, so the store keeps one contiguous refine-table geometry.
+// _make_kernel). For each (query, slot): count the bands whose W words all
+// equal the query's, summed over the query's P probes (a band's probes are
+// pairwise distinct, so the sum is the per-band OR); key = count * scale +
+// bias, bias = tie for alive slots (tie >= 0) and -num_bands * scale for
+// dead ones; write the max key of each group of `group` CONTIGUOUS slots
+// (group g = slots g*group .. g*group+group-1). The TPU kernel grouped
+// slots strided within a chunk, for Mosaic; this one does not, so the
+// store keeps one contiguous refine-table geometry.
 //
-// What bounds it on the H100: integer ALU work, Q * C * BW * probes word
-// compares (plus the and/add that fold them into counts). The store is
-// small next to L2 (BW * C * 4 bytes: 8 MB at 16 bands x 131072 slots),
-// and the output is C / group times smaller than the per-slot keys.
+// What bounds it on the H100: integer work, one compare per band word per
+// probe, Q * C * P * BW. A compare is an ISETP on the integer ALU (64
+// lanes an SM) and a predicated VIADD, which issues on the FMA pipe
+// (inline PTX below: `c += v == q` compiles to a select pair); a two-word
+// band is ISETP, ISETP.AND and one VIADD. So the ALU and the issue port
+// (one instruction a clock a sub-partition) both allow 64 compares an SM a
+// clock (chip_smoke.py::kernel_bound). The store is small next to L2 (8 MB
+// at 16 bands x 131072 slots), the output C / group times smaller than the
+// per-slot keys. Every thread of a warp compares a different query against
+// the same slot words, so a 16-byte read of them from shared memory fills
+// 512 bytes of registers, 4 clocks of the SM's 128 bytes a clock: a thread
+// compares each read against several word vectors, or the reads bound it.
 //
-// Design (simple first version): one thread per query, 128 queries per
-// block. Each thread keeps its query's probes * BW words in registers
-// (template instantiations for the common word counts; a generic
-// instantiation re-reads them through L1). The block stages a tile of
-// sig_t columns and their key bias in shared memory; every thread of a
-// warp reads the same slot, so the reads broadcast, four slots per
-// 16-byte load. The running group max stays in a register and is written
-// once per group. Blocks cover whole groups, so nothing is carried
+// Design. A block of 128 threads stages a tile of 128 slots of the
+// transposed store and their key bias in shared memory; a thread reads
+// four slots of a row per 16-byte load, at offsets fixed at compile time,
+// keeps four running counts per query and a running group max per query
+// in registers, and writes each group's max once. Blocks cover whole
+// groups (1,024 slots, or one group if larger), so nothing is carried
 // between blocks.
 //
-// Register instantiations (nvcc 12.8, -O3, sm_90a, -Xptxas -v; 128 threads
-// per block, so up to 255 registers per thread are allowed):
-//   <BW, W, P>   registers  spill (stores / loads, bytes)
-//   <16, 1, 1>       48       0 / 0
-//   <16, 1, 2>       80      12 / 12
-//   <16, 1, 4>      152       0 / 0
-//   <32, 1, 1>       64       0 / 0
-//   <32, 1, 2>      180       0 / 0
-//   <32, 1, 4>      255      80 / 80   (128 query words per thread)
-//   <64, 1, 1>       96       0 / 0    (64 x 4 bands: 64 query words)
-//   <8, 1, 1> 48, <8, 2, 1> 48 (4 x 64 bands), <4, 1, 1> 32, <4, 2, 1> 39,
-//   generic <0, 0, 0> 32: no spills.
-// <32, 1, 4> spills 20 of its words to local memory and stays in registers
-// all the same: on an H100 it takes 3.2 ms at Q=1024, C=131072 where the
-// generic instantiation, which re-reads every query word through L1 in the
-// inner loop, takes several times longer on the same count of word
-// compares (benchmarks/torch_b1_probe.py times both). The same holds at 64
-// band words: on an H100 <64, 1, 1> takes 5.0 ms at Q=512, C=2^20, where
-// the generic instantiation takes 56.7 ms on the same compares (32 bands
-// of 2 words; chip_smoke.py phase 2 times both).
+// One template, <NQ, W, P>, serves every banding from registers. A thread
+// holds NQ = 16 or 32 band words per word vector (the real count is a
+// runtime value: bands run in steps of 4 words under a uniform early exit,
+// and rows past BW up to the step are zero in shared memory and 1 in the
+// registers, so they never match), W = 1 or 2 words per band (a band folds
+// into one predicate and one add), and P <= 4 probes of its query,
+// innermost, so one read of a slot's words serves P compares; where its
+// probes hold at most 32 words (P = 1, or P = 2 at 16 words) it holds two
+// queries for the same reason. BW of 33 to 64 splits over two band lanes
+// (adjacent threads, each up to 32 words; their rows interleave by steps
+// in shared memory, rows of 132 words, so the two lanes of a warp read
+// different banks); P past 4 or P * NQ past 96 words splits the probes
+// evenly over the fewest probe lanes L that divide them (a warp holds 32 /
+// L groups, so 5 or 7 probes leave 2 or 4 threads of 32 idle), and the
+// first lane of a group sums the group's counts by a tree of shuffles.
+// Only a user's multiprobe setting reaches more than two lanes; they stay
+// because the generic instantiation is 5x slower there: 16 x 16 with five
+// probes takes 5.6 ms on five lanes, 29.5 ms generic (C = 2^20, Q = 512).
+// Fourteen instantiations.
+//
+// Everything else (W >= 3, BW > 64, or a probe count with no such split,
+// as a prime past 32) takes the generic instantiation <0, 0, 0>: runtime
+// loops over bands, probes and words, the block's query words staged in
+// shared memory transposed ([word][query], stride 129: conflict-free), or
+// read from their rows in global memory where they do not fit beside the
+// tile. No path of the library sends it a shape; on 16 bands of 3 words
+// it takes 11.2 ms at C = 2^20, Q = 512, 14% of the floor above.
+//
+// Times of every shape (benchmarks/torch_b1_probe.py, chip_smoke.py phase
+// 2; NVIDIA H100 80GB HBM3 at 700 W): PERF.md's kernel table.
 
 #include <climits>
 #include <cstdint>
@@ -52,125 +69,257 @@
 
 namespace {
 
-constexpr int kThreads = 128;        // queries per block, one per thread
-constexpr int kMaxTile = 256;        // slots staged per shared-memory tile
-constexpr int kMinSlotsPerBlock = 2048;
-constexpr size_t kSmemBudget = 48 * 1024;
+constexpr int kThreads = 128;        // threads per block
+constexpr int kTile = 128;           // slots staged per shared-memory tile, at most
+constexpr int kPad = 4;              // words after each shared row (banks, below)
+constexpr int kStep = 4;             // band words per guarded step
+constexpr int kSlotsPerBlock = 1024;
+constexpr int kMaxRegWords = 96;     // query words a thread holds, at most
+constexpr int kQStride = kThreads + 1;
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block may use
 
-template <int BW, int W, int P>
-__global__ void __launch_bounds__(kThreads) collision_group_max_kernel(
-    const int32_t* __restrict__ sig_t,   // (bw, c) transposed store
-    const int32_t* __restrict__ tie,     // (c,) tie key, -1 = dead
-    const int32_t* __restrict__ qwords,  // (q, probes * bw) probe-major
-    int32_t* __restrict__ out,           // (q, c / group) group-max keys
-    int q, int c, int bw_rt, int w_rt, int probes_rt, int group, int scale,
-    int dead_bias, int tile, int slots_per_block) {
-  constexpr bool kReg = BW > 0;
-  const int bw = kReg ? BW : bw_rt;
-  const int w = kReg ? W : w_rt;
-  const int probes = kReg ? P : probes_rt;
-  const int qlen = probes * bw;
+struct Args {
+  const int32_t* sig_t;   // (bw, c) transposed store
+  const int32_t* tie;     // (c,) tie key, -1 = dead
+  const int32_t* qwords;  // (q, probes * bw) probe-major
+  int32_t* out;           // (q, c / group) group-max keys
+  int q, c, bw, w, probes, group, scale, dead_bias;
+  int tile;        // slots per tile (kTile on the register path)
+  int lanes;       // register path: threads per query, band lanes x probe lanes
+  int band_lanes;  // threads that split a probe's band words (1 or 2)
+  int lane_rows;   // band words per band lane, a multiple of kStep
+  int q_in_smem;   // generic path: query words staged in shared memory
+};
+
+// c += (v == q): one compare, one predicated add.
+__device__ __forceinline__ void match(int& c, int v, int q) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.eq.s32 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c) : "r"(v), "r"(q));
+}
+
+// c += (v0 == q0 && v1 == q1): a two-word band in one predicate.
+__device__ __forceinline__ void match(int& c, int v0, int q0, int v1, int q1) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.eq.s32 p, %1, %2;\n\t"
+      "setp.eq.and.s32 p, %3, %4, p;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c) : "r"(v0), "r"(q0), "r"(v1), "r"(q1));
+}
+
+// Queries a thread of the register path holds: two where its probes hold
+// at most 32 words, so that each slot word it reads serves two or more
+// compares.
+template <int NQ, int P>
+constexpr int kQueries = NQ > 0 && NQ * P <= 32 ? 2 : 1;
+
+template <int NQ, int W, int P>
+__global__ void __launch_bounds__(kThreads) collision_group_max_kernel(const Args a) {
+  constexpr bool kReg = NQ > 0;
+  constexpr int QT = kQueries<NQ, P>;
+  constexpr int U = QT * P;  // word vectors a thread compares: (query, probe)
+  const int tile = kReg ? kTile : a.tile;
+  const int stride = tile + kPad;
+  const int bw = a.bw;
+  const int lanes = kReg ? a.lanes : 1;
+  const int band_lanes = kReg ? a.band_lanes : 1;
+  const int lane_rows = kReg ? a.lane_rows : bw;
+  const int rows = band_lanes * lane_rows;  // rows past bw are zero
+  const int qlen = a.probes * bw;
 
   extern __shared__ int4 smem4[];
-  int32_t* s_sig = reinterpret_cast<int32_t*>(smem4);  // [bw][tile]
-  int32_t* s_bias = s_sig + bw * tile;                  // [tile]
+  int32_t* s_sig = reinterpret_cast<int32_t*>(smem4);  // [rows][stride]
+  int32_t* s_bias = s_sig + rows * stride;              // [tile]
+  int32_t* s_q = s_bias + tile;                         // generic: [qlen][kQStride]
 
-  const int qi = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = qi < q;
-  const int32_t* qrow = qwords + static_cast<size_t>(active ? qi : 0) * qlen;
-  int32_t qreg[kReg ? P * BW : 1];
+  // A warp holds 32 / lanes groups of `lanes` threads, one group per QT
+  // queries; lanes past the last group compute on a clamped query and
+  // write nothing.
+  const int groups = 32 / lanes;
+  const int lane = threadIdx.x % 32;
+  const int part = lane % lanes;
+  const int probe_part = part / band_lanes;  // which P probes of the query
+  const int band_part = part % band_lanes;   // which lane_rows band words
+  const bool writer = part == 0 && lane / lanes < groups;
+  const int qi = ((blockIdx.y * (kThreads / 32) + threadIdx.x / 32) * groups + lane / lanes) *
+                 QT;  // first query
+  const int32_t* qrow = a.qwords + static_cast<size_t>(min(qi, a.q - 1)) * qlen;
+
+  int32_t qreg[kReg ? U * NQ : 1];
+  const int32_t* qp = qrow;  // generic: query word i at qp[i * qs]
+  int qs = 1;
   if constexpr (kReg) {
+    const int r0 = band_part * lane_rows;
 #pragma unroll
-    for (int i = 0; i < P * BW; ++i) qreg[i] = qrow[i];
+    for (int u = 0; u < U; ++u) {
+      const int32_t* src = a.qwords + static_cast<size_t>(min(qi + u / P, a.q - 1)) * qlen +
+                           (probe_part * P + u % P) * bw + r0;
+#pragma unroll
+      for (int r = 0; r < NQ; ++r) {
+        qreg[u * NQ + r] = r < lane_rows && r0 + r < bw ? src[r] : 1;  // 1: never a zero row
+      }
+    }
+  } else if (a.q_in_smem) {
+    for (int i = 0; i < qlen; ++i) s_q[i * kQStride + threadIdx.x] = qrow[i];
+    qp = s_q + threadIdx.x;
+    qs = kQStride;
   }
+  // This thread's rows: step k of its band lane at s_lane + k * band_lanes * stride.
+  const int32_t* s_lane = s_sig + band_part * kStep * stride;
 
-  const int ng = c / group;
-  const int s_begin = blockIdx.x * slots_per_block;
-  const int s_end = min(c, s_begin + slots_per_block);
-  int run = INT_MIN;
+  const int ng = a.c / a.group;
+  const int spb = max(kSlotsPerBlock, a.group);
+  const int s_begin = blockIdx.x * spb;
+  const int s_end = min(a.c, s_begin + spb);
+  int run[QT];
+#pragma unroll
+  for (int j = 0; j < QT; ++j) run[j] = INT_MIN;
   for (int t0 = s_begin; t0 < s_end; t0 += tile) {
     const int n = min(tile, s_end - t0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < bw * tile; idx += kThreads) {
-      const int row = idx / tile;
-      const int col = idx - row * tile;
-      if (col < n) s_sig[idx] = sig_t[static_cast<size_t>(row) * c + t0 + col];
-    }
-    for (int col = threadIdx.x; col < n; col += kThreads) {
-      const int32_t tv = tie[t0 + col];
-      s_bias[col] = tv >= 0 ? tv : dead_bias;
+    if (threadIdx.x < n) {  // one slot column a thread (tile <= kThreads)
+      const int col = threadIdx.x;
+      const int32_t* src = a.sig_t + t0 + col;
+      // Band lane b's rows b*R .. b*R+R-1 (R = lane_rows) go to shared rows
+      // whose steps of 4 interleave with the other band lane's, so the two
+      // lanes of a warp read rows kStep * stride words apart, in other banks.
+      for (int b = 0; b < band_lanes; ++b) {
+        for (int k = 0; k < lane_rows; ++k) {
+          const int r = b * lane_rows + k;
+          const int row = (k & ~(kStep - 1)) * band_lanes + b * kStep + (k & (kStep - 1));
+          s_sig[row * stride + col] = r < bw ? src[static_cast<size_t>(r) * a.c] : 0;
+        }
+      }
+      const int32_t tv = a.tie[t0 + col];
+      s_bias[col] = tv >= 0 ? tv : a.dead_bias;
     }
     __syncthreads();
-    if (!active) continue;
 
     for (int s = 0; s < n; s += 4) {  // n is a multiple of group, group of 4
-      int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+      const int4 bias = *reinterpret_cast<const int4*>(s_bias + s);
+      int cnt[QT][4] = {};
       if constexpr (kReg) {
 #pragma unroll
-        for (int t = 0; t < P; ++t) {
+        for (int k = 0; k < NQ; k += kStep) {
+          if (k >= lane_rows) break;
+          const int32_t* row = s_lane + k * band_lanes * stride + s;
+          int4 v[kStep];  // the step's rows of the quad, loaded together
 #pragma unroll
-          for (int b = 0; b < BW / W; ++b) {
-            bool e0 = true, e1 = true, e2 = true, e3 = true;
+          for (int i = 0; i < kStep; ++i) {
+            v[i] = *reinterpret_cast<const int4*>(row + i * stride);
+          }
 #pragma unroll
-            for (int j = 0; j < W; ++j) {
-              const int row = b * W + j;
-              const int4 v = *reinterpret_cast<const int4*>(s_sig + row * tile + s);
-              const int32_t qv = qreg[t * BW + row];
-              e0 &= v.x == qv;
-              e1 &= v.y == qv;
-              e2 &= v.z == qv;
-              e3 &= v.w == qv;
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int i = 0; i < kStep; i += W) {
+              const int j = u / P;  // the unit's query
+              const int32_t q0 = qreg[u * NQ + k + i];
+              if constexpr (W == 1) {
+                match(cnt[j][0], v[i].x, q0);
+                match(cnt[j][1], v[i].y, q0);
+                match(cnt[j][2], v[i].z, q0);
+                match(cnt[j][3], v[i].w, q0);
+              } else {
+                const int32_t q1 = qreg[u * NQ + k + i + 1];
+                match(cnt[j][0], v[i].x, q0, v[i + 1].x, q1);
+                match(cnt[j][1], v[i].y, q0, v[i + 1].y, q1);
+                match(cnt[j][2], v[i].z, q0, v[i + 1].z, q1);
+                match(cnt[j][3], v[i].w, q0, v[i + 1].w, q1);
+              }
             }
-            c0 += e0;
-            c1 += e1;
-            c2 += e2;
-            c3 += e3;
+          }
+        }
+        for (int m = 1; m < lanes; m <<= 1) {  // the group's sum, into its part 0
+#pragma unroll
+          for (int j = 0; j < QT; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int other = __shfl_down_sync(0xffffffffu, cnt[j][i], m);
+              if (part + m < lanes) cnt[j][i] += other;
+            }
           }
         }
       } else {
-        const int nb = bw / w;
-        for (int t = 0; t < probes; ++t) {
-          for (int b = 0; b < nb; ++b) {
+        const int nb = bw / a.w;
+        for (int b = 0; b < nb; ++b) {
+          for (int t = 0; t < a.probes; ++t) {
             bool e0 = true, e1 = true, e2 = true, e3 = true;
-            for (int j = 0; j < w; ++j) {
-              const int row = b * w + j;
-              const int4 v = *reinterpret_cast<const int4*>(s_sig + row * tile + s);
-              const int32_t qv = __ldg(qrow + t * bw + row);
+            for (int j = 0; j < a.w; ++j) {
+              const int r = b * a.w + j;
+              const int4 v = *reinterpret_cast<const int4*>(s_sig + r * stride + s);
+              const int32_t qv = qp[(t * bw + r) * qs];
               e0 &= v.x == qv;
               e1 &= v.y == qv;
               e2 &= v.z == qv;
               e3 &= v.w == qv;
             }
-            c0 += e0;
-            c1 += e1;
-            c2 += e2;
-            c3 += e3;
+            cnt[0][0] += e0;
+            cnt[0][1] += e1;
+            cnt[0][2] += e2;
+            cnt[0][3] += e3;
           }
         }
       }
-      const int4 bias = *reinterpret_cast<const int4*>(s_bias + s);
-      const int k01 = max(c0 * scale + bias.x, c1 * scale + bias.y);
-      const int k23 = max(c2 * scale + bias.z, c3 * scale + bias.w);
-      run = max(run, max(k01, k23));
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const int k01 = max(cnt[j][0] * a.scale + bias.x, cnt[j][1] * a.scale + bias.y);
+        const int k23 = max(cnt[j][2] * a.scale + bias.z, cnt[j][3] * a.scale + bias.w);
+        run[j] = max(run[j], max(k01, k23));
+      }
       const int last = t0 + s + 3;
-      if (((last + 1) & (group - 1)) == 0) {  // the quad closed a group
-        out[static_cast<size_t>(qi) * ng + last / group] = run;
-        run = INT_MIN;
+      if (((last + 1) & (a.group - 1)) == 0) {  // the quad closed a group
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          if (writer && qi + j < a.q) {
+            a.out[static_cast<size_t>(qi + j) * ng + last / a.group] = run[j];
+          }
+          run[j] = INT_MIN;
+        }
       }
     }
   }
 }
 
-template <int BW, int W, int P>
-int launch(const int32_t* sig_t, const int32_t* tie, const int32_t* qwords,
-           int32_t* out, int q, int c, int bw, int w, int probes, int group,
-           int scale, int dead_bias, int tile, int spb, cudaStream_t stream) {
-  const dim3 grid((c + spb - 1) / spb, (q + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(bw + 1) * tile * sizeof(int32_t);
-  collision_group_max_kernel<BW, W, P><<<grid, kThreads, smem, stream>>>(
-      sig_t, tie, qwords, out, q, c, bw, w, probes, group, scale, dead_bias,
-      tile, spb);
-  return static_cast<int>(cudaGetLastError());
+size_t shared_bytes(int rows, int tile) {
+  return (static_cast<size_t>(rows) * (tile + kPad) + tile) * sizeof(int32_t);
+}
+
+// One launch per 65,535 blocks of queries (grid.y's limit), so any Q runs.
+template <int NQ, int W, int P>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = collision_group_max_kernel<NQ, W, P>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int spb = max(kSlotsPerBlock, a.group);
+  const int per_block = kThreads / 32 * (32 / (NQ > 0 ? a.lanes : 1)) * kQueries<NQ, P>;
+  const int per_launch = 65535 * per_block;
+  for (int q0 = 0; q0 < a.q; q0 += per_launch) {
+    Args b = a;
+    b.q = min(per_launch, a.q - q0);
+    b.qwords += static_cast<size_t>(q0) * a.probes * a.bw;
+    b.out += static_cast<size_t>(q0) * (a.c / a.group);
+    const dim3 grid((a.c + spb - 1) / spb, (b.q + per_block - 1) / per_block);
+    kernel<<<grid, kThreads, smem, stream>>>(b);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+template <int NQ, int W>
+int launch_registers(const Args& a, int p, cudaStream_t stream) {
+  const size_t smem = shared_bytes(a.band_lanes * a.lane_rows, kTile);
+  switch (p) {
+    case 1: return launch<NQ, W, 1>(a, smem, stream);
+    case 2: return launch<NQ, W, 2>(a, smem, stream);
+    case 3: return launch<NQ, W, 3>(a, smem, stream);
+    case 4: if constexpr (4 * NQ <= kMaxRegWords) return launch<NQ, W, 4>(a, smem, stream); break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -184,41 +333,50 @@ extern "C" int lshrs_collision_group_max(
     void* stream) {
   if (q <= 0 || c <= 0 || bw <= 0 || words <= 0 || probes <= 0 ||
       bw != num_bands * words || group < 4 || (group & (group - 1)) != 0 ||
-      c % group != 0 || q > 65535 * kThreads) {
+      c % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int tile = kMaxTile;
-  while (tile > 4 &&
-         static_cast<size_t>(bw + 1) * tile * sizeof(int32_t) > kSmemBudget) {
-    tile >>= 1;
-  }
-  if (static_cast<size_t>(bw + 1) * tile * sizeof(int32_t) > kSmemBudget) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int spb = max(max(group, kMinSlotsPerBlock), tile);
-  const int dead_bias = -num_bands * scale;
-  const auto* s = static_cast<const int32_t*>(sig_t);
-  const auto* t = static_cast<const int32_t*>(tie);
-  const auto* qw = static_cast<const int32_t*>(qwords);
-  auto* o = static_cast<int32_t*>(out);
+  Args a{static_cast<const int32_t*>(sig_t), static_cast<const int32_t*>(tie),
+         static_cast<const int32_t*>(qwords), static_cast<int32_t*>(out),
+         q, c, bw, words, probes, group, scale, -num_bands * scale,
+         kTile, 1, 1, bw, 0};
   auto st = static_cast<cudaStream_t>(stream);
-#define LSHRS_B1_CASE(BW_, W_, P_)                                          \
-  if (bw == BW_ && words == W_ && probes == P_) {                           \
-    return launch<BW_, W_, P_>(s, t, qw, o, q, c, bw, words, probes, group, \
-                               scale, dead_bias, tile, spb, st);            \
+
+  // Registers: W of 1 or 2 and BW <= 64, split over one or two band lanes
+  // of at most 32 words; the probes split evenly over the fewest probe
+  // lanes that leave at most 4 probes and 96 words a thread.
+  if ((words == 1 || words == 2) && bw <= 64) {
+    a.band_lanes = bw <= 32 ? 1 : 2;
+    const int per_lane = (bw + a.band_lanes - 1) / a.band_lanes;
+    a.lane_rows = (per_lane + kStep - 1) / kStep * kStep;
+    const int nq = a.lane_rows <= 16 ? 16 : 32;
+    const int pmax = min(4, kMaxRegWords / nq);
+    for (int probe_lanes = 1; probe_lanes * a.band_lanes <= 32; ++probe_lanes) {
+      if (probes % probe_lanes != 0 || probes / probe_lanes > pmax) continue;
+      a.lanes = probe_lanes * a.band_lanes;
+      const int p = probes / probe_lanes;
+      if (words == 1) {
+        return nq == 16 ? launch_registers<16, 1>(a, p, st) : launch_registers<32, 1>(a, p, st);
+      }
+      return nq == 16 ? launch_registers<16, 2>(a, p, st) : launch_registers<32, 2>(a, p, st);
+    }
   }
-  LSHRS_B1_CASE(16, 1, 1)
-  LSHRS_B1_CASE(16, 1, 2)
-  LSHRS_B1_CASE(16, 1, 4)
-  LSHRS_B1_CASE(32, 1, 1)
-  LSHRS_B1_CASE(32, 1, 2)
-  LSHRS_B1_CASE(32, 1, 4)
-  LSHRS_B1_CASE(8, 1, 1)
-  LSHRS_B1_CASE(4, 1, 1)
-  LSHRS_B1_CASE(4, 2, 1)
-  LSHRS_B1_CASE(64, 1, 1)
-  LSHRS_B1_CASE(8, 2, 1)
-#undef LSHRS_B1_CASE
-  return launch<0, 0, 0>(s, t, qw, o, q, c, bw, words, probes, group, scale,
-                         dead_bias, tile, spb, st);
+
+  // Generic: the query words in shared memory where they fit beside a
+  // 128-slot tile, else from global memory; the tile halves until the
+  // slot words fit.
+  a.lanes = a.band_lanes = 1;
+  a.lane_rows = bw;
+  const size_t qbytes = static_cast<size_t>(probes) * bw * kQStride * sizeof(int32_t);
+  size_t smem = shared_bytes(bw, a.tile);
+  if (smem + qbytes <= kSmemMax) {
+    a.q_in_smem = 1;
+    smem += qbytes;
+  }
+  while (smem > kSmemMax && a.tile > 4) {
+    a.tile >>= 1;
+    smem = shared_bytes(bw, a.tile);
+  }
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<0, 0, 0>(a, smem, st);
 }

@@ -28,8 +28,8 @@ Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
 and raises otherwise; it never falls back. Each wrapper counts the
 kernel launches it makes in its ``launches`` attribute (B1 also by
-``(BW, probes)`` in ``launches_by_shape`` and by ``(BW, words, probes)`` in
-``launches_by_template``, B2 by its key packing
+``(BW, probes)`` in ``launches_by_shape`` and by the shape ``(BW, words,
+probes)`` in ``launches_by_template``, B2 by its key packing
 ``(width, offset, shift)`` in ``launches_by_packing``, B3 by ``(BW,
 word_bits)`` in ``launches_by_shape``).
 
@@ -271,7 +271,9 @@ def group_max_keys(
         sig_t: ``(num_bands * words, C)`` int32 transposed signatures.
         tie: ``(C,)`` int32 — ``S - 1 - rank`` for alive slots, ``-1`` for
             dead slots.
-        qwords: ``(Q, probes * num_bands * words)`` int32, probe-major.
+        qwords: ``(Q, probes * num_bands * words)`` int32, probe-major;
+            any Q (the CUDA kernel launches once per 65,535 blocks of
+            queries).
         group: slots per group, a power of two dividing C (at least 4 for
             the CUDA kernel).
         scale: ``key_scale(C)``.
@@ -316,11 +318,11 @@ def group_max_keys(
 
 
 group_max_keys.launches = 0
-# The same launches, by (band words BW, probes): which template
-# instantiation a path reached.
+# The same launches, by (band words BW, probes).
 group_max_keys.launches_by_shape = collections.Counter()
-# ... and by (BW, words per band W, probes), the template's <BW, W, P>:
-# 8 x 32 and 4 x 64 both hold 8 band words, in different instantiations.
+# ... and by the shape (BW, words per band W, probes), whichever of the
+# kernel's instantiations served it: 8 x 32 and 4 x 64 both hold 8 band
+# words, in one and two words a band.
 group_max_keys.launches_by_template = collections.Counter()
 
 

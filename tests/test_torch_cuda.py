@@ -48,17 +48,33 @@ def _tie(rng, c, dev):
         (16, 1, 4096, 256, 1),
         (16, 1, 4096, 256, 2),
         (16, 1, 4096, 100, 1),  # ragged Q
-        (16, 1, 4096, 256, 4),  # register instantiation <16, 1, 4>
+        (16, 1, 4096, 256, 4),  # four probes in one thread
         (32, 1, 4096, 256, 1),
-        (32, 1, 4096, 256, 2),  # <32, 1, 2>
-        (32, 1, 4096, 100, 4),  # <32, 1, 4>, ragged Q
-        (16, 2, 4096, 70, 4),   # generic instantiation with probes
-        (4, 3, 2048, 70, 1),    # generic (non-register) instantiation
+        (32, 1, 4096, 256, 2),  # two probes, 32 words
+        (32, 1, 4096, 100, 4),  # two lanes of two probes, ragged Q
+        (16, 2, 4096, 70, 4),   # two-word bands, four probes
+        (4, 3, 2048, 70, 1),    # three-word bands: generic
         (8, 1, 256, 9, 1),      # store smaller than one block's slot range
-        (64, 1, 4096, 256, 1),  # <64, 1, 1>: 64 x 4 bands
+        (64, 1, 4096, 256, 1),  # 64 x 4 bands: two band lanes
         (64, 1, 4096, 100, 1),  # ragged Q
-        (4, 2, 4096, 256, 1),   # <8, 2, 1>: 4 x 64 bands
-        (32, 2, 4096, 100, 1),  # generic, on <64, 1, 1>'s compares
+        (4, 2, 4096, 256, 1),   # 4 x 64 bands: two-word bands
+        (32, 2, 4096, 100, 1),  # 32 bands of two words: two band lanes
+        # the auto-tuner's bandings and the default index's multi-probe
+        (48, 1, 4096, 256, 1),  # num_perm=384 at t=0.6: 48 x 8
+        (48, 1, 4096, 100, 1),  # ragged Q
+        (24, 1, 4096, 256, 1),  # num_perm=192 at t=0.7: 24 x 8
+        (12, 1, 4096, 256, 1),  # num_perm=192 at t=0.5: 12 x 16
+        (8, 1, 4096, 256, 2),   # LSHRS(multiprobe=2): 8 x 16
+        (16, 1, 4096, 256, 3),  # 16 x 16 with multiprobe=3
+        (32, 2, 4096, 256, 1),
+        # probes split over lanes, and the generic instantiation
+        (16, 1, 4096, 100, 8),  # two lanes of four probes
+        (32, 1, 2048, 70, 6),   # two lanes of three probes
+        (64, 1, 2048, 70, 3),   # two band lanes of three probes
+        (6, 1, 2048, 70, 5),    # five lanes of one probe, two threads a warp idle
+        (8, 1, 2048, 70, 9),    # three lanes of three probes
+        (4, 3, 2048, 70, 2),    # three-word bands: generic, queries in shared memory
+        (21, 3, 2048, 70, 16),  # three-word bands: generic, queries from global memory
     ],
 )
 def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
@@ -77,6 +93,24 @@ def test_b1_kernel_matches_plain(num_bands, words, c, q, probes, dev, rng):
     assert gm.group_max_keys.launches == before + 1
     assert gm.group_max_keys.launches_by_template[bw, words, probes] == template + 1
     assert got.device == sig_t.device and got.shape == (q, c // 64)
+    assert torch.equal(got, gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
+
+
+def test_b1_kernel_takes_more_queries_than_one_launch_holds(dev):
+    """64 band words with 4 probes: four threads a query, 32 queries a block,
+    so past 65,535 x 32 queries (grid.y's limit) the kernel launches twice."""
+    num_bands, c, probes = 64, 64, 4
+    q = 65535 * 32 + 70
+    g = torch.Generator(device=dev).manual_seed(0)
+    sig_t = torch.randint(0, 4, (num_bands, c), dtype=torch.int32, device=dev, generator=g)
+    q0 = torch.randint(0, 4, (q, num_bands), dtype=torch.int32, device=dev, generator=g)
+    planted = torch.arange(0, q, 3, device=dev)  # full matches, across both launches
+    q0[planted] = sig_t[:, planted % c].T
+    qwords = torch.cat([q0 ^ (1 << t) if t else q0 for t in range(probes)], 1).contiguous()
+    tie = torch.arange(c - 1, -1, -1, dtype=torch.int32, device=dev)
+    kw = dict(num_bands=num_bands, words=1, group=64, scale=gm.key_scale(c), probes=probes)
+    got = gm.group_max_keys(sig_t, tie, qwords, **kw)
+    assert got.shape == (q, 1)
     assert torch.equal(got, gm.group_max_keys_ref(sig_t, tie, qwords, **kw))
 
 

@@ -77,8 +77,8 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-@pytest.mark.parametrize("probes", [1, 2])
-@pytest.mark.parametrize("num_bands,rows", [(4, 8), (16, 16), (2, 40)])
+@pytest.mark.parametrize("probes", [1, 2, 3])
+@pytest.mark.parametrize("num_bands,rows", [(4, 8), (16, 16), (2, 40), (24, 8), (48, 8), (12, 16)])
 def test_group_max_keys_ref_matches_pallas_and_jnp(num_bands, rows, probes, rng):
     h, sig_t, ids, tie, qwords = _store(rng, num_bands, rows)
     qw = _probed(qwords, probes, h.words_per_band)
