@@ -88,6 +88,7 @@ from lshrs_tpu_torch.storage.memory import MemoryStorage
 from lshrs_tpu_torch.utils.br import get_optimal_config
 from lshrs_tpu_torch.utils.cp import get_optimal_cp_config
 from lshrs_tpu_torch.utils.similarity import top_k_cosine
+from lshrs_tpu_torch.utils.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -598,46 +599,51 @@ class LSHRS:
         """Index a batch of vectors and flush, making them searchable.
 
         ``vectors=None`` fetches the batch through ``vector_fetch_fn``.
+        Runs inside the span ``lshrs.index``.
         """
         if indices is None or len(indices) == 0:
             return
-        if self._device_mode:
-            self._commit_index_batch(self._prepare_index_batch(indices, vectors))
-            return
-        idx_arr, arr = self._validate_index_batch(indices, vectors)
-        words = self._hasher.hash_batch_words_host(arr)
-        with self._buffer_lock:
-            for j, idx in enumerate(idx_arr.tolist()):
-                for band_id, band in enumerate(self._hasher.words_to_signature(words[j])):
-                    self._buffer.append((band_id, band, idx))
-        self._count("vectors_ingested", idx_arr.size)
-        self.flush()
+        with span("lshrs.index"):
+            if self._device_mode:
+                self._commit_index_batch(self._prepare_index_batch(indices, vectors))
+                return
+            idx_arr, arr = self._validate_index_batch(indices, vectors)
+            words = self._hasher.hash_batch_words_host(arr)
+            with self._buffer_lock:
+                for j, idx in enumerate(idx_arr.tolist()):
+                    for band_id, band in enumerate(self._hasher.words_to_signature(words[j])):
+                        self._buffer.append((band_id, band, idx))
+            self._count("vectors_ingested", idx_arr.size)
+            self.flush()
 
     def _validate_index_batch(self, indices, vectors):
-        """Shared `index()` validation -> ``(idx_arr, float32 arr)``."""
-        if vectors is None:
-            vectors = self._require_vector_fetch_fn()(indices)
-        arr = np.asarray(vectors, dtype=np.float32)
-        if arr.ndim != 2 or arr.shape[1] != self._dim:
-            raise ValueError(
-                f"Vectors must have shape (n, {self._dim}); received {arr.shape}"
-            )
-        if arr.shape[0] != len(indices):
-            raise ValueError(
-                "Number of vectors does not match number of indices "
-                f"(received {arr.shape[0]} vectors for {len(indices)} indices)"
-            )
-        idx_arr = np.asarray(indices, dtype=np.int64).reshape(-1)
-        if idx_arr.size and int(idx_arr.min()) < 0:
-            raise ValueError("index must be non-negative")
-        # Zero-row rejection: only rows whose first coordinate is ~0 can
-        # be all-zero, so scan just those fully.
-        cand = np.flatnonzero(np.abs(arr[:, 0]) <= 1e-8)
-        if cand.size and np.any(np.all(np.abs(arr[cand]) <= 1e-8, axis=1)):
-            raise ValueError(
-                "Cannot index zero vector - norm undefined. Check embeddings for corruption."
-            )
-        return idx_arr, self._augment_data(arr)
+        """Shared `index()` validation -> ``(idx_arr, float32 arr)`` (span
+        ``lshrs.index.validate``)."""
+        with span("lshrs.index.validate"):
+            if vectors is None:
+                vectors = self._require_vector_fetch_fn()(indices)
+            arr = np.asarray(vectors, dtype=np.float32)
+            if arr.ndim != 2 or arr.shape[1] != self._dim:
+                raise ValueError(
+                    f"Vectors must have shape (n, {self._dim}); received {arr.shape}"
+                )
+            if arr.shape[0] != len(indices):
+                raise ValueError(
+                    "Number of vectors does not match number of indices "
+                    f"(received {arr.shape[0]} vectors for {len(indices)} indices)"
+                )
+            idx_arr = np.asarray(indices, dtype=np.int64).reshape(-1)
+            if idx_arr.size and int(idx_arr.min()) < 0:
+                raise ValueError("index must be non-negative")
+            # Zero-row rejection: only rows whose first coordinate is ~0 can
+            # be all-zero, so scan just those fully.
+            cand = np.flatnonzero(np.abs(arr[:, 0]) <= 1e-8)
+            if cand.size and np.any(np.all(np.abs(arr[cand]) <= 1e-8, axis=1)):
+                raise ValueError(
+                    "Cannot index zero vector - norm undefined. "
+                    "Check embeddings for corruption."
+                )
+            return idx_arr, self._augment_data(arr)
 
     def _prepare_index_batch(self, indices, vectors):
         """Device-mode `index()` stage 1: validate, and hash on the host in
@@ -1183,12 +1189,19 @@ class LSHRS:
         )
 
         def run(vectors) -> np.ndarray:
-            arr = self._augment_query(self._validate_batch(vectors))
-            out = serve(self._hash_wire(arr, probes)).cpu().numpy()
-            # Count after the dispatch: stale-snapshot calls raise and must
-            # not inflate queries_served.
-            self._count("queries_served", arr.shape[0])
-            return out
+            with span("lshrs.serve"):
+                with span("lshrs.validate"):
+                    arr = self._augment_query(self._validate_batch(vectors))
+                with span("lshrs.hash"):
+                    sig = self._hash_wire(arr, probes)
+                with span("lshrs.engine"):
+                    ids = serve(sig)
+                with span("lshrs.download"):
+                    out = ids.cpu().numpy()
+                # Count after the dispatch: stale-snapshot calls raise and must
+                # not inflate queries_served.
+                self._count("queries_served", arr.shape[0])
+                return out
 
         return run
 
@@ -1232,17 +1245,23 @@ class LSHRS:
         )
 
         def run_asym(vectors) -> np.ndarray:
-            arr = self._augment_query(self._validate_batch(vectors))
-            coords = self._hasher.hash_batch_coords_host(arr)
-            if int4:
-                sig = pack_coords_int4_np(quantize_coords_np(coords, qmax=QMAX4)[0])
-            else:
-                sig = quantize_coords_np(coords)[0]
-            out = serve(sig).cpu().numpy()
-            # Count after the dispatch: stale-snapshot calls raise and must
-            # not inflate queries_served.
-            self._count("queries_served", arr.shape[0])
-            return out
+            with span("lshrs.serve"):
+                with span("lshrs.validate"):
+                    arr = self._augment_query(self._validate_batch(vectors))
+                with span("lshrs.hash"):
+                    coords = self._hasher.hash_batch_coords_host(arr)
+                    if int4:
+                        sig = pack_coords_int4_np(quantize_coords_np(coords, qmax=QMAX4)[0])
+                    else:
+                        sig = quantize_coords_np(coords)[0]
+                with span("lshrs.engine"):
+                    ids = serve(sig)
+                with span("lshrs.download"):
+                    out = ids.cpu().numpy()
+                # Count after the dispatch: stale-snapshot calls raise and must
+                # not inflate queries_served.
+                self._count("queries_served", arr.shape[0])
+                return out
 
         return run_asym
 
@@ -1263,23 +1282,28 @@ class LSHRS:
         dev = self._storage.device
 
         def run_topp(vectors):
-            arr = self._augment_query(self._validate_batch(vectors))
-            if self._hash_on_device:
-                qv = torch.from_numpy(arr).to(dev)
-                sig = self._hash_wire(qv, probes)
-            else:
-                sig = self._hash_wire(arr, probes)
-                qv = torch.from_numpy(arr)
-            if wire_dtype == "bfloat16":
-                qv = qv.to(torch.bfloat16)
-            ids, sims, n = serve(sig, qv)
-            # Count after the dispatch: stale-snapshot calls raise and must
-            # not inflate queries_served.
-            self._count("queries_served", arr.shape[0])
-            sims = sims.cpu().numpy()
-            if self._similarity == "dot":
-                sims = sims * self._score_scale(arr)[:, None]
-            return ids.cpu().numpy(), sims, n.cpu().numpy()
+            with span("lshrs.serve"):
+                with span("lshrs.validate"):
+                    arr = self._augment_query(self._validate_batch(vectors))
+                with span("lshrs.hash"):
+                    if self._hash_on_device:
+                        qv = torch.from_numpy(arr).to(dev)
+                        sig = self._hash_wire(qv, probes)
+                    else:
+                        sig = self._hash_wire(arr, probes)
+                        qv = torch.from_numpy(arr)
+                    if wire_dtype == "bfloat16":
+                        qv = qv.to(torch.bfloat16)
+                with span("lshrs.engine"):
+                    ids, sims, n = serve(sig, qv)
+                # Count after the dispatch: stale-snapshot calls raise and must
+                # not inflate queries_served.
+                self._count("queries_served", arr.shape[0])
+                with span("lshrs.download"):
+                    sims = sims.cpu().numpy()
+                    if self._similarity == "dot":
+                        sims = sims * self._score_scale(arr)[:, None]
+                    return ids.cpu().numpy(), sims, n.cpu().numpy()
 
         return run_topp
 

@@ -40,7 +40,14 @@ import torch
 
 from lshrs_tpu_torch.ops.group_max import asymmetric_shift, hamming_group_max_keys, key_scale
 from lshrs_tpu_torch.ops.hamming import int8_dots
-from lshrs_tpu_torch.ops.scan import chunk_key_terms, chunk_step, chunked_topk_scan, gather_refine
+from lshrs_tpu_torch.ops.scan import (
+    chunk_key_terms,
+    chunk_step,
+    chunked_topk_scan,
+    gather_refine,
+    select_top_groups,
+)
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = [
     "QMAX",
@@ -242,20 +249,22 @@ def asymmetric_topk_core(
         planes, tie, qcoords, group=group, scale=key_scale(c),
         offset=offset, shift=shift, num_perm=p,
     )
-    m = min(k, c // group)
-    top_groups = torch.topk(gmax, m, dim=1).indices
+    top_groups = select_top_groups(gmax, min(k, c // group))
     del gmax
-    cwords, cand_tie, cand_ids, narrow_r = gather_refine(
-        sig_rows, sig_t, tie, ids, top_groups,
-        num_bands=num_bands, group=group, narrow_r=narrow_r,
-    )
     q = qcoords.shape[0]
-    dots = refine_dots_from_words(
-        cwords, qcoords, num_bands=num_bands, rows_per_band=rows_per_band, narrow_r=narrow_r
-    ).reshape(q, -1)
-    return _exact_pool_order(
-        dots, cand_ids.reshape(q, -1), cand_tie.reshape(q, -1) >= 0, k, offset
-    )
+    with span("lshrs.refine"):
+        cwords, cand_tie, cand_ids, narrow_r = gather_refine(
+            sig_rows, sig_t, tie, ids, top_groups,
+            num_bands=num_bands, group=group, narrow_r=narrow_r,
+        )
+        dots = refine_dots_from_words(
+            cwords, qcoords, num_bands=num_bands, rows_per_band=rows_per_band,
+            narrow_r=narrow_r,
+        ).reshape(q, -1)
+    with span("lshrs.topk"):
+        return _exact_pool_order(
+            dots, cand_ids.reshape(q, -1), cand_tie.reshape(q, -1) >= 0, k, offset
+        )
 
 
 def asymmetric_topk_chunked_core(

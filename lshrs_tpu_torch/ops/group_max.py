@@ -31,7 +31,9 @@ kernel launches it makes in its ``launches`` attribute (B1 also by
 ``(BW, probes)`` in ``launches_by_shape`` and by the shape ``(BW, words,
 probes)`` in ``launches_by_template``, B2 by its key packing
 ``(width, offset, shift)`` in ``launches_by_packing``, B3 by ``(BW,
-word_bits)`` in ``launches_by_shape``).
+word_bits)`` in ``launches_by_shape``). The plain version or the launch
+runs inside the span ``lshrs.b1``, ``lshrs.b2`` or ``lshrs.b3``
+(`lshrs_tpu_torch.utils.trace`).
 
 Key packing requires ``(num_bands + 1) * S < 2**31`` (B1),
 ``(maxscaled + 2) * S < 2**31`` (B2) and ``(P + 2) * S < 2**31`` (B3)
@@ -48,6 +50,7 @@ import torch
 
 from lshrs_tpu_torch.ops import _build
 from lshrs_tpu_torch.ops.bitpack import popcount31, popcount32
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = [
     "asymmetric_shift",
@@ -295,22 +298,24 @@ def group_max_keys(
         raise ValueError(f"group must be a power of two dividing C={c}; got {group}")
     dev = _device(sig_t, tie, qwords)
     if dev.type == "cpu":
-        return group_max_keys_ref(
-            sig_t, tie, qwords, num_bands=num_bands, words=words,
-            group=group, scale=scale, probes=probes,
-        )
+        with span("lshrs.b1"):
+            return group_max_keys_ref(
+                sig_t, tie, qwords, num_bands=num_bands, words=words,
+                group=group, scale=scale, probes=probes,
+            )
     if not (sig_t.is_contiguous() and tie.is_contiguous() and qwords.is_contiguous()):
         raise ValueError("group_max_keys: CUDA inputs must be contiguous")
     if group < 4:
         raise ValueError(f"the CUDA kernel needs group >= 4; got {group}")
-    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out
-    _launch(
-        "lshrs_collision_group_max", dev,
-        sig_t.data_ptr(), tie.data_ptr(), qwords.data_ptr(), out.data_ptr(),
-        q, c, bw, words, probes, group, scale, num_bands,
-    )
+    with span("lshrs.b1"):
+        out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
+        if q == 0:
+            return out
+        _launch(
+            "lshrs_collision_group_max", dev,
+            sig_t.data_ptr(), tie.data_ptr(), qwords.data_ptr(), out.data_ptr(),
+            q, c, bw, words, probes, group, scale, num_bands,
+        )
     group_max_keys.launches += 1
     group_max_keys.launches_by_shape[bw, probes] += 1
     group_max_keys.launches_by_template[bw, words, probes] += 1
@@ -406,9 +411,10 @@ def hamming_group_max_keys(
     off = _hamming_offset(p, offset, num_perm)
     dev = _device(planes, tie, qbits)
     if dev.type == "cpu":
-        return hamming_group_max_keys_ref(
-            planes, tie, qbits, group=group, scale=scale, offset=off, shift=shift
-        )
+        with span("lshrs.b2"):
+            return hamming_group_max_keys_ref(
+                planes, tie, qbits, group=group, scale=scale, offset=off, shift=shift
+            )
     if not (planes.is_contiguous() and tie.is_contiguous() and qbits.is_contiguous()):
         raise ValueError("hamming_group_max_keys: CUDA inputs must be contiguous")
     if planes.data_ptr() % 16 or qbits.data_ptr() % 16:
@@ -419,14 +425,15 @@ def hamming_group_max_keys(
             f"multiple of 16 bytes (pad P with zero columns, pass num_perm=); "
             f"got group={group}, width={p}"
         )
-    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out
-    _launch(
-        "lshrs_hamming_group_max", dev,
-        planes.data_ptr(), tie.data_ptr(), qbits.data_ptr(), out.data_ptr(),
-        q, c, p, group, scale, off, shift, -((2 * off) >> shift) * scale,
-    )
+    with span("lshrs.b2"):
+        out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
+        if q == 0:
+            return out
+        _launch(
+            "lshrs_hamming_group_max", dev,
+            planes.data_ptr(), tie.data_ptr(), qbits.data_ptr(), out.data_ptr(),
+            q, c, p, group, scale, off, shift, -((2 * off) >> shift) * scale,
+        )
     hamming_group_max_keys.launches += 1
     hamming_group_max_keys.launches_by_packing[p, off, shift] += 1
     return out
@@ -517,10 +524,11 @@ def hamming_packed_group_max_keys(
         raise ValueError(f"word_bits must be in 1..32; got {word_bits}")
     dev = _device(sig_t, tie, qwords)
     if dev.type == "cpu":
-        return hamming_packed_group_max_keys_ref(
-            sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale,
-            word_bits=word_bits,
-        )
+        with span("lshrs.b3"):
+            return hamming_packed_group_max_keys_ref(
+                sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale,
+                word_bits=word_bits,
+            )
     if not (sig_t.is_contiguous() and tie.is_contiguous() and qwords.is_contiguous()):
         raise ValueError("hamming_packed_group_max_keys: CUDA inputs must be contiguous")
     if sig_t.data_ptr() % 16 or tie.data_ptr() % 16:
@@ -533,15 +541,16 @@ def hamming_packed_group_max_keys(
     if q == 0:
         return torch.empty((0, c // group), dtype=torch.int32, device=dev)
     kp = packed_width(bw, word_bits)
-    # The queries' +-1 operand (Q * K bytes) before the output: its
-    # temporaries are gone before the (Q, C / group) keys exist.
-    qop = packed_operand(qwords, word_bits=word_bits, width=kp)
-    out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
-    _launch(
-        "lshrs_hamming_packed_group_max", dev,
-        sig_t.data_ptr(), tie.data_ptr(), qop.data_ptr(), out.data_ptr(),
-        q, c, bw, word_bits, kp, group, scale, num_perm,
-    )
+    with span("lshrs.b3"):
+        # The queries' +-1 operand (Q * K bytes) before the output: its
+        # temporaries are gone before the (Q, C / group) keys exist.
+        qop = packed_operand(qwords, word_bits=word_bits, width=kp)
+        out = torch.empty((q, c // group), dtype=torch.int32, device=dev)
+        _launch(
+            "lshrs_hamming_packed_group_max", dev,
+            sig_t.data_ptr(), tie.data_ptr(), qop.data_ptr(), out.data_ptr(),
+            q, c, bw, word_bits, kp, group, scale, num_perm,
+        )
     hamming_packed_group_max_keys.launches += 1
     hamming_packed_group_max_keys.launches_by_shape[bw, word_bits] += 1
     return out

@@ -56,6 +56,7 @@ from lshrs_tpu_torch.ops.scan import (
     gather_refine_slots,
     select_top_groups,
 )
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = [
     "cascade_coarse_keys",
@@ -320,13 +321,14 @@ def _select_refine(
     """
     m, scale, wide = hamming_select_terms(gmax.shape[1], group, p=p, k=k, m_groups=m_groups)
     top_groups = select_top_groups(gmax, m)
-    cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
-        qwords, sig_rows, top_groups, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids,
-    )
-    return hamming_final_topk(
-        refine_hamming(cwords, qcmp), cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide
-    )
+    with span("lshrs.refine"):
+        cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
+            qwords, sig_rows, top_groups, group=group, narrow_r=narrow_r,
+            sig_t=sig_t, tie=tie, ids=ids,
+        )
+        hamming = refine_hamming(cwords, qcmp)
+    with span("lshrs.topk"):
+        return hamming_final_topk(hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide)
 
 
 # A cascade batch goes through in query slices that keep the coarse

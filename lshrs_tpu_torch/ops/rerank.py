@@ -34,6 +34,7 @@ import torch
 
 from lshrs_tpu_torch.ops.group_max import group_max_keys, key_scale
 from lshrs_tpu_torch.ops.scan import gather_refine, refine_counts_vs_query
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = [
     "merge_topp_pools",
@@ -262,19 +263,21 @@ def rerank_topp_gather_core(
     # the tie (< scale), so a selected max below scale is a collision-free
     # group: every colliding group was selected.
     m = min(max_candidates, ng)
-    gsel, top_groups = torch.topk(gmax, m, dim=1)
+    with span("lshrs.select"):
+        gsel, top_groups = torch.topk(gmax, m, dim=1)
     covered = (gsel.amin(dim=1) < scale) | (m == ng)
 
     # -- stage 3: refine the selected groups ----------------------------------
     mg = m * group
     slots = (top_groups[..., None] * group + torch.arange(group, device=sig_t.device)).reshape(q, mg)
-    cwords, cand_tie, cand_ids, narrow_r = gather_refine(
-        sig_rows, sig_t, tie, ids, top_groups,
-        num_bands=num_bands, group=group, narrow_r=narrow_r,
-    )
-    counts = refine_counts_vs_query(
-        cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
-    ).reshape(q, mg)
+    with span("lshrs.refine"):
+        cwords, cand_tie, cand_ids, narrow_r = gather_refine(
+            sig_rows, sig_t, tie, ids, top_groups,
+            num_bands=num_bands, group=group, narrow_r=narrow_r,
+        )
+        counts = refine_counts_vs_query(
+            cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
+        ).reshape(q, mg)
     cand_tie = cand_tie.reshape(q, mg)
     alive = cand_tie >= 0
     n = ((counts > 0) & alive).sum(dim=1, dtype=torch.int32)  # exact iff covered

@@ -51,6 +51,7 @@ from lshrs_tpu_torch.ops.group_max import (
     key_scale,
     supports_fast_path,
 )
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = [
     "band_counts_t",
@@ -374,21 +375,24 @@ def collision_topk_grouped_core(
         scale=scale, probes=probes,
     )
     top_groups = select_top_groups(gmax, min(k, ng))
-    cwords, cand_tie, cand_ids, narrow_r = gather_refine(
-        sig_rows, sig_t, tie, ids, top_groups,
-        num_bands=num_bands, group=group, narrow_r=narrow_r,
-    )
-    counts = refine_counts_vs_query(
-        cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
-    )
-    return collision_final_topk(counts, cand_tie, cand_ids, k=k, scale=scale)
+    with span("lshrs.refine"):
+        cwords, cand_tie, cand_ids, narrow_r = gather_refine(
+            sig_rows, sig_t, tie, ids, top_groups,
+            num_bands=num_bands, group=group, narrow_r=narrow_r,
+        )
+        counts = refine_counts_vs_query(
+            cwords, qwords, num_bands=num_bands, words=w, narrow_r=narrow_r, probes=probes
+        )
+    with span("lshrs.topk"):
+        return collision_final_topk(counts, cand_tie, cand_ids, k=k, scale=scale)
 
 
 def select_top_groups(gmax: torch.Tensor, m: int) -> torch.Tensor:
     """The ``m`` groups of largest key per query, ``(Q, m)`` int64: one flat
     ``torch.topk`` over the ``(Q, C / group)`` group maxes (the selection
-    stage of the grouped collision and Hamming cores)."""
-    return torch.topk(gmax, m, dim=1).indices
+    stage of the grouped collision and Hamming cores; span ``lshrs.select``)."""
+    with span("lshrs.select"):
+        return torch.topk(gmax, m, dim=1).indices
 
 
 def collision_final_topk(

@@ -52,6 +52,7 @@ from lshrs_tpu_torch.ops.scan import merge_topk_pools
 from lshrs_tpu_torch.parallel.mesh import Mesh
 from lshrs_tpu_torch.storage.device import DeviceStore, _next_pow2
 from lshrs_tpu_torch.storage.filter import as_filter
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = ["ShardedDeviceStore"]
 
@@ -174,7 +175,8 @@ class ShardedDeviceStore(DeviceStore):
         n = ids32.size
         pad = _next_pow2(n)  # the reference's per-batch reservation
         if self._size + pad > self._capacity:
-            self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
+            with span("lshrs.store.grow"):
+                self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
         off, rows = self._size, self._local_rows()
         ids = torch.from_numpy(ids32)
         touched = []

@@ -115,6 +115,7 @@ from lshrs_tpu_torch.ops.scan import (
 )
 from lshrs_tpu_torch.storage.base import BaseStorage, BucketOperation
 from lshrs_tpu_torch.storage.filter import as_filter
+from lshrs_tpu_torch.utils.trace import span
 
 __all__ = ["DeviceStore"]
 
@@ -422,9 +423,11 @@ class DeviceStore(BaseStorage):
         self._generation += 1
 
     def _ensure_ranks(self) -> None:
-        """Recompute the tie keys if stale (call under the lock)."""
+        """Recompute the tie keys if stale (call under the lock; span
+        ``lshrs.store.ranks``)."""
         if self._ranks_dirty:
-            self._tie = global_tie_core(self._ids)
+            with span("lshrs.store.ranks"):
+                self._tie = global_tie_core(self._ids)
             self._ranks_dirty = False
 
     def _chunk_ranks(self) -> torch.Tensor:
@@ -438,14 +441,16 @@ class DeviceStore(BaseStorage):
 
     def _ensure_planes(self) -> None:
         """Build the int8 bitplanes on first Hamming use (call under the
-        lock). Bit-identical to the stored words by construction."""
+        lock; span ``lshrs.store.planes``). Bit-identical to the stored
+        words by construction."""
         if (
             not self.enable_hamming
             or self.hamming_storage != "planes"
             or self._planes is not None
         ):
             return
-        self._planes = self._materialize_planes()
+        with span("lshrs.store.planes"):
+            self._planes = self._materialize_planes()
 
     # Bound the unpack intermediates to ~1 GB per step.
     _PLANES_MATERIALIZE_STEP = 1 << 17
@@ -491,17 +496,19 @@ class DeviceStore(BaseStorage):
 
         Each row concatenates one selection group's per-slot (words | tie |
         id) rows, word-major; refinement gathers one wide row per
-        candidate group. Invalidated on any mutation.
+        candidate group. Invalidated on any mutation. Built inside the span
+        ``lshrs.store.refine_table``.
         """
         if self._refine is None:
-            self._ensure_ranks()  # the tie column must be fresh
-            words = self._sig_rows
-            if self._refine_narrow_r:
-                words = pack_words_narrow(
-                    words, num_bands=self.num_bands, rows_per_band=self._refine_narrow_r
-                )
-            ext = torch.cat([words, self._tie[:, None], self._ids[:, None]], dim=1)
-            self._refine = build_grouped_refine_rows(ext, group=self._group())
+            with span("lshrs.store.refine_table"):
+                self._ensure_ranks()  # the tie column must be fresh
+                words = self._sig_rows
+                if self._refine_narrow_r:
+                    words = pack_words_narrow(
+                        words, num_bands=self.num_bands, rows_per_band=self._refine_narrow_r
+                    )
+                ext = torch.cat([words, self._tie[:, None], self._ids[:, None]], dim=1)
+                self._refine = build_grouped_refine_rows(ext, group=self._group())
         return self._refine
 
     # ------------------------------------------------------------------
@@ -609,7 +616,8 @@ class DeviceStore(BaseStorage):
                     words = words[~old]
                     vecs = vecs[~old] if vecs is not None else None
             if ids32.size:
-                self._append(ids32, words, vecs)
+                with span("lshrs.store.append"):
+                    self._append(ids32, words, vecs)
 
     def add_vectors_batch(
         self,
@@ -647,26 +655,29 @@ class DeviceStore(BaseStorage):
         ids_np = self._check_ids(indices)
         if ids_np.size == 0:
             return
-        x = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
-        if x.ndim != 2 or x.shape[0] != ids_np.size or (
-            self.dim is not None and x.shape[1] != self.dim
-        ):
-            raise ValueError(
-                f"vectors must have shape ({ids_np.size}, {self.dim}); "
-                f"received {tuple(x.shape)}"
+        with span("lshrs.hash"):  # the upload, the projection, the bitpack
+            x = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+            if x.ndim != 2 or x.shape[0] != ids_np.size or (
+                self.dim is not None and x.shape[1] != self.dim
+            ):
+                raise ValueError(
+                    f"vectors must have shape ({ids_np.size}, {self.dim}); "
+                    f"received {tuple(x.shape)}"
+                )
+            words = hash_words(
+                x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
+                hash_family=hash_family,
             )
-        words = hash_words(
-            x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
-            hash_family=hash_family,
-        )
         self.add_signature_batch(ids_np, words, x if self.store_vectors else None)
 
     def _needs_upsert(self, ids32: np.ndarray) -> bool:
-        """True when the batch holds duplicate or already-present ids."""
-        if np.unique(ids32).size != ids32.size:
-            return True
-        slot_of = self._slot_of
-        return any(i in slot_of for i in ids32.tolist())
+        """True when the batch holds duplicate or already-present ids (span
+        ``lshrs.store.upsert_check``)."""
+        with span("lshrs.store.upsert_check"):
+            if np.unique(ids32).size != ids32.size:
+                return True
+            slot_of = self._slot_of
+            return any(i in slot_of for i in ids32.tolist())
 
     def _write_payload(self, idx, vecs: torch.Tensor | None) -> None:
         """Cast ``vecs`` to the payload dtype and write them, their norms
@@ -696,7 +707,8 @@ class DeviceStore(BaseStorage):
         # Reserve next_pow2(n) slots, as the reference pads each batch.
         pad = _next_pow2(n)
         if self._size + pad > self._capacity:
-            self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
+            with span("lshrs.store.grow"):
+                self._grow(max(2 * self._capacity, _next_pow2(self._size + pad)))
         off = self._size
         self._write_slots(off, torch.from_numpy(ids32).to(self.device), words, vecs)
         if self._slot_of is not None:
