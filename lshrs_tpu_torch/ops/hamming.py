@@ -147,6 +147,7 @@ def hamming_topk_core(
     num_perm: int | None = None,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
+    live: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
@@ -164,6 +165,12 @@ def hamming_topk_core(
         num_perm: signature bits P (default ``Pp``).
         sig_t / ids: ``(BW, C)`` packed words and ``(C,)`` id column,
             needed only without ``sig_rows``.
+        live: score only the first ``live`` slots (a multiple of ``group``,
+            at most C; ``None``: all C), when every slot past them is dead.
+            The keys keep C's scale, so each scored slot's key is the
+            full launch's, and the groups left out could only have keyed
+            at or below 0, under every alive key: the answer is the full
+            launch's.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -171,12 +178,15 @@ def hamming_topk_core(
     """
     c, p = planes.shape
     p = p if num_perm is None else num_perm
+    n = c if live is None else live
+    if n <= 0 or n > c or n % group:
+        raise ValueError(f"live={live} must be a positive multiple of group={group} up to C={c}")
     gmax = hamming_group_max_keys(
-        planes, tie, qbits, group=group, scale=key_scale(c), num_perm=p
+        planes[:n], tie[:n], qbits, group=group, scale=key_scale(c), num_perm=p
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids,
+        sig_t=sig_t, tie=tie, ids=ids, capacity=c,
     )
 
 
@@ -225,13 +235,16 @@ def hamming_topk_packed_core(
 
 
 def hamming_select_terms(
-    ng: int, group: int, *, p: int, k: int, m_groups: int | None = None
+    ng: int, group: int, *, p: int, k: int, m_groups: int | None = None,
+    capacity: int | None = None,
 ) -> tuple[int, int, bool]:
     """``(m, scale, wide)`` of the Hamming selection tail over ``ng``
     groups: the groups refined, the refine key's scale, and whether that
     key is int64 (``(p + 2) * key_scale(C)`` past int32, the cascade only:
-    the single-pass engines, ``m_groups=None``, refuse it)."""
-    scale = key_scale(ng * group)
+    the single-pass engines, ``m_groups=None``, refuse it). ``capacity``:
+    the store's C when the groups cover only its first slots (default
+    ``ng * group``); the ties, and so the scale, are C's."""
+    scale = key_scale(ng * group if capacity is None else capacity)
     wide = (p + 2) * scale >= 2**31
     if wide and m_groups is None:
         raise NotImplementedError(
@@ -299,7 +312,7 @@ def hamming_final_topk(hamming, cand_tie, cand_ids, *, p, k, scale, wide):
 
 def _select_refine(
     gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
-    m_groups=None,
+    m_groups=None, capacity=None,
 ):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order. Its stages:
@@ -318,8 +331,13 @@ def _select_refine(
     int32 — the same ``(hamming asc, id asc)`` order. The single-pass
     engines (``m_groups=None``) refuse that regime: their kernels' keys
     are int32.
+
+    ``capacity``: the store's C when ``gmax`` covers only its first
+    slots (:func:`hamming_topk_core`'s ``live``).
     """
-    m, scale, wide = hamming_select_terms(gmax.shape[1], group, p=p, k=k, m_groups=m_groups)
+    m, scale, wide = hamming_select_terms(
+        gmax.shape[1], group, p=p, k=k, m_groups=m_groups, capacity=capacity
+    )
     top_groups = select_top_groups(gmax, m)
     with span("lshrs.refine"):
         cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(

@@ -456,6 +456,8 @@ class ShardedDeviceStore(DeviceStore):
                 s._planes.numel() for s in self._shards if s._planes is not None
             ),
             payload_bytes=sum(s.stats()["payload_bytes"] for s in self._shards),
+            b2_slots_scanned=sum(s._b2_slots_scanned for s in self._shards),
+            b2_slots_skipped=sum(s._b2_slots_skipped for s in self._shards),
         )
         return out
 

@@ -300,6 +300,10 @@ class DeviceStore(BaseStorage):
         self._alloc(self._capacity)
         self._size = 0  # high-water mark of used slots (tombstones included)
         self._tombstones = 0
+        # Slots kernel B2 scored and left out (past the high-water mark) on
+        # the grouped bitplane path, over the store's life: host integers.
+        self._b2_slots_scanned = 0
+        self._b2_slots_skipped = 0
         self._slot_of: dict[int, int] | None = {} if dedupe else None
         # Bumped on every mutation; snapshot_query_fn closures check it
         # (writes land in place, so a stale closure would see new data).
@@ -344,6 +348,14 @@ class DeviceStore(BaseStorage):
 
     def _group(self) -> int:
         return min(self.group, self._capacity)
+
+    def _live_slots(self) -> int:
+        """Slots kernel B2 scores on the grouped bitplane path: the
+        high-water mark rounded up to whole groups (at least one). Every
+        slot past it is dead; tombstoned and filtered-out slots inside it
+        are scored and masked."""
+        g = self._group()
+        return min(self._capacity, max(g, -(-self._size // g) * g))
 
     def _use_grouped(self) -> bool:
         return (
@@ -956,9 +968,12 @@ class DeviceStore(BaseStorage):
                 word_bits=self._packed_word_bits(), **kw
             )
         self._ensure_planes()
+        live = self._live_slots()
+        self._b2_slots_scanned += live
+        self._b2_slots_skipped += self._capacity - live
         return hamming_topk_core(
             self._planes, tie_x, self._planes_rows(qw), qw, rows,
-            num_perm=p, sig_t=self._sig_t, **kw
+            num_perm=p, sig_t=self._sig_t, live=live, **kw
         )
 
     def _query_cascade_dev(self, qw: torch.Tensor, k: int, where=None):
@@ -1786,6 +1801,8 @@ class DeviceStore(BaseStorage):
                 else None
             ),
             "rerank_truncations": self._rerank_truncations,
+            "b2_slots_scanned": self._b2_slots_scanned,
+            "b2_slots_skipped": self._b2_slots_skipped,
         }
 
     def state_arrays(self) -> dict[str, np.ndarray]:

@@ -769,3 +769,40 @@ def test_chunked_hamming_core_on_the_gpu_matches_the_cpu_and_b2(q, dev, rng):
         for a, b in zip(cpu[0], got):
             np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(cpu[1][0], cpu[0][0])
+
+
+def test_b2_over_the_live_prefix_on_the_gpu(dev, rng, monkeypatch):
+    """A 2^20-slot store filled to 590,000 (a live prefix ending inside a
+    256-slot tile) at Q=10,000: B2's group maxima over the prefix are the
+    full launch's first columns bit for bit, and the store's ids and
+    distances equal its full-capacity path's."""
+    from lshrs_tpu_torch.storage.device import DeviceStore
+
+    n, q, cap = 590_000, 10_000, 1 << 20
+    store = DeviceStore(num_bands=16, rows_per_band=16, dim=64, initial_capacity=cap,
+                        enable_hamming=True, device=dev)
+    words = rng.integers(0, 1 << 16, (n, 16), dtype=np.uint32)
+    store.add_signature_batch(rng.permutation(4 * n)[:n], words)
+    store.remove_indices(store.state_arrays()["ids"][::97].tolist())
+    qw = words[rng.integers(0, n, q)] ^ rng.integers(0, 1 << 16, (q, 16), dtype=np.uint32) & 0x0101
+
+    hamming, ids = store.query_hamming(qw, 10)
+    live, group = store._live_slots(), store._group()
+    assert store._capacity == cap and live == 590_016 and live % 256
+    st = store.stats()
+    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (live, cap - live)
+
+    qbits = store._planes_rows(torch.from_numpy(qw.view(np.int32)).to(dev))
+    kw = dict(group=group, scale=gm.key_scale(cap), num_perm=256)
+    full = gm.hamming_group_max_keys(store._planes, store._tie, qbits, **kw)
+    prefix = gm.hamming_group_max_keys(store._planes[:live], store._tie[:live], qbits, **kw)
+    assert torch.equal(prefix, full[:, : live // group])
+    del full, prefix
+
+    before = gm.hamming_group_max_keys.launches
+    monkeypatch.setattr(store, "_live_slots", lambda: cap)
+    full_hamming, full_ids = store.query_hamming(qw, 10)
+    assert gm.hamming_group_max_keys.launches == before + 1
+    np.testing.assert_array_equal(ids, full_ids)
+    np.testing.assert_array_equal(hamming, full_hamming)
+    assert (ids[:, 0] >= 0).all()

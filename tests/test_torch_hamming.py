@@ -206,3 +206,155 @@ def test_b2_num_perm_is_the_true_width(rng):
     assert not torch.equal(gm.hamming_group_max_keys(padded[0], tie, padded[1], **kw), want)
     with pytest.raises(ValueError, match="num_perm"):
         gm.hamming_group_max_keys(planes, tie, qbits, num_perm=31, **kw)
+
+
+# ---------------------------------------------------------------------------
+# B2 over the store's live prefix: the same answers as the full-capacity launch
+# ---------------------------------------------------------------------------
+
+LIVE_KW = dict(num_bands=8, rows_per_band=8, dim=16, chunk_size=128, initial_capacity=1024,
+               enable_hamming=True)
+
+
+def _fill(stores, hasher, rng, n, base=0):
+    X = rng.standard_normal((n, LIVE_KW["dim"])).astype(np.float32)
+    ids = (base + rng.permutation(10 * n)[:n]).astype(np.int64)
+    words = hasher.hash_batch_words_host(X)
+    for store in stores:
+        store.add_signature_batch(ids, words)
+    return ids, X
+
+
+def _live_state(name, stores, hasher, rng):
+    """Fill the store pair into the named state: ``(vectors, filter spec, k)``."""
+    from lshrs_tpu.storage import IdFilter as JaxFilter
+    from lshrs_tpu_torch import IdFilter
+
+    n = {"one_vector": 1, "under_a_group": 40, "one_group": 64, "capacity_less_one": 1023,
+         "full": 1024, "past_growth": 1025, "k_past_live": 40}.get(name, 576)
+    ids, X = _fill(stores, hasher, rng, 900 if name == "cleared" else n)
+    where, k = None, 10
+    if name in ("deleted", "compacted"):
+        gone = np.concatenate([ids[-30:], ids[:500:7]])
+        for store in stores:
+            store.remove_indices(gone.tolist())
+            if name == "compacted":
+                store.compact()
+    elif name == "cleared":
+        for store in stores:
+            store.clear()
+        ids, X = _fill(stores, hasher, rng, 300, base=10**6)
+    elif name == "filtered":
+        spec = (ids[::3].tolist(), ids[:60:2].tolist())
+        where = JaxFilter(*spec), IdFilter(*spec)
+    elif name == "k_past_live":
+        k = 200
+    return X, where, k
+
+
+LIVE_STATES = ["one_vector", "under_a_group", "one_group", "half", "capacity_less_one", "full",
+               "past_growth", "deleted", "compacted", "cleared", "filtered", "k_past_live"]
+
+
+@pytest.mark.parametrize("state", LIVE_STATES)
+def test_b2_over_the_live_prefix_matches_the_full_launch(state, rng, monkeypatch):
+    """The grouped bitplane path scores only the store's live prefix: its
+    ids and distances equal the full-capacity launch's and the reference
+    store's, bit for bit, in every fill state; B2's group maxima over the
+    prefix are the full launch's first columns."""
+    from lshrs_tpu.storage.device import DeviceStore as JaxStore
+    from lshrs_tpu_torch.ops import group_max as gm
+    from lshrs_tpu_torch.storage.device import DeviceStore as TorchStore
+
+    hasher = LSHHasher(num_bands=8, rows_per_band=8, dim=LIVE_KW["dim"], seed=5)
+    js, ts = JaxStore(**LIVE_KW), TorchStore(device="cpu", **LIVE_KW)
+    X, where, k = _live_state(state, (js, ts), hasher, rng)
+    jf, tf = where if where is not None else (None, None)
+    qx = X[rng.integers(0, len(X), 24)] + 0.3 * rng.standard_normal((24, X.shape[1]))
+    qx[0] = X[-1]
+    qw = hasher.hash_batch_words_host(qx.astype(np.float32))
+
+    cap, live = ts._capacity, ts._live_slots()
+    assert live % ts._group() == 0 and ts._size <= live <= cap
+    assert (live == cap) == (state in ("full", "capacity_less_one"))
+    th, ti = ts.query_hamming(qw, k, where=tf)
+    jh, ji = js.query_hamming(qw, k, where=jf)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(th, jh)
+    served = ts.snapshot_query_fn(k, mode="hamming", where=tf)(qw).numpy()
+    np.testing.assert_array_equal(served, np.asarray(js.snapshot_query_fn(k, mode="hamming", where=jf)(qw)))
+    if state == "k_past_live":
+        assert (ti[:, len(X):] == -1).all() and (th[:, len(X):] == 8 * 8 + 1).all()
+
+    # The core on the store's own tensors, prefix against whole capacity.
+    qwt = torch.from_numpy(qw.view(np.int32).copy())
+    ids_x, tie_x = ts._filtered_ids_tie(tf)
+    qbits = ts._planes_rows(qwt)
+    rows = ts._refine_rows() if tf is None else None
+    kw = dict(k=min(k, cap), group=ts._group(), narrow_r=ts._refine_narrow_r, num_perm=64,
+              sig_t=ts._sig_t, ids=ids_x)
+    for got, want in zip(
+        tham.hamming_topk_core(ts._planes, tie_x, qbits, qwt, rows, live=live, **kw),
+        tham.hamming_topk_core(ts._planes, tie_x, qbits, qwt, rows, **kw),
+    ):
+        assert torch.equal(got, want)
+    b2 = dict(group=ts._group(), scale=gm.key_scale(cap), num_perm=64)
+    full = gm.hamming_group_max_keys(ts._planes, tie_x, qbits, **b2)
+    prefix = gm.hamming_group_max_keys(ts._planes[:live], tie_x[:live], qbits, **b2)
+    assert torch.equal(prefix, full[:, : live // ts._group()])
+    assert (full[:, live // ts._group():] <= 0).all()
+
+    # The store with B2 launched over every slot, as before the prefix.
+    monkeypatch.setattr(ts, "_live_slots", lambda: cap)
+    np.testing.assert_array_equal(ts.query_hamming(qw, k, where=tf)[1], ti)
+    np.testing.assert_array_equal(ts.query_hamming(qw, k, where=tf)[0], th)
+    np.testing.assert_array_equal(ts.snapshot_query_fn(k, mode="hamming", where=tf)(qw).numpy(), served)
+
+
+def test_hamming_core_refuses_a_live_extent_off_the_groups(rng):
+    planes = torch.from_numpy((2 * rng.integers(0, 2, (256, 32)) - 1).astype(np.int8))
+    tie = tscan.global_tie_core(torch.from_numpy(rng.permutation(256).astype(np.int32)))
+    qw = torch.zeros((2, 1), dtype=torch.int32)
+    for live in (0, 48, 320):
+        with pytest.raises(ValueError, match="live"):
+            tham.hamming_topk_core(planes, tie, planes[:2].clone(), qw, None, k=3, group=64,
+                                   sig_t=qw.new_zeros((1, 256)), ids=tie, live=live)
+
+
+def test_b2_slot_counters(rng):
+    """``stats()`` counts the slots B2 scored and skipped per launch of the
+    grouped bitplane path: the dead tail is skipped, a full store skips
+    none, and ``LSHRS.serving_fn(mode="hamming")`` reports them too."""
+    from lshrs_tpu import LSHRS as JaxLSHRS
+    from lshrs_tpu_torch import LSHRS as TorchLSHRS
+    from lshrs_tpu_torch.storage.device import DeviceStore as TorchStore
+
+    hasher = LSHHasher(num_bands=8, rows_per_band=8, dim=LIVE_KW["dim"], seed=5)
+    ts = TorchStore(device="cpu", **LIVE_KW)
+    st = ts.stats()
+    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (0, 0)
+    _, X = _fill([ts], hasher, rng, 576)
+    qw = hasher.hash_batch_words_host(X[:5])
+    ts.query_hamming(qw, 4)
+    ts.snapshot_query_fn(4, mode="hamming")(qw)
+    st = ts.stats()
+    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (2 * 576, 2 * 448)
+    ts.query_topk(qw, 4)  # collision ranking: B1, not counted
+    assert ts.stats()["b2_slots_scanned"] == 2 * 576
+    full = TorchStore(device="cpu", **LIVE_KW)
+    _fill([full], hasher, rng, 1024)
+    full.query_hamming(qw, 4)
+    full.snapshot_query_fn(4, mode="hamming")(qw)
+    st = full.stats()
+    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (2 * 1024, 0)
+
+    kw = dict(dim=24, num_perm=64, num_bands=8, rows_per_band=8, hash_mode="host", seed=13,
+              engine="hamming", initial_capacity=4096)
+    jl, tl = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
+    Y = rng.standard_normal((1500, 24)).astype(np.float32)
+    jl.index(list(range(1500)), Y)
+    tl.index(list(range(1500)), Y)
+    got = tl.serving_fn(top_k=10, mode="hamming")(Y[:30])
+    np.testing.assert_array_equal(got, np.asarray(jl.serving_fn(top_k=10, mode="hamming")(Y[:30])))
+    st = tl.stats()["index"]
+    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (1536, 4096 - 1536)
