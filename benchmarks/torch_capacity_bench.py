@@ -3,9 +3,10 @@
 The port of ``benchmarks/capacity_bench.py`` to ``lshrs_tpu_torch``: the
 same arguments, the same points and the same JSON row per (slots, engine).
 It measures how the exact engine and the refinement cascade
-(``hamming_cascade``) serve as capacity grows past 2**22 slots, where the
-exact engine's grouped key no longer fits int32 (256 bits) and the store
-ranks through the chunked cores (plain torch, no kernel).
+(``hamming_cascade``) serve as capacity grows past 2**22 slots, where one
+B2 launch's key no longer fits int32 (256 bits) and the store ranks its
+bitplanes in 2**22-slot blocks (B2 once a block, merged exactly); the
+chunked cores (plain torch, no kernel) serve what is forced onto them.
 
 Method, as the reference's: gaussian vectors are drawn ON THE CARD in
 512k-row chunks (``torch.randn`` from a ``torch.Generator`` seeded from
@@ -32,16 +33,16 @@ Usage, from the repository root:
 
 Prints one JSON line per (slots, engine), then ``{"summary": [rows]}``.
 Each row adds to the reference's fields the card (``nvidia-smi`` name and
-power limit), the ranking route (``grouped``, ``chunked`` or
+power limit), the ranking route (``grouped``, ``blocked``, ``chunked`` or
 ``cascade``), the kernel launches of the timed trials, the point's
 seconds and its peak device bytes. A failed check (a self-match below
-1.0, ids out of range, a kernel launch missing on the grouped or cascade
-route, or one made on the chunked route) prints
+1.0, ids out of range, a kernel launch missing on the grouped, blocked or
+cascade route, or one made on the chunked route) prints
 ``{"check_failed": ...}`` on stderr and exits 1; nothing falls back.
 
 ``--smoke`` keeps every width and route and cuts sizes: 2**14 slots (the
 grouped exact engine, kernel B2) and 2**23 (the smallest capacity whose
-exact engine is chunked), exact, cascade128:8192 and cascade64:8192,
+exact engine runs in blocks), exact, cascade128:8192 and cascade64:8192,
 256-query batches, two of them, two trials and a 256-row probe.
 ``--device cpu`` runs the same paths on CPU tensors (the kernels' plain
 versions: no launch is counted, no time means anything; 2**23 slots are
@@ -208,21 +209,25 @@ def planted_probe(px: np.ndarray) -> np.ndarray:
 
 def route_of(store, cascade: int) -> str:
     """How the store ranks by Hamming: the cascade, the grouped exact
-    engine (kernel B2) or the chunked cores (no kernel)."""
+    engine (kernel B2 once), the same in blocks past one launch's key
+    (B2 once a block) or the chunked cores (no kernel)."""
     from lshrs_tpu_torch.storage import device as store_mod
 
     if cascade:
         return "cascade"
-    grouped = store._capacity % store.group == 0 and store_mod.supports_hamming_grouped(
-        NUM_PERM, store._capacity)
+    aligned = store._capacity % store.group == 0
+    if aligned and store._capacity > store_mod.hamming_block_slots(NUM_PERM):
+        return "blocked"
+    grouped = aligned and store_mod.supports_hamming_grouped(NUM_PERM, store._capacity)
     return "grouped" if grouped else "chunked"
 
 
 def check_launches(before: dict, route: str, cascade: int, calls: int, device) -> dict | None:
     """The timed trials' launches; on a device that counts them: B2 at
-    least once a call on the grouped route, B2 at the cascade's coarse
-    packing (width and offset = the prefix bits) at least once a call on
-    the cascade, and no kernel at all on the chunked route."""
+    least once a call on the grouped route and twice on the blocked one,
+    B2 at the cascade's coarse packing (width and offset = the prefix
+    bits) at least once a call on the cascade, and no kernel at all on the
+    chunked route."""
     if not counts_launches(device):
         return None
     after = kernel_launches()
@@ -232,6 +237,8 @@ def check_launches(before: dict, route: str, cascade: int, calls: int, device) -
         if key[0] == cascade and key[1] == cascade) if cascade else 0
     if route == "grouped":
         check(got[B2] >= calls, "grouped_exact_launches_b2", got)
+    elif route == "blocked":
+        check(got[B2] >= 2 * calls, "blocked_exact_launches_b2", got)
     elif route == "cascade":
         check(got["cascade_coarse"] >= calls, f"cascade{cascade}_launches_b2_coarse", got)
     else:
@@ -254,8 +261,8 @@ def run_point(n_slots, engine, hasher, q, n_batches, trials, rng, *, device, gro
     store, build_s, probe_x = build_store(n_slots, hasher, cascade=cascade, refine=refine,
                                           device=device, group=group, seed=seed, probe=probe)
 
-    # Past the int32 key ceiling the exact engine is chunked; the
-    # reference splits its batch there (its chunk pools grow with Q).
+    # Past the int32 key ceiling the reference's exact engine is chunked
+    # and splits its batch there (its chunk pools grow with Q).
     if dev_batch is None and not cascade and store._capacity >= CHUNKED_DEV_BATCH_CAPACITY:
         dev_batch = CHUNKED_DEV_BATCH
     serve = store.snapshot_query_fn(TOP_K, mode="hamming", wire="words", dev_batch=dev_batch)

@@ -221,14 +221,15 @@ then runs these phases and prints JSON lines as it goes:
     plain ``jnp``), which rank what the grouped engines cannot:
     - exact_8m, right after sharded_16m: cascade_8m's 2**23 words (taken
       before its delete) through ``add_signature_batch`` into
-      ``LSHRS(engine="auto")`` on planes and a ``hamming_storage="packed"``
-      twin, past the int32 key ceiling: self-match 1.0; planes == packed ==
+      ``LSHRS(engine="auto")`` on planes (B2 in two 2**22-slot blocks,
+      merged) and a ``hamming_storage="packed"`` twin (chunked), past the
+      int32 key ceiling: self-match 1.0; planes == packed ==
       a two-shard copy (2**22-row shards ranked by B2 / B3, merged exactly)
       on 1,024 planted queries; the chunked cores called on the 1M store's
       tensors == its grouped B2 engine bit for bit; planted recall@10
       beside cascade_8m's and cascade_8m's agreement@10 with exact ranking;
-      QPS at Q=8192 in turns with cascade_8m (B2 and B3 launched 0 times
-      there); a profile per storage; a 1% delete (no deleted id returned);
+      QPS at Q=8192 in turns with cascade_8m (B2 launched on planes only,
+      B3 never); a profile per storage; a 1% delete (no deleted id returned);
       memory;
     - bands128_100k, after topp_lifecycle_100k: that index rehashed to
       128 x 2 = 256 bits (the chunked collision core at 131,072 slots):
@@ -3144,8 +3145,9 @@ def chunked_equals_grouped_1m(s1m: dict, qx: np.ndarray) -> tuple[bool, int]:
 def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
     """cascade_8m's 2**23 words (taken before its delete) in an
     ``engine="auto"`` planes index and a packed twin: past the int32 key
-    ceiling both rank exactly through the chunked fallbacks (no kernel),
-    held to a two-shard copy whose 2**22-row shards rank by B2 / B3."""
+    ceiling the planes rank exactly by B2 in two blocks and the packed
+    words through the chunked fallback (no kernel), held to a two-shard
+    copy whose 2**22-row shards rank by B2 / B3."""
     from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, hamming_packed_group_max_keys
     from lshrs_tpu_torch.ops.hamming import supports_hamming_grouped
     from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
@@ -3201,7 +3203,7 @@ def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
 
     # QPS at Q=8192 in turns with cascade_8m (two trials of one batch: a
     # chunked batch takes seconds); B2 / B3 launches over the timed serving
-    # of the chunked route.
+    # of the blocked and the chunked route.
     queries = c8m["queries"][:1]
     qps, timed = {}, {}
     for name in ("planes", "packed", "cascade_8m", "cascade_8m", "packed", "planes"):
@@ -3234,11 +3236,11 @@ def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     for name, prof in profiles.items():
         emit("profile", card=label, rows=N_8M, batch=QPS_BATCH_1M, engine="hamming",
-             hamming_storage=name, route="chunked", **prof)
+             hamming_storage=name, route="blocked" if name == "planes" else "chunked", **prof)
     assert sm == {"planes": 1.0, "packed": 1.0}, sm
     assert planes_eq_packed and grouped_eq and grouped_b2 > 0, (planes_eq_packed, grouped_eq)
     assert all(o["equal"] and o["kernel_launches"] > 0 for o in oracle.values()), oracle
-    assert all(n == [0, 0] for n in timed.values()), timed
+    assert timed["planes"][0] > 0 and timed["planes"][1] == 0 and timed["packed"] == [0, 0], timed
     for name, a in after.items():
         assert a["deleted_ids_returned"] == 0 and a["survivor_self_match"] == 1.0, (name, a)
         assert a["tombstones"] == deleted.size, (name, a)
@@ -3680,7 +3682,7 @@ def phase_recall_capacity_smoke(label: str) -> dict:
     routes = [(r["slots"], r["engine"], r["route"]) for r in rows["torch_capacity_bench"]]
     assert routes == [
         (slots, engine, route)
-        for slots, exact in ((1 << 14, "grouped"), (N_8M, "chunked"))
+        for slots, exact in ((1 << 14, "grouped"), (N_8M, "blocked"))
         for engine, route in (("exact", exact), ("cascade128:8192", "cascade"),
                               ("cascade64:8192", "cascade"))
     ], routes

@@ -58,10 +58,12 @@ Same public contract as the reference for these paths: validation
 messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
 rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 ``_AUTO_HAMMING_CAPACITY`` slots (pinned and persisted), and
-buffer-restore-on-failed-flush semantics. Stores past the grouped
-engines' int32 key ceiling (more than 2**22 slots at 256 bits), with more
-than 64 bands or below the group size rank through the chunked fallbacks,
-as the reference's do.
+buffer-restore-on-failed-flush semantics. Past one kernel launch's int32
+key ceiling (more than 2**22 slots at 256 bits) Hamming ranking on the
+bitplanes runs kernel B2 block by block and merges the blocks exactly;
+the other stores the grouped engines cannot take (packed words or
+asymmetric ranking past the ceiling, more than 64 bands, below the group
+size) rank through the chunked fallbacks, as the reference's do.
 """
 
 from __future__ import annotations
@@ -155,9 +157,9 @@ class LSHRS:
             cascade (``DeviceStore``): Hamming ranking scans only the first
             ``hamming_cascade`` bits' planes with kernel B2 and re-ranks
             the top ``hamming_cascade_refine`` slots per query at full
-            width. Approximate; it serves capacities past the single-pass
-            engines' int32 key ceiling (2^22 slots at 256 bits). 0
-            (default) is off; needs Hamming ranking.
+            width. Approximate, at any capacity (past 2^22 slots at 256
+            bits the exact engine ranks in blocks of 2^22). 0 (default) is
+            off; needs Hamming ranking.
         hash_mode: ``"device"`` (hash on the device) or ``"host"`` (NumPy
             sgemm or the native C FWHT; ships the dense signature wire).
             One path per instance, so stored and query signatures agree

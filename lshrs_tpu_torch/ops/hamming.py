@@ -26,16 +26,22 @@ prefix of the bitplanes, refines a deep pool of groups at full width, and
 keys its refine in int64 past the int32 ceiling: it serves stores the
 single-pass engines cannot.
 
+Past that ceiling (more than 2**22 slots at 256 bits) the bitplanes rank
+exactly in blocks (:func:`hamming_topk_blocked_core`): kernel B2 and the
+selection tail run on each block of :func:`hamming_block_slots` slots,
+keyed by block-local ties that pack into int32, and one exact merge by
+``(hamming asc, id asc)`` (:func:`merge_hamming_pools`, span
+``lshrs.merge``) joins the blocks' lists.
+
 The chunked cores (:func:`hamming_topk_chunked_core` on bitplanes,
 :func:`hamming_topk_packed_chunked_core` on packed words) serve the rest
-of those stores exactly: past the int32 ceiling (more than 2**22 slots at
-256 bits) and below the group. Their keys embed each slot's id rank
-within its chunk (`lshrs_tpu_torch.ops.scan.chunked_topk_scan`); the
-dots are one exact int8 product per step (:func:`int8_dots`,
-``torch._int_mm``). The packed core unpacks each step's words to +-1
-planes over all ``32 * BW`` bits, where ``hamming = (32 * BW - dot) / 2``
-(unused high bits are zero on both sides and agree), so no bitplane array
-outlives a step.
+of those stores exactly: packed words past the int32 ceiling, and stores
+below the group. Their keys embed each slot's id rank within its chunk
+(`lshrs_tpu_torch.ops.scan.chunked_topk_scan`); the dots are one exact
+int8 product per step (:func:`int8_dots`, ``torch._int_mm``). The packed
+core unpacks each step's words to +-1 planes over all ``32 * BW`` bits,
+where ``hamming = (32 * BW - dot) / 2`` (unused high bits are zero on
+both sides and agree), so no bitplane array outlives a step.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from lshrs_tpu_torch.ops.scan import (
     chunked_topk_scan,
     gather_refine_group_rows,
     gather_refine_slots,
+    merge_topk_pools,
     select_top_groups,
 )
 from lshrs_tpu_torch.utils.trace import span
@@ -62,6 +69,8 @@ __all__ = [
     "cascade_coarse_keys",
     "cascade_coarse_scale",
     "cascade_slice_queries",
+    "hamming_block_slots",
+    "hamming_topk_blocked_core",
     "hamming_topk_cascade_core",
     "hamming_topk_chunked_core",
     "hamming_topk_core",
@@ -71,6 +80,7 @@ __all__ = [
     "hamming_refine_gather",
     "hamming_select_terms",
     "int8_dots",
+    "merge_hamming_pools",
     "plane_width",
     "popcount32",
     "refine_hamming",
@@ -82,6 +92,14 @@ __all__ = [
 def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
     """True when the (scaled-dot, tie) key packs into a positive int32."""
     return (num_perm + 2) * key_scale(capacity) < 2**31
+
+
+def hamming_block_slots(num_perm: int) -> int:
+    """The most slots one B2 launch can key in int32: the largest power of
+    two ``B`` with ``(num_perm + 2) * B < 2**31`` (2**22 at 256 bits). A
+    store past it ranks in blocks of ``B`` slots
+    (:func:`hamming_topk_blocked_core`)."""
+    return 1 << (((2**31 - 1) // (num_perm + 2)).bit_length() - 1)
 
 
 def cascade_coarse_scale(p_pre: int, capacity: int) -> tuple[int, int]:
@@ -148,6 +166,7 @@ def hamming_topk_core(
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
     live: int | None = None,
+    refine_capacity: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
@@ -171,6 +190,11 @@ def hamming_topk_core(
             full launch's, and the groups left out could only have keyed
             at or below 0, under every alive key: the answer is the full
             launch's.
+        refine_capacity: the C of the store whose ties ``sig_rows`` holds,
+            when ``planes`` is one block of it
+            (:func:`hamming_topk_blocked_core`): the refine keys the
+            table's global ties at that C's scale, in int64 past the int32
+            ceiling. ``None``: the ties are ``tie``'s.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -186,7 +210,8 @@ def hamming_topk_core(
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids, capacity=c,
+        sig_t=sig_t, tie=tie, ids=ids, capacity=refine_capacity or c,
+        wide_ok=refine_capacity is not None,
     )
 
 
@@ -236,20 +261,21 @@ def hamming_topk_packed_core(
 
 def hamming_select_terms(
     ng: int, group: int, *, p: int, k: int, m_groups: int | None = None,
-    capacity: int | None = None,
+    capacity: int | None = None, wide_ok: bool = False,
 ) -> tuple[int, int, bool]:
     """``(m, scale, wide)`` of the Hamming selection tail over ``ng``
     groups: the groups refined, the refine key's scale, and whether that
-    key is int64 (``(p + 2) * key_scale(C)`` past int32, the cascade only:
-    the single-pass engines, ``m_groups=None``, refuse it). ``capacity``:
-    the store's C when the groups cover only its first slots (default
-    ``ng * group``); the ties, and so the scale, are C's."""
+    key is int64 (``(p + 2) * key_scale(C)`` past int32: the cascade, and
+    a block's refine of the global ties, ``wide_ok``; the other
+    single-pass calls, ``m_groups=None``, refuse it). ``capacity``: the
+    store's C when the groups cover only its first slots or one block
+    (default ``ng * group``); the ties, and so the scale, are C's."""
     scale = key_scale(ng * group if capacity is None else capacity)
     wide = (p + 2) * scale >= 2**31
-    if wide and m_groups is None:
+    if wide and m_groups is None and not wide_ok:
         raise NotImplementedError(
             "the single-pass Hamming engines' keys are int32: past the "
-            "ceiling rank with hamming_topk_chunked_core or "
+            "ceiling rank in blocks (hamming_topk_blocked_core) or with "
             "hamming_topk_packed_chunked_core"
         )
     return min(k if m_groups is None else max(k, m_groups), ng), scale, wide
@@ -312,7 +338,7 @@ def hamming_final_topk(hamming, cand_tie, cand_ids, *, p, k, scale, wide):
 
 def _select_refine(
     gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
-    m_groups=None, capacity=None,
+    m_groups=None, capacity=None, wide_ok=False,
 ):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order. Its stages:
@@ -333,10 +359,11 @@ def _select_refine(
     are int32.
 
     ``capacity``: the store's C when ``gmax`` covers only its first
-    slots (:func:`hamming_topk_core`'s ``live``).
+    slots (:func:`hamming_topk_core`'s ``live``) or one block of it
+    (``refine_capacity``, with ``wide_ok``).
     """
     m, scale, wide = hamming_select_terms(
-        gmax.shape[1], group, p=p, k=k, m_groups=m_groups, capacity=capacity
+        gmax.shape[1], group, p=p, k=k, m_groups=m_groups, capacity=capacity, wide_ok=wide_ok
     )
     top_groups = select_top_groups(gmax, m)
     with span("lshrs.refine"):
@@ -347,6 +374,93 @@ def _select_refine(
         hamming = refine_hamming(cwords, qcmp)
     with span("lshrs.topk"):
         return hamming_final_topk(hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide)
+
+
+def merge_hamming_pools(
+    hamming: torch.Tensor, ids: torch.Tensor, *, p: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact ``(hamming asc, id asc)`` top-k of pooled ``(Q, n)``
+    Hamming lists (a blocked store's blocks, a sharded store's shards),
+    ``(hamming (Q, k), ids (Q, k))`` int32; empty entries (id -1) carry
+    hamming ``p + 1``. Span ``lshrs.merge``."""
+    with span("lshrs.merge"):
+        # merge_topk_pools ranks positive keys: similarity P + 1 - distance.
+        sim, m_ids = merge_topk_pools(torch.where(ids >= 0, p + 1 - hamming, 0), ids, k=k)
+        return torch.where(m_ids >= 0, p + 1 - sim, p + 1), m_ids
+
+
+def hamming_topk_blocked_core(
+    planes: torch.Tensor,
+    block_tie: torch.Tensor,
+    qbits: torch.Tensor,
+    qwords: torch.Tensor,
+    sig_rows: torch.Tensor | None,
+    *,
+    k: int,
+    group: int,
+    block: int,
+    live: int,
+    narrow_r: int = 0,
+    num_perm: int | None = None,
+    sig_t: torch.Tensor | None = None,
+    ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (hamming asc, id asc) past the int32 key ceiling:
+    :func:`hamming_topk_core` on each block of ``block`` slots, then one
+    merge (:func:`merge_hamming_pools`).
+
+    Each block's B2 key is ``scaled * key_scale(block) + block tie``, which
+    packs into int32 when ``block`` is at most :func:`hamming_block_slots`;
+    the block's answer is its exact top-k. Ties of distance between blocks
+    go to the smaller id in the merge, as the global order has it; an id
+    stored twice (``dedupe=False``) keeps slot order, the blocks entering
+    the merge's stable sorts in slot order.
+
+    Args:
+        planes: ``(C, Pp)`` int8 store bitplanes, C a multiple of ``block``.
+        block_tie: ``(C,)`` int32 block-local tie keys,
+            ``key_scale(block) - 1 - rank`` of each slot's id among its
+            block's slots, -1 dead (filtered-out slots too).
+        qbits / qwords: as for :func:`hamming_topk_core`.
+        sig_rows: the store's grouped refine table, with its global ties
+            (each block refines them at C's scale, int64 past the
+            ceiling); ``None`` refines slot by slot from ``sig_t``,
+            ``block_tie`` and ``ids`` (filtered queries).
+        block: slots per block, a power of two and a multiple of ``group``.
+        live: score the first ``live`` slots (a positive multiple of
+            ``group``; every slot past them dead). Blocks past it are not
+            launched; the last one launched scores its live part.
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
+        id -1 and hamming P+1.
+    """
+    c, p = planes.shape
+    p = p if num_perm is None else num_perm
+    if block % group or c % block or not 0 < live <= c or live % group:
+        raise ValueError(
+            f"block={block} must be a multiple of group={group} dividing C={c}, and "
+            f"live={live} a positive multiple of the group up to C"
+        )
+    if not supports_hamming_grouped(p, block):
+        raise ValueError(f"a block of {block} slots keys past int32 at P={p}")
+    parts = []
+    for s in range(0, live, block):
+        e = s + block
+        parts.append(hamming_topk_core(
+            planes[s:e], block_tie[s:e], qbits, qwords,
+            None if sig_rows is None else sig_rows[s // group : e // group],
+            k=k, group=group, narrow_r=narrow_r, num_perm=p,
+            sig_t=None if sig_t is None else sig_t[:, s:e],
+            ids=None if ids is None else ids[s:e],
+            live=min(live, e) - s, refine_capacity=None if sig_rows is None else c,
+        ))
+    if len(parts) == 1:
+        return parts[0]
+    return merge_hamming_pools(
+        torch.cat([h for h, _ in parts], dim=1), torch.cat([i for _, i in parts], dim=1),
+        p=p, k=k,
+    )
 
 
 # A cascade batch goes through in query slices that keep the coarse

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from lshrs_tpu_torch.ops.asymmetric import QMAX
+from lshrs_tpu_torch.ops.hamming import merge_hamming_pools
 from lshrs_tpu_torch.ops.rerank import merge_topp_pools
 from lshrs_tpu_torch.ops.scan import merge_topk_pools
 from lshrs_tpu_torch.parallel.mesh import Mesh
@@ -332,12 +333,7 @@ class ShardedDeviceStore(DeviceStore):
             shard._query_hamming_dev(qw.to(shard.device), k, cols)
             for shard, cols in zip(self._shards, self._shard_columns(where))
         ]
-        hamming, ids = self._gathered(parts)
-        # merge_topk_pools ranks positive keys: similarity P + 1 - distance.
-        sim, m_ids = merge_topk_pools(
-            torch.where(ids >= 0, p + 1 - hamming, 0), ids, k=self._k_eff(k)
-        )
-        return torch.where(m_ids >= 0, p + 1 - sim, p + 1), m_ids
+        return merge_hamming_pools(*self._gathered(parts), p=p, k=self._k_eff(k))
 
     def _query_asymmetric_dev(self, qc: torch.Tensor, k: int, where=None, qmax: int = QMAX):
         """Asymmetric top-k (B2 at each shard's own shift, exact re-rank),
@@ -458,6 +454,7 @@ class ShardedDeviceStore(DeviceStore):
             payload_bytes=sum(s.stats()["payload_bytes"] for s in self._shards),
             b2_slots_scanned=sum(s._b2_slots_scanned for s in self._shards),
             b2_slots_skipped=sum(s._b2_slots_skipped for s in self._shards),
+            b2_blocks=sum(s._b2_blocks for s in self._shards),
         )
         return out
 

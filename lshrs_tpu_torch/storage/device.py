@@ -12,6 +12,8 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         tie      (capacity,)                int32  global id-rank key
         ranks    (capacity,)                int32  id rank within each chunk
                                                    (chunked routes, lazy)
+        block_tie (capacity,)               int32  tie key within each B2 block
+                                                   (blocked Hamming, lazy)
         planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily); Pp is num_perm
@@ -31,20 +33,26 @@ Hamming ranking, on int8 bitplanes (kernel B2) or on the packed words
 themselves (kernel B3), all exact against the reference ordering;
 asymmetric ranking of quantised query coordinates against the bitplanes
 (B2 with a shifted key, exact re-rank); the refinement cascade (B2 on a
-bitplane prefix, a deep full-width refine with int64 keys), which serves
-capacities past the int32 key ceiling; and,
+bitplane prefix, a deep full-width refine with int64 keys), approximate;
+and,
 with ``store_vectors``, top-p cosine rerank over the resident payload by
 the full or the gather engine (`lshrs_tpu_torch.ops.rerank`, the gather
 engine on kernel B1). Collision counting and top-p take multi-probe query
 words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
 every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
 the kernels read the filtered tie column, refinement gathers per slot).
-Stores the grouped engines cannot take — a selection key past int32
-(more than 2**22 slots at 256 bits), more than 64 bands, a capacity
-below the group — rank through the chunked fallbacks, as the reference's
-do (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the Hamming and
-asymmetric chunked cores: keys embed each slot's id rank within its
-chunk, ``ranks``, computed on first use). They launch no kernel.
+Past the int32 key ceiling of one B2 launch (more than 2**22 slots at 256
+bits) Hamming ranking on the bitplanes runs in blocks
+(`lshrs_tpu_torch.ops.hamming.hamming_topk_blocked_core`): kernel B2
+and the selection tail once per block of live slots, keyed by
+block-local ties (``block_tie``, computed on first use), and one exact
+merge. The other stores the grouped engines cannot take — packed words,
+asymmetric ranking or a collision key past int32, more than 64 bands, a
+capacity below the group — rank through the chunked fallbacks, as the
+reference's do (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the
+Hamming and asymmetric chunked cores: keys embed each slot's id rank
+within its chunk, ``ranks``, computed on first use). They launch no
+kernel.
 
 Mutation model: appends write the tail in place; re-ingesting an id
 overwrites its slot (upsert); deleting an id tombstones its slot (id -1)
@@ -88,6 +96,8 @@ from lshrs_tpu_torch.ops.asymmetric import (
 from lshrs_tpu_torch.ops.bucketed import bucketed_topk, build_bucket_index
 from lshrs_tpu_torch.ops.hamming import (
     cascade_slice_queries,
+    hamming_block_slots,
+    hamming_topk_blocked_core,
     hamming_topk_cascade_core,
     hamming_topk_chunked_core,
     hamming_topk_core,
@@ -111,6 +121,7 @@ from lshrs_tpu_torch.ops.scan import (
     compute_chunk_ranks,
     count_step,
     global_tie_core,
+    key_scale,
     supports_fast_path,
 )
 from lshrs_tpu_torch.storage.base import BaseStorage, BucketOperation
@@ -301,9 +312,11 @@ class DeviceStore(BaseStorage):
         self._size = 0  # high-water mark of used slots (tombstones included)
         self._tombstones = 0
         # Slots kernel B2 scored and left out (past the high-water mark) on
-        # the grouped bitplane path, over the store's life: host integers.
+        # the grouped bitplane path, and its launches there (one per block),
+        # over the store's life: host integers.
         self._b2_slots_scanned = 0
         self._b2_slots_skipped = 0
+        self._b2_blocks = 0
         self._slot_of: dict[int, int] | None = {} if dedupe else None
         # Bumped on every mutation; snapshot_query_fn closures check it
         # (writes land in place, so a stale closure would see new data).
@@ -324,6 +337,9 @@ class DeviceStore(BaseStorage):
         self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         # Id ranks within each chunk: only the chunked routes read them.
         self._ranks: torch.Tensor | None = None
+        # (block, tie keys within each block of that many slots): only the
+        # blocked Hamming route reads them.
+        self._block_tie: tuple[int, torch.Tensor] | None = None
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
         # Sorted per-band bucket index (query_mode="bucket"), lazy.
         self._bucket_index: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -430,6 +446,7 @@ class DeviceStore(BaseStorage):
         """Mark selection keys stale after a mutation (recomputed lazily)."""
         self._ranks_dirty = True
         self._ranks = None
+        self._block_tie = None
         self._refine = None
         self._bucket_index = None
         self._generation += 1
@@ -450,6 +467,18 @@ class DeviceStore(BaseStorage):
         if self._ranks is None:
             self._ranks = compute_chunk_ranks(self._ids, chunk=self.chunk)
         return self._ranks
+
+    def _block_ties(self, block: int) -> torch.Tensor:
+        """The blocked Hamming route's tie keys, ``key_scale(block) - 1 -
+        rank`` of each slot's id within its block of ``block`` slots (-1
+        dead), computed on first use after a mutation (call under the lock;
+        span ``lshrs.store.ranks``)."""
+        if self._block_tie is None or self._block_tie[0] != block:
+            with span("lshrs.store.ranks"):
+                ranks = compute_chunk_ranks(self._ids, chunk=block)
+                tie = torch.where(self._ids >= 0, key_scale(block) - 1 - ranks, -1)
+                self._block_tie = (block, tie.to(torch.int32))
+        return self._block_tie[1]
 
     def _ensure_planes(self) -> None:
         """Build the int8 bitplanes on first Hamming use (call under the
@@ -631,6 +660,12 @@ class DeviceStore(BaseStorage):
                 with span("lshrs.store.append"):
                     self._append(ids32, words, vecs)
 
+    # Rows the fused build hashes at a time: the projection and the
+    # bitpack's int64 temporaries take ~5.5 KB a row at 256 bits, so a
+    # slice holds ~1.4 GB and a 6.4M-row batch fits the card beside its
+    # upload.
+    _BUILD_HASH_ROWS = 1 << 18
+
     def add_vectors_batch(
         self,
         indices: Sequence[int] | np.ndarray,
@@ -654,8 +689,9 @@ class DeviceStore(BaseStorage):
 
         The hash is the formulation the device query path uses
         (`lshrs_tpu_torch.hash.hasher.hash_words`), so stored and query
-        signatures agree bit for bit. Batches with duplicate or
-        already-present ids take the upsert path. With ``store_vectors``
+        signatures agree bit for bit; it runs in slices of
+        ``_BUILD_HASH_ROWS`` rows, so its temporaries stay bounded. Batches
+        with duplicate or already-present ids take the upsert path. With ``store_vectors``
         the same device tensor becomes the payload rows (one upload per
         batch).
         """
@@ -676,10 +712,15 @@ class DeviceStore(BaseStorage):
                     f"vectors must have shape ({ids_np.size}, {self.dim}); "
                     f"received {tuple(x.shape)}"
                 )
-            words = hash_words(
-                x, proj_t, num_bands=self.num_bands, rows_per_band=self.rows_per_band,
-                hash_family=hash_family,
-            )
+            step = self._BUILD_HASH_ROWS
+            parts = [
+                hash_words(
+                    x[s : s + step], proj_t, num_bands=self.num_bands,
+                    rows_per_band=self.rows_per_band, hash_family=hash_family,
+                )
+                for s in range(0, x.shape[0], step)
+            ]
+            words = parts[0] if len(parts) == 1 else torch.cat(parts)
         self.add_signature_batch(ids_np, words, x if self.store_vectors else None)
 
     def _needs_upsert(self, ids32: np.ndarray) -> bool:
@@ -947,10 +988,14 @@ class DeviceStore(BaseStorage):
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
         k_eff = max(1, min(k, self._capacity))
-        if not (aligned and supports_hamming_grouped(p, self._capacity)):
+        planes = self.hamming_storage == "planes" and not self.hamming_cascade
+        # Bitplanes past one B2 launch's int32 key rank in blocks.
+        block = hamming_block_slots(p)
+        blocked = planes and aligned and self._capacity > block
+        if not (blocked or (aligned and supports_hamming_grouped(p, self._capacity))):
             # The chunked fallbacks. A cascade store's planes are a prefix
             # only, so it ranks on the packed words, as the reference's does.
-            if self.hamming_storage == "packed" or self.hamming_cascade:
+            if not planes:
                 return hamming_topk_packed_chunked_core(
                     self._sig_t, ids_x, self._chunk_ranks(), qw,
                     num_perm=p, k=k_eff, chunk=self.chunk,
@@ -962,7 +1007,7 @@ class DeviceStore(BaseStorage):
             )
         rows = self._refine_rows() if where is None else None
         kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
-        if self.hamming_storage == "packed":
+        if not planes:
             return hamming_topk_packed_core(
                 self._sig_t, tie_x, qw, rows, num_perm=p,
                 word_bits=self._packed_word_bits(), **kw
@@ -971,9 +1016,19 @@ class DeviceStore(BaseStorage):
         live = self._live_slots()
         self._b2_slots_scanned += live
         self._b2_slots_skipped += self._capacity - live
-        return hamming_topk_core(
-            self._planes, tie_x, self._planes_rows(qw), qw, rows,
-            num_perm=p, sig_t=self._sig_t, live=live, **kw
+        if not blocked:
+            self._b2_blocks += 1
+            return hamming_topk_core(
+                self._planes, tie_x, self._planes_rows(qw), qw, rows,
+                num_perm=p, sig_t=self._sig_t, live=live, **kw
+            )
+        self._b2_blocks += -(-live // block)
+        btie = self._block_ties(block)
+        if where is not None:  # the filter's dead slots, as in tie_x
+            btie = torch.where(tie_x >= 0, btie, -1)
+        return hamming_topk_blocked_core(
+            self._planes, btie, self._planes_rows(qw), qw, rows,
+            block=block, live=live, num_perm=p, sig_t=self._sig_t, **kw
         )
 
     def _query_cascade_dev(self, qw: torch.Tensor, k: int, where=None):
@@ -1640,6 +1695,7 @@ class DeviceStore(BaseStorage):
         """Drop the device tensors (the store is unusable afterwards)."""
         with self._lock:
             self._sig_t = self._sig_rows = self._ids = self._tie = self._ranks = None
+            self._block_tie = None
             self._planes = self._refine = self._bucket_index = None
             self._payload = self._pnorm = self._pscale = None
 
@@ -1803,6 +1859,7 @@ class DeviceStore(BaseStorage):
             "rerank_truncations": self._rerank_truncations,
             "b2_slots_scanned": self._b2_slots_scanned,
             "b2_slots_skipped": self._b2_slots_skipped,
+            "b2_blocks": self._b2_blocks,
         }
 
     def state_arrays(self) -> dict[str, np.ndarray]:

@@ -254,7 +254,7 @@ def test_a_launch_on_the_chunked_route_fails_the_run(monkeypatch, capsys):
 @pytest.mark.cuda
 def test_smoke_on_the_card():
     """``--smoke`` on the GPU: every engine at 2**14 and 2**23 slots, B2 on
-    the grouped and the cascade routes, no kernel on the chunked one."""
+    the grouped, the blocked and the cascade routes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA (kernel B2 has no CPU build)")
     rc, lines = _main(["--smoke"])
@@ -262,7 +262,7 @@ def test_smoke_on_the_card():
     rows = lines[:-1]
     assert [(r["slots"], r["route"]) for r in rows] == [
         (1 << 14, "grouped"), (1 << 14, "cascade"), (1 << 14, "cascade"),
-        (1 << 23, "chunked"), (1 << 23, "cascade"), (1 << 23, "cascade")]
+        (1 << 23, "blocked"), (1 << 23, "cascade"), (1 << 23, "cascade")]
     for r in rows:
         assert r["self_match"] == 1.0
         assert r["device"]["name"] == torch.cuda.get_device_name(0)

@@ -806,3 +806,40 @@ def test_b2_over_the_live_prefix_on_the_gpu(dev, rng, monkeypatch):
     np.testing.assert_array_equal(ids, full_ids)
     np.testing.assert_array_equal(hamming, full_hamming)
     assert (ids[:, 0] >= 0).all()
+
+
+def test_blocked_hamming_past_the_key_ceiling_on_the_gpu(dev, rng, monkeypatch):
+    """A 2^23-slot store of 4,500,000 random signatures, past one B2
+    launch's int32 key (2^22 slots at 256 bits), at Q=256: B2 runs once
+    per 2^22-slot block (twice, the second block 305,728 live slots), no
+    chunked core runs, and the ids and distances equal the store's
+    chunked route's, unfiltered and under ``where=``."""
+    import lshrs_tpu_torch.storage.device as device_mod
+    from lshrs_tpu_torch.storage.device import DeviceStore
+    from lshrs_tpu_torch.storage.filter import IdFilter
+
+    n, q = 4_500_000, 256
+    store = DeviceStore(num_bands=16, rows_per_band=16, initial_capacity=1 << 23,
+                        enable_hamming=True, device=dev)
+    words = rng.integers(0, 1 << 16, (n, 16), dtype=np.uint32)
+    ids = rng.permutation(2 * n)[:n]
+    store.add_signature_batch(ids, words)
+    store.remove_indices(ids[::101].tolist())
+    qw = words[rng.integers(0, n, q)] ^ rng.integers(0, 1 << 16, (q, 16), dtype=np.uint32) & 0x0101
+    allow = IdFilter(allowed_ids=ids[::3])
+
+    before = gm.hamming_group_max_keys.launches
+    got = [store.query_hamming(qw, 10), store.query_hamming(qw, 10, where=allow)]
+    assert gm.hamming_group_max_keys.launches - before == 4
+    st = store.stats()
+    assert store._capacity == 1 << 23 and st["b2_blocks"] == 4 and store._ranks is None
+    assert store._live_slots() - (1 << 22) == 305_728
+    with monkeypatch.context() as mp:
+        mp.setattr(device_mod, "hamming_block_slots", lambda p: 1 << 40)
+        mp.setattr(device_mod, "supports_hamming_grouped", lambda *a: False)
+        want = [store.query_hamming(qw, 10), store.query_hamming(qw, 10, where=allow)]
+    assert gm.hamming_group_max_keys.launches - before == 4
+    for (gh, gi), (wh, wi) in zip(got, want):
+        np.testing.assert_array_equal(gh, wh)
+        np.testing.assert_array_equal(gi, wi)
+    store.close()

@@ -118,6 +118,32 @@ def test_an_index_records_append_and_growth_and_the_first_query_the_lazy_tables(
     assert _names(_child(index, "lshrs.store.append")[3]) == []
 
 
+@pytest.mark.parametrize("shards", [None, 2])
+def test_a_blocked_or_sharded_store_merges_inside_the_engine(shards, monkeypatch):
+    """Past one B2 launch's key ceiling (the block size patched down to
+    1,024 slots: three blocks of a 4,096-slot store) the engine runs B2 and
+    the selection tail once a block, then ``lshrs.merge``; a sharded store
+    merges its shards' lists in the same span."""
+    import lshrs_tpu_torch.storage.device as device_mod
+
+    if shards is None:
+        monkeypatch.setattr(device_mod, "hamming_block_slots", lambda p: 1024)
+    lsh, x = _index("hamming", initial_capacity=1024, shards=shards)
+    lsh.index(np.arange(N), x)
+    serve = lsh.serving_fn(top_k=5)
+    serve(x[:Q])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        serve(x[:Q])
+    (call,) = _tree(prof)
+    assert _names(call[3]) == CLOSURE
+    engine_span = _child(call, "lshrs.engine")
+    parts = 3 if shards is None else 2
+    assert _names(engine_span[3]) == ROUTES["hamming"][1] * parts + ["lshrs.merge"]
+    merge = engine_span[3][-1]
+    assert engine_span[1] <= merge[1] <= merge[2] <= engine_span[2] and not merge[3]
+    assert lsh.stats()["index"]["b2_blocks"] == 2 * parts
+
+
 @pytest.mark.parametrize("mode", ["asymmetric", "topp"])
 def test_the_other_closures_record_the_same_spans(mode):
     lsh = LSHRS(dim=DIM, num_perm=64, num_bands=8, rows_per_band=8, engine="hamming",
