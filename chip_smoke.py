@@ -18,7 +18,14 @@ then runs these phases and prints JSON lines as it goes:
    16 and 32 x 8, at Q=1, 17 and 512, streamed at BW=32 and 64, and at
    the packed_4m batch, Q=8192 over 2**22 slots, where it must also equal
    B2 on the same words' planes), ragged query counts, dead slots and
-   every template instantiation;
+   every template instantiation; and the Hamming tail's kernel
+   (hamming_refine_topk: gather, popcount and top-k of the selected
+   groups) in hamming and ids, at the benchmark cells' shape (Q=10,000,
+   10 groups of 64 slots, 8 narrow words, top-10) with 2**21- and
+   2**23-scale ties (int64 keys), at k=1, 100 and 128 (padded), the
+   8,192-candidate limit, groups 16 to 128 and 1 to 64 words; the
+   plain references of later phases take the plain tail (their paths
+   launch the kernel);
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -38,7 +45,8 @@ then runs these phases and prints JSON lines as it goes:
 6. times: each kernel against its plain version (median CUDA-event ms)
    and its bound (the least time the card could take: operations at their
    peak rate or bytes at the HBM rate, whichever is larger; B3 counted
-   as the int8 product it runs, 2 * Q * C * K), B2 and B3 also against
+   as the int8 product it runs, 2 * Q * C * K; the refine by the bytes
+   it must read), B2 and B3 also against
    ``torch._int_mm`` on the same +-1 operands (the library yardstick,
    never called by the port), B3 beside B2 on the same words' planes,
    serving QPS at 100k, 1M and 4M (packed, and planes on the same
@@ -369,6 +377,35 @@ H100_INT32_OPS = 64 * 132 * 1.98e9
 # The kernels' wrappers in lshrs_tpu_torch.ops.group_max: B1, B2, B3.
 KERNELS = ("group_max_keys", "hamming_group_max_keys", "hamming_packed_group_max_keys")
 B1, B2, B3 = KERNELS
+# The Hamming tail's kernel (lshrs_tpu_torch.ops.hamming): the group rows'
+# gather, the popcount and the exact top-k of the candidates in one launch.
+REFINE = "hamming_refine_topk"
+# Its cases (Q, m, group, nw, k, C, tie bits), each held bit for bit to its
+# plain version on the card; the named ones are timed, each a line of the
+# kernels record. The benchmark cells' shape at glove100.batch's 2**21
+# slots and at a wiki6m4.batch block (2**22 slots of the 2**23-slot store's
+# ties: int64 keys), ann-benchmarks' k=100, the 8,192-candidate limit and
+# word-aligned words.
+REFINE_TIMED = {
+    (10_000, 10, 64, 8, 10, 1 << 21, 21): REFINE,
+    (10_000, 10, 64, 8, 10, 1 << 22, 23): f"{REFINE}@wiki_block",
+    (10_000, 100, 64, 8, 100, 1 << 21, 21): f"{REFINE}@k100",
+    (2_048, 64, 128, 8, 128, 1 << 21, 21): f"{REFINE}@limit",
+    (10_000, 10, 64, 16, 10, 1 << 21, 21): f"{REFINE}@aligned",
+}
+# Checked, not timed: the 1M serving batch, the cascade's 128-group pool
+# at 2**23 slots (int64 keys), k past the candidates (padding), k=1,
+# groups of 16 and 32, one word, the widest 64 words, a ragged Q.
+REFINE_CHECKED = [
+    (QPS_BATCH_1M, 10, 64, 8, 10, N_1M, 20),
+    (2_048, 128, 64, 8, 10, 1 << 23, 23),
+    (1_000, 1, 64, 8, 128, 1 << 16, 16),
+    (1_000, 10, 64, 8, 1, 1 << 16, 16),
+    (1_000, 40, 16, 8, 10, 1 << 16, 16),
+    (1_000, 20, 32, 1, 10, 1 << 16, 16),
+    (300, 100, 64, 64, 100, 1 << 18, 18),
+    (777, 10, 64, 8, 10, 1 << 21, 21),
+]
 # B1's timed multi-probe and 32-word cases (num_bands, words, C, Q, probes),
 # each one a line of the kernels record.
 B1_VARIANTS = {
@@ -521,6 +558,13 @@ def kernel_bound(name: str, shape: dict) -> tuple[float, str]:
         bw, probes = shape["bands"], shape["probes"]
         ops, rate = q * c * probes * bw, H100_INT32_OPS
         nbytes = 4 * (bw * c + c + q * probes * bw + q * (c // 64))
+    elif name.startswith(REFINE):
+        # Every candidate's words and tie, the picked ids, the group
+        # indices, the query words and the output, once; a POPC a word, on
+        # a quarter of the int32 lanes.
+        m, group, nw, k = shape["m"], shape["group"], shape["nw"], shape["k"]
+        ops, rate = q * m * group * nw, H100_INT32_OPS / 4
+        nbytes = q * (4 * m * group * (nw + 1) + 8 * m + 4 * nw + 12 * k)
     elif name.startswith("hamming_group_max_keys"):  # B2: int8 multiply-adds
         from lshrs_tpu_torch.ops.hamming import plane_width
 
@@ -812,6 +856,75 @@ def check_b2_shards(gen, dev, err: dict, timed: dict) -> None:
             del planes, tie, qb
 
 
+def refine_inputs(gen, *, q, m, group, nw, c, tie_bits, dev):
+    """A grouped refine table of ``c`` random ``nw``-word slots on the card
+    (distinct ids, ties ``2**tie_bits - 1 - rank`` of the id, ~5% dead),
+    ``m`` distinct groups a query, and queries near a slot of their first
+    group: ``(qcmp, sig_rows, top_groups)``."""
+    ng = c // group
+    words = torch.randint(-(2**31), 2**31, (c, nw), dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+    ids = torch.randperm(c, device=dev, generator=gen).to(torch.int32)
+    rank = torch.empty_like(ids)
+    rank[ids.argsort()] = torch.arange(c, dtype=torch.int32, device=dev)
+    tie = (1 << tie_bits) - 1 - rank
+    tie = torch.where(torch.rand(c, device=dev, generator=gen) < 0.05, -1, tie)
+    rows = torch.cat([words, tie[:, None], ids[:, None]], dim=1)
+    rows = rows.reshape(ng, group, nw + 2).transpose(1, 2).reshape(ng, (nw + 2) * group)
+    top = torch.rand(q, ng, device=dev, generator=gen).topk(m, dim=1).indices
+    slot = top[:, 0] * group + torch.randint(0, group, (q,), device=dev, generator=gen)
+    noise = torch.randint(-(2**31), 2**31, (3, q, nw), dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+    qcmp = words[slot] ^ (noise[0] & noise[1] & noise[2])
+    return qcmp.contiguous(), rows.contiguous(), top.contiguous()
+
+
+def check_refine(gen, dev, err: dict, timed: dict) -> None:
+    """Phase 2's checks of kernel hamming_refine_topk against its plain
+    version at :data:`REFINE_TIMED` and :data:`REFINE_CHECKED`, hamming and
+    ids bit for bit; adds to ``err`` and ``timed`` as :func:`phase_kernels`
+    does."""
+    from lshrs_tpu_torch.ops.hamming import hamming_refine_topk, hamming_refine_topk_ref
+
+    for case in [*REFINE_TIMED, *REFINE_CHECKED]:
+        q, m, group, nw, k, c, tie_bits = case
+        args = refine_inputs(gen, q=q, m=m, group=group, nw=nw, c=c, tie_bits=tie_bits, dev=dev)
+        kw = dict(group=group, p=32 * nw, k=k, scale=1 << tie_bits)
+        got = hamming_refine_topk(*args, **kw)
+        torch.cuda.synchronize()
+        want = hamming_refine_topk_ref(*args, **kw)
+        diff = int((got[0].long() - want[0].long()).abs().max())
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        err[REFINE] = max(err[REFINE], diff)
+        emit("kernel_check", kernel=REFINE, Q=q, m=m, group=group, nw=nw, k=k, C=c,
+             tie_bits=tie_bits, equal=ok, max_abs_err=diff)
+        if not ok:
+            raise AssertionError(f"{REFINE} kernel != plain at {case}")
+        if case in REFINE_TIMED:
+            timed[REFINE_TIMED[case]] = (
+                lambda a=args, kw=kw: hamming_refine_topk(*a, **kw),
+                lambda a=args, kw=kw: hamming_refine_topk_ref(*a, **kw),
+                dict(C=c, Q=q, m=m, group=group, nw=nw, k=k, tie_bits=tie_bits), None,
+            )
+        del args, got, want
+
+
+@contextlib.contextmanager
+def plain_refine():
+    """Inside the block the Hamming tail takes its plain stages on the card
+    (kernel hamming_refine_topk's limits refuse every call), and must not
+    launch the kernel."""
+    from lshrs_tpu_torch.ops import hamming as hamming_mod
+
+    real, before = hamming_mod.refine_kernel_fits, hamming_mod.hamming_refine_topk.launches
+    hamming_mod.refine_kernel_fits = lambda **_: False
+    try:
+        yield
+    finally:
+        hamming_mod.refine_kernel_fits = real
+    assert hamming_mod.hamming_refine_topk.launches == before, "the plain tail launched the kernel"
+
+
 def check_b3(sig_t, tie, qw, kw, err: dict) -> float:
     """Kernel B3 against its plain version on the card, bit-exact (the
     plain version over query slices of at most 2**33 / C rows); adds to
@@ -900,7 +1013,7 @@ def phase_kernels(rng, dev) -> dict:
         key_scale,
     )
 
-    err = {name: 0 for name in KERNELS}
+    err = {name: 0 for name in (*KERNELS, REFINE)}
     timed = {}
     b1_cases = [  # (num_bands, words, C, Q, probes)
         (16, 1, 131072, 1024, 1),
@@ -1047,6 +1160,7 @@ def phase_kernels(rng, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     check_b2_packings(gen, dev, err, timed)
     check_b2_shards(gen, dev, err, timed)
+    check_refine(gen, dev, err, timed)
 
     # B3 on random full 32-bit words (word_bits 32, K = 512 at BW = 16),
     # drawn on the host with NumPy.
@@ -1370,8 +1484,9 @@ def phase_packed_4m(seed: int) -> dict:
             else:
                 gmax = hamming_group_max_keys_ref(planes, store._tie, store._planes_rows(qw),
                                                   group=group, scale=scale, num_perm=p)
-            return _select_refine(gmax, qw, store._refine_rows(), p=p, k=TOP_K, group=group,
-                                  narrow_r=narrow_r)
+            with plain_refine():
+                return _select_refine(gmax, qw, store._refine_rows(), p=p, k=TOP_K,
+                                      group=group, narrow_r=narrow_r)
 
     rng = np.random.default_rng(seed + 3)
     qx = keep[:CARRY_QUERIES] + 0.5 * rng.standard_normal((CARRY_QUERIES, DIM), dtype=np.float32)
@@ -2343,8 +2458,8 @@ def cascade_lsh(capacity: int):
 
 
 def cascade_checks(lsh, qwords) -> bool:
-    """Ids and distances of the cascade through kernel B2 == through B2's
-    plain version with the same refine, on the card. The store must slice
+    """Ids and distances of the cascade through kernels B2 and
+    hamming_refine_topk == through their plain versions, on the card. The store must slice
     a batch as phase 2 assumed when it held B2 at the path's shapes."""
     from lshrs_tpu_torch.ops import hamming as hamming_mod
     from lshrs_tpu_torch.ops.bitpack import narrow_words_count
@@ -2354,7 +2469,7 @@ def cascade_checks(lsh, qwords) -> bool:
     assert (store._group(), store._cascade_groups(TOP_K), nw) == (
         64, CASCADE_REFINE // 64, narrow_words_count(NUM_BANDS, ROWS)), (store._group(), nw)
     got = store.query_hamming(qwords, TOP_K)
-    with plain_b2(hamming_mod):
+    with plain_b2(hamming_mod), plain_refine():
         plain = store.query_hamming(qwords, TOP_K)
     return bool(np.array_equal(got[0], plain[0]) and np.array_equal(got[1], plain[1]))
 
@@ -3820,15 +3935,17 @@ def main() -> int:
     kern = phase_kernels(np.random.default_rng(args.seed), dev)
 
     # Each path of the main path: counters from zero, read right after.
-    from lshrs_tpu_torch.ops import group_max
+    from lshrs_tpu_torch.ops import group_max, hamming
 
     wrappers = {name: getattr(group_max, name) for name in KERNELS}
-    launches = {name: 0 for name in KERNELS}
+    wrappers[REFINE] = hamming.hamming_refine_topk
+    launches = {name: 0 for name in wrappers}
 
     b1_by_shape = {}
     b1_by_template = {}
     b2_by_packing = {}
     b3_by_shape = {}
+    refine_by_shape = {}
     packings = b2_packings()
 
     def drive(path: str, kernel, run, *, b1_shapes=(), b1_templates=(), b2_packings=()):
@@ -3843,6 +3960,7 @@ def main() -> int:
         wrappers[B1].launches_by_template.clear()
         wrappers[B2].launches_by_packing.clear()
         wrappers[B3].launches_by_shape.clear()
+        wrappers[REFINE].launches_by_shape.clear()
         t0 = time.perf_counter()
         out = run()
         seconds = time.perf_counter() - t0
@@ -3851,12 +3969,16 @@ def main() -> int:
         templates = dict(wrappers[B1].launches_by_template)
         by_packing = dict(wrappers[B2].launches_by_packing)
         b3_shapes = dict(wrappers[B3].launches_by_shape)
+        refine_shapes = dict(wrappers[REFINE].launches_by_shape)
         emit("launches", path=path, seconds=seconds, **counts,
              b1_by_bw_probes={f"{bw}x{t}": n for (bw, t), n in sorted(shapes.items())},
              b1_by_template={f"{bw}x{w}x{t}": n for (bw, w, t), n in sorted(templates.items())},
              b2_by_width_offset_shift={f"{w}/{o}/{h}": n for (w, o, h), n in sorted(by_packing.items())},
-             b3_by_bw_word_bits={f"{bw}x{wb}": n for (bw, wb), n in sorted(b3_shapes.items())})
+             b3_by_bw_word_bits={f"{bw}x{wb}": n for (bw, wb), n in sorted(b3_shapes.items())},
+             refine_by_nw_group={f"{nw}x{g}": n for (nw, g), n in sorted(refine_shapes.items())})
         b3_by_shape[path] = b3_shapes
+        for shape, n in refine_shapes.items():
+            refine_by_shape[shape] = refine_by_shape.get(shape, 0) + n
         for name in ([kernel] if isinstance(kernel, str) else kernel):
             if counts[name] == 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3880,9 +4002,11 @@ def main() -> int:
         return out
 
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
-    s1m = drive("1m", "hamming_group_max_keys", lambda: phase_1m(args.seed))
+    # The Hamming paths' tails launch hamming_refine_topk: the 1M serving
+    # batch (the benchmark cells' shape), the packed store and the cascade.
+    s1m = drive("1m", (B2, REFINE), lambda: phase_1m(args.seed))
     ref1m = s1m["answers"]
-    s4m = drive("packed_4m", "hamming_packed_group_max_keys", lambda: phase_packed_4m(args.seed),
+    s4m = drive("packed_4m", (B3, REFINE), lambda: phase_packed_4m(args.seed),
                 b2_packings=[packings["symmetric"]])
     if b3_by_shape["packed_4m"].get((NUM_BANDS, ROWS), 0) == 0:
         raise AssertionError("B3 was not launched at (BW, word_bits)=(16, 16) on packed_4m")
@@ -3927,7 +4051,7 @@ def main() -> int:
          "and its round trip through the host")
 
     # Phase 10 (the cascade half): the 4M words, then 2**23 slots.
-    c4m = drive("cascade_4m", B2, lambda: phase_cascade_4m(s4m, args.seed, label),
+    c4m = drive("cascade_4m", (B2, REFINE), lambda: phase_cascade_4m(s4m, args.seed, label),
                 b2_packings=[packings["cascade_coarse"]])
     # Phase 13 (sharding), on the words of the 100k and 4M cells.
     drive("sharded_parity_4m", KERNELS, lambda: phase_sharded_parity_4m(s100, s4m, args.seed, label),
@@ -4074,6 +4198,8 @@ def main() -> int:
                                    "lshrs_tpu/ops/pallas_scan.py:314"),
         "hamming_packed_group_max_keys": ("lshrs_tpu_torch/csrc/hamming_packed_group_max.cu",
                                           "lshrs_tpu/ops/pallas_scan.py:267"),
+        # the reference's tail is plain XLA (no Pallas kernel): _select_refine
+        REFINE: ("lshrs_tpu_torch/csrc/hamming_refine_topk.cu", "lshrs_tpu/ops/hamming.py:202"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4152,6 +4278,17 @@ def main() -> int:
          "max_abs_err": kern["max_abs_err"][B2],
          **{key: times[B2_CASCADE64_8M][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # hamming_refine_topk once more per timed case its (nw, group) the main
+    # path launched: its launches there.
+    src, rep = sources[REFINE]
+    for (_, _, group, nw, _, _, _), variant in REFINE_TIMED.items():
+        n = refine_by_shape.get((nw, group), 0)
+        if n and variant != REFINE:
+            kernels.append(
+                {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": n, "max_abs_err": kern["max_abs_err"][REFINE],
+                 **{key: times[variant][key] for key in
+                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit("done", script_s=time.perf_counter() - start)
     print(label)
     print(json.dumps({"kernels": kernels}))

@@ -31,6 +31,7 @@ _SOURCES = (
     "collision_group_max.cu",
     "hamming_group_max.cu",
     "hamming_packed_group_max.cu",
+    "hamming_refine_topk.cu",
 )
 # Included by the sources above (B2 and B3 share its pipeline): part of the
 # library's hash, so an edited header rebuilds too.
@@ -54,6 +55,9 @@ _SIGNATURES = {
     # sig_t, tie, qop, out, q, c, bw, word_bits, kp, group, scale,
     # num_perm, stream
     "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    # rows, groups, qwords, out_h, out_ids, q, m, nw, group, k, p,
+    # tie_bits, stream
+    "lshrs_hamming_refine_topk": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

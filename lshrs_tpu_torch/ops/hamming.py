@@ -20,6 +20,9 @@ Selection reuses the group-max exactness argument of the collision scan
 alive keys are distinct, and the top-k groups by max hold every true
 top-k slot. The refine stage recomputes those candidates' distances from
 the packed words (XOR + popcount), gathered from the grouped refine table.
+Within its limits one kernel (:func:`hamming_refine_topk`) does the
+gather, the popcount and the final top-k in one launch; filtered queries
+(no table) and larger pools take the plain stages, its CPU version.
 
 The refinement cascade (:func:`hamming_topk_cascade_core`) runs B2 on a
 prefix of the bitplanes, refines a deep pool of groups at full width, and
@@ -46,10 +49,15 @@ both sides and agree), so no bitplane array outlives a step.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from lshrs_tpu_torch.ops.bitpack import narrow_words_count, pack_words_narrow, popcount32
 from lshrs_tpu_torch.ops.group_max import (
+    _check,
+    _device,
+    _launch,
     hamming_group_max_keys,
     hamming_packed_group_max_keys,
     key_scale,
@@ -78,12 +86,16 @@ __all__ = [
     "hamming_topk_packed_core",
     "hamming_final_topk",
     "hamming_refine_gather",
+    "hamming_refine_topk",
+    "hamming_refine_topk_ref",
     "hamming_select_terms",
     "int8_dots",
     "merge_hamming_pools",
     "plane_width",
     "popcount32",
     "refine_hamming",
+    "refine_kernel_fits",
+    "refine_query_words",
     "supports_hamming_grouped",
     "unpack_bitplanes",
 ]
@@ -167,6 +179,7 @@ def hamming_topk_core(
     ids: torch.Tensor | None = None,
     live: int | None = None,
     refine_capacity: int | None = None,
+    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
@@ -195,6 +208,7 @@ def hamming_topk_core(
             (:func:`hamming_topk_blocked_core`): the refine keys the
             table's global ties at that C's scale, in int64 past the int32
             ceiling. ``None``: the ties are ``tie``'s.
+        routes: counts the selection tail's route (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -211,7 +225,7 @@ def hamming_topk_core(
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r,
         sig_t=sig_t, tie=tie, ids=ids, capacity=refine_capacity or c,
-        wide_ok=refine_capacity is not None,
+        wide_ok=refine_capacity is not None, routes=routes,
     )
 
 
@@ -227,6 +241,7 @@ def hamming_topk_packed_core(
     narrow_r: int = 0,
     ids: torch.Tensor | None = None,
     word_bits: int = 32,
+    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc) from the PACKED words only.
 
@@ -244,6 +259,7 @@ def hamming_topk_packed_core(
         word_bits: the low bits of each word that hold signature bits
             (kernel B3 multiplies ``BW * word_bits`` columns); higher bits
             must be zero on both sides.
+        routes: counts the selection tail's route (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -255,7 +271,7 @@ def hamming_topk_packed_core(
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids,
+        sig_t=sig_t, tie=tie, ids=ids, routes=routes,
     )
 
 
@@ -289,19 +305,21 @@ def hamming_refine_gather(
     selected groups, from the grouped refine table (narrow-packed when
     ``narrow_r`` is nonzero: the queries are packed alike) or, without
     ``sig_rows``, slot by slot from ``sig_t``, ``tie`` and ``ids``."""
-    bw = qwords.shape[1]
     if sig_rows is None:
         if sig_t is None or ids is None:
             raise ValueError("sig_rows=None (per-slot refinement) needs sig_t and ids")
         return (*gather_refine_slots(sig_t, tie, ids, top_groups, group=group), qwords)
-    if narrow_r:
-        # narrow packing applies only when words-per-band == 1
-        nw = narrow_words_count(bw, narrow_r)
-        qcmp = pack_words_narrow(qwords, num_bands=bw, rows_per_band=narrow_r)
-    else:
-        nw = bw
-        qcmp = qwords
-    return (*gather_refine_group_rows(sig_rows, top_groups, bw=nw, group=group), qcmp)
+    qcmp = refine_query_words(qwords, narrow_r)
+    return (*gather_refine_group_rows(sig_rows, top_groups, bw=qcmp.shape[1], group=group), qcmp)
+
+
+def refine_query_words(qwords: torch.Tensor, narrow_r: int = 0) -> torch.Tensor:
+    """The queries' ``(Q, nw)`` words in the grouped refine table's packing:
+    narrow-packed when ``narrow_r`` is nonzero (one word a band, so BW is
+    the band count), else ``qwords`` itself."""
+    if not narrow_r:
+        return qwords
+    return pack_words_narrow(qwords, num_bands=qwords.shape[1], rows_per_band=narrow_r)
 
 
 def refine_hamming(cwords: torch.Tensor, qcmp: torch.Tensor) -> torch.Tensor:
@@ -336,14 +354,141 @@ def hamming_final_topk(hamming, cand_tie, cand_ids, *, p, k, scale, wide):
     return out_h, sel_ids
 
 
+# The limits of kernel hamming_refine_topk: words a slot, slots a group,
+# k, and candidates a query (m * group).
+_REFINE_KERNEL_WORDS = 64
+_REFINE_KERNEL_GROUPS = (16, 32, 64, 128)
+_REFINE_KERNEL_K = 128
+_REFINE_KERNEL_CANDIDATES = 8192
+
+
+def refine_kernel_fits(*, nw: int, group: int, k: int, m: int) -> bool:
+    """True when :func:`hamming_refine_topk` takes the tail of ``m`` groups
+    of ``group`` slots of ``nw`` refine words at top-``k``."""
+    return (
+        0 < nw <= _REFINE_KERNEL_WORDS and group in _REFINE_KERNEL_GROUPS
+        and 0 < k <= _REFINE_KERNEL_K and 0 < m * group <= _REFINE_KERNEL_CANDIDATES
+    )
+
+
+def hamming_refine_topk_ref(qwords, sig_rows, top_groups, *, group, p, k, scale, narrow_r=0):
+    """Plain PyTorch version of kernel ``hamming_refine_topk`` (see
+    :func:`hamming_refine_topk`): the query words' packing
+    (:func:`refine_query_words`) and the three stages of the tail,
+    :func:`gather_refine_group_rows`, :func:`refine_hamming` and
+    :func:`hamming_final_topk`, its key in int64 where int32 cannot hold
+    it. Spans ``lshrs.refine`` (the packing, the gather and the popcount),
+    then ``lshrs.topk``."""
+    with span("lshrs.refine"):
+        qcmp = refine_query_words(qwords, narrow_r)
+        cwords, cand_tie, cand_ids = gather_refine_group_rows(
+            sig_rows, top_groups, bw=qcmp.shape[1], group=group
+        )
+        hamming = refine_hamming(cwords, qcmp)
+    with span("lshrs.topk"):
+        return hamming_final_topk(
+            hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=(p + 2) * scale >= 2**31,
+        )
+
+
+def hamming_refine_topk(
+    qwords: torch.Tensor,
+    sig_rows: torch.Tensor,
+    top_groups: torch.Tensor,
+    *,
+    group: int,
+    p: int,
+    k: int,
+    scale: int,
+    narrow_r: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Hamming tail after the group selection in one launch — kernel
+    ``hamming_refine_topk`` (CUDA source ``csrc/hamming_refine_topk.cu``):
+    gather the selected groups' rows, XOR-popcount them against the
+    queries, and take the exact ``(hamming asc, id asc)`` top-k of the
+    candidates, keyed in 64 bits.
+
+    Args:
+        qwords: ``(Q, BW)`` int32 query words, packed as the table is
+            (``narrow_r``) into ``nw`` words, at most 64.
+        sig_rows: ``(C // group, (nw + 2) * group)`` int32 grouped refine
+            table (`lshrs_tpu_torch.ops.scan.build_grouped_refine_rows`):
+            word-major rows, then the tie column (-1 dead; alive ties
+            distinct and below ``scale``), then the id column.
+        top_groups: ``(Q, m)`` int64 distinct group indices a query
+            (`lshrs_tpu_torch.ops.scan.select_top_groups`), ``m * group``
+            at most 8,192.
+        group: slots per group, 16, 32, 64 or 128.
+        p: signature bits P (at most 4,094).
+        k: answers a query, 1..128.
+        scale: the ties' ``key_scale(C)``, a power of two.
+        narrow_r: nonzero when the table is narrow-packed at that many
+            rows a band (:func:`refine_query_words`).
+
+    Returns:
+        ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry id
+        -1 and hamming ``p + 1`` (:func:`hamming_final_topk`'s, bit for
+        bit). CPU tensors take the plain version
+        (:func:`hamming_refine_topk_ref`, its spans ``lshrs.refine`` and
+        ``lshrs.topk``); CUDA tensors pack the query words and launch the
+        kernel in span ``lshrs.refine``, counted in ``launches`` and by
+        ``(nw, group)`` in ``launches_by_shape``.
+    """
+    q, bw = qwords.shape
+    m = top_groups.shape[1]
+    nw = narrow_words_count(bw, narrow_r) if narrow_r else bw
+    _check("qwords", qwords, torch.int32, (q, bw))
+    _check("sig_rows", sig_rows, torch.int32, (sig_rows.shape[0], (nw + 2) * group))
+    _check("top_groups", top_groups, torch.int64, (q, m))
+    if not refine_kernel_fits(nw=nw, group=group, k=k, m=m):
+        raise ValueError(
+            f"the refine kernel takes nw <= {_REFINE_KERNEL_WORDS}, group in "
+            f"{_REFINE_KERNEL_GROUPS}, k <= {_REFINE_KERNEL_K} and m * group <= "
+            f"{_REFINE_KERNEL_CANDIDATES}; got nw={nw}, group={group}, k={k}, m={m}"
+        )
+    if not 0 < p <= 4094 or scale <= 1 or scale & (scale - 1):
+        raise ValueError(f"p must be in 1..4094 and scale a power of two; got p={p}, scale={scale}")
+    dev = _device(qwords, sig_rows, top_groups)
+    if dev.type == "cpu":
+        return hamming_refine_topk_ref(qwords, sig_rows, top_groups, group=group, p=p, k=k,
+                                       scale=scale, narrow_r=narrow_r)
+    if not (sig_rows.is_contiguous() and top_groups.is_contiguous()):
+        raise ValueError("hamming_refine_topk: CUDA sig_rows and top_groups must be contiguous")
+    if sig_rows.data_ptr() % 16:
+        raise ValueError("hamming_refine_topk: sig_rows must be 16-byte aligned")
+    out_h = torch.empty((q, k), dtype=torch.int32, device=dev)
+    out_ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_h, out_ids
+    with span("lshrs.refine"):
+        qcmp = refine_query_words(qwords, narrow_r).contiguous()
+        _launch(
+            "lshrs_hamming_refine_topk", dev,
+            sig_rows.data_ptr(), top_groups.data_ptr(), qcmp.data_ptr(), out_h.data_ptr(),
+            out_ids.data_ptr(), q, m, nw, group, k, p, scale.bit_length() - 1,
+        )
+    hamming_refine_topk.launches += 1
+    hamming_refine_topk.launches_by_shape[nw, group] += 1
+    return out_h, out_ids
+
+
+hamming_refine_topk.launches = 0
+# The same launches, by (refine words nw, group).
+hamming_refine_topk.launches_by_shape = collections.Counter()
+
+
 def _select_refine(
     gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
-    m_groups=None, capacity=None, wide_ok=False,
+    m_groups=None, capacity=None, wide_ok=False, routes=None,
 ):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order. Its stages:
-    :func:`select_top_groups`, :func:`hamming_refine_gather`,
-    :func:`refine_hamming`, :func:`hamming_final_topk`.
+    :func:`select_top_groups`, then, on a grouped refine table, kernel
+    :func:`hamming_refine_topk` within :func:`refine_kernel_fits` (span
+    ``lshrs.refine`` alone on the card) and its plain version past them;
+    without the table :func:`hamming_refine_gather` and
+    :func:`refine_hamming` (span ``lshrs.refine``), then
+    :func:`hamming_final_topk` (span ``lshrs.topk``): the same answer.
 
     ``narrow_r`` nonzero means ``sig_rows`` is narrow-packed. Popcount is
     layout-agnostic — the narrow words hold exactly the same set bits — so
@@ -361,19 +506,30 @@ def _select_refine(
     ``capacity``: the store's C when ``gmax`` covers only its first
     slots (:func:`hamming_topk_core`'s ``live``) or one block of it
     (``refine_capacity``, with ``wide_ok``).
+
+    ``routes``: a counter that takes one count under ``"kernel"`` (the
+    kernel's wrapper) or ``"plain"`` (the plain tail).
     """
     m, scale, wide = hamming_select_terms(
         gmax.shape[1], group, p=p, k=k, m_groups=m_groups, capacity=capacity, wide_ok=wide_ok
     )
     top_groups = select_top_groups(gmax, m)
-    with span("lshrs.refine"):
-        cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
-            qwords, sig_rows, top_groups, group=group, narrow_r=narrow_r,
-            sig_t=sig_t, tie=tie, ids=ids,
-        )
-        hamming = refine_hamming(cwords, qcmp)
-    with span("lshrs.topk"):
-        return hamming_final_topk(hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide)
+    if sig_rows is None:
+        if routes is not None:
+            routes["plain"] += 1
+        with span("lshrs.refine"):
+            cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
+                qwords, None, top_groups, group=group, sig_t=sig_t, tie=tie, ids=ids,
+            )
+            hamming = refine_hamming(cwords, qcmp)
+        with span("lshrs.topk"):
+            return hamming_final_topk(hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide)
+    fused = refine_kernel_fits(nw=sig_rows.shape[1] // group - 2, group=group, k=k, m=m)
+    if routes is not None:
+        routes["kernel" if fused else "plain"] += 1
+    tail = hamming_refine_topk if fused else hamming_refine_topk_ref
+    return tail(qwords, sig_rows, top_groups, group=group, p=p, k=k, scale=scale,
+                narrow_r=narrow_r)
 
 
 def merge_hamming_pools(
@@ -404,6 +560,7 @@ def hamming_topk_blocked_core(
     num_perm: int | None = None,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
+    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc) past the int32 key ceiling:
     :func:`hamming_topk_core` on each block of ``block`` slots, then one
@@ -430,6 +587,7 @@ def hamming_topk_blocked_core(
         live: score the first ``live`` slots (a positive multiple of
             ``group``; every slot past them dead). Blocks past it are not
             launched; the last one launched scores its live part.
+        routes: counts each block's selection tail (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -454,6 +612,7 @@ def hamming_topk_blocked_core(
             sig_t=None if sig_t is None else sig_t[:, s:e],
             ids=None if ids is None else ids[s:e],
             live=min(live, e) - s, refine_capacity=None if sig_rows is None else c,
+            routes=routes,
         ))
     if len(parts) == 1:
         return parts[0]
@@ -504,6 +663,7 @@ def hamming_topk_cascade_core(
     narrow_r: int = 0,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
+    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass refinement-cascade Hamming top-k.
 
@@ -529,8 +689,8 @@ def hamming_topk_cascade_core(
         tie: ``(C,)`` int32 global tie keys (-1 dead).
         qbits_prefix: ``(Q, cb)`` int8 query prefix bits (contiguous).
         qwords: ``(Q, BW)`` int32 query words (the refine's operand).
-        sig_rows / narrow_r / sig_t / ids: the refine's table, as for
-            :func:`hamming_topk_core`.
+        sig_rows / narrow_r / sig_t / ids / routes: the refine's table
+            and its route counter, as for :func:`hamming_topk_core`.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -539,7 +699,7 @@ def hamming_topk_cascade_core(
     gmax = cascade_coarse_keys(planes_prefix, tie, qbits_prefix, group=group)
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups,
+        sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups, routes=routes,
     )
 
 

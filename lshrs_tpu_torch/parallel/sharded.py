@@ -455,6 +455,8 @@ class ShardedDeviceStore(DeviceStore):
             b2_slots_scanned=sum(s._b2_slots_scanned for s in self._shards),
             b2_slots_skipped=sum(s._b2_slots_skipped for s in self._shards),
             b2_blocks=sum(s._b2_blocks for s in self._shards),
+            refine_kernel_calls=sum(s._refine_routes["kernel"] for s in self._shards),
+            refine_plain_calls=sum(s._refine_routes["plain"] for s in self._shards),
         )
         return out
 

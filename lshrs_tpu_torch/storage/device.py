@@ -68,6 +68,7 @@ capacity sets the key scale and the engine switch of
 
 from __future__ import annotations
 
+import collections
 import threading
 from collections.abc import Iterable, Sequence
 
@@ -317,6 +318,9 @@ class DeviceStore(BaseStorage):
         self._b2_slots_scanned = 0
         self._b2_slots_skipped = 0
         self._b2_blocks = 0
+        # The Hamming tail's routes over the store's life, one count a
+        # selection tail: "kernel" (hamming_refine_topk) and "plain".
+        self._refine_routes = collections.Counter()
         self._slot_of: dict[int, int] | None = {} if dedupe else None
         # Bumped on every mutation; snapshot_query_fn closures check it
         # (writes land in place, so a stale closure would see new data).
@@ -978,7 +982,8 @@ class DeviceStore(BaseStorage):
             )
 
     def _query_hamming_dev(self, qw: torch.Tensor, k: int, where=None):
-        """Device-resident Hamming top-k (call under the lock)."""
+        """Device-resident Hamming top-k (call under the lock), its selection
+        tails' routes counted in ``stats()["index"]``."""
         p = self.num_bands * self.rows_per_band
         aligned = self._capacity % self.group == 0
         if self.hamming_cascade and aligned:
@@ -1006,7 +1011,8 @@ class DeviceStore(BaseStorage):
                 k=k_eff, chunk=self.chunk, num_perm=p,
             )
         rows = self._refine_rows() if where is None else None
-        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
+        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x,
+                  routes=self._refine_routes)
         if not planes:
             return hamming_topk_packed_core(
                 self._sig_t, tie_x, qw, rows, num_perm=p,
@@ -1054,6 +1060,7 @@ class DeviceStore(BaseStorage):
             narrow_r=self._refine_narrow_r if where is None else 0,
             sig_t=self._sig_t,
             ids=ids_x,
+            routes=self._refine_routes,
         )
         parts = [
             hamming_topk_cascade_core(
@@ -1860,6 +1867,8 @@ class DeviceStore(BaseStorage):
             "b2_slots_scanned": self._b2_slots_scanned,
             "b2_slots_skipped": self._b2_slots_skipped,
             "b2_blocks": self._b2_blocks,
+            "refine_kernel_calls": self._refine_routes["kernel"],
+            "refine_plain_calls": self._refine_routes["plain"],
         }
 
     def state_arrays(self) -> dict[str, np.ndarray]:

@@ -214,6 +214,8 @@ def test_a_store_under_the_ceiling_launches_b2_once_and_merges_nothing(rng, monk
     assert _spans(prof) == ["lshrs.b2", "lshrs.select", "lshrs.refine", "lshrs.topk"] * 3 + [
         "lshrs.merge"]
     assert store.stats()["b2_blocks"] == 2 + 6
+    st = store.stats()
+    assert (st["refine_kernel_calls"], st["refine_plain_calls"]) == (2 + 6, 0)
     np.testing.assert_array_equal(one[0], three[0])
     np.testing.assert_array_equal(one[1], three[1])
 

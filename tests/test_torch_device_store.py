@@ -176,11 +176,14 @@ def test_stats_keys_match_the_reference(hasher, rng):
     bucket backends included. Kept apart on purpose: the port's kernels
     are CUDA, not Pallas (no ``pallas`` key), the port names its torch
     device and its hash family, and its store counts the slots kernel B2
-    scored and skipped and its launches (blocks)."""
+    scored and skipped and its launches (blocks), and the Hamming
+    selection tails by route (kernel hamming_refine_topk or the plain
+    stages)."""
     from lshrs_tpu import LSHRS as JaxLSHRS
     from lshrs_tpu_torch import LSHRS as TorchLSHRS
 
-    b2 = {"b2_slots_scanned", "b2_slots_skipped", "b2_blocks"}
+    b2 = {"b2_slots_scanned", "b2_slots_skipped", "b2_blocks", "refine_kernel_calls",
+          "refine_plain_calls"}
     js, ts = _pair(enable_hamming=True)
     jk, tk = set(js.stats()), set(ts.stats())
     assert jk - tk == {"pallas"} and tk - jk == {"device"} | b2

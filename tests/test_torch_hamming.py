@@ -358,3 +358,203 @@ def test_b2_slot_counters(rng):
     np.testing.assert_array_equal(got, np.asarray(jl.serving_fn(top_k=10, mode="hamming")(Y[:30])))
     st = tl.stats()["index"]
     assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (1536, 4096 - 1536)
+
+
+# --- The fused refine + top-k (kernel hamming_refine_topk; its plain version here) ---
+
+
+def _tail_case(rng, *, bw, word_bits, group, ng, q=9, tie_bits=None, dead=0.1):
+    """Group maxima, query words and a store's columns for
+    ``_select_refine``: ``ng`` groups of ``group`` slots of ``bw`` words
+    of ``word_bits`` low bits, distinct ids (some -1 dead), global ties."""
+    c = ng * group
+    words = rng.integers(0, 1 << word_bits, (c, bw), dtype=np.uint64).astype(np.uint32)
+    words[1::7] = words[::7][: len(words[1::7])]  # equal distances within groups
+    ids = rng.permutation(10 * c)[:c].astype(np.int32)
+    ids[rng.random(c) < dead] = -1
+    tie = tscan.global_tie_core(torch.from_numpy(ids))
+    if tie_bits is not None:  # ties of a block of a 2^tie_bits-slot store
+        tie = torch.where(tie >= 0, tie + (1 << tie_bits) - tscan.key_scale(c), -1)
+    qw = words[rng.integers(0, c, q)] ^ (rng.integers(0, 1 << word_bits, (q, bw), dtype=np.uint64)
+                                         .astype(np.uint32) & 0x11111111)
+    gmax = torch.from_numpy(rng.permutation(q * ng).reshape(q, ng).astype(np.int32))
+    return dict(words=torch.from_numpy(words.view(np.int32)), ids=torch.from_numpy(ids),
+                tie=tie, qwords=torch.from_numpy(qw.view(np.int32)), gmax=gmax)
+
+
+def _table(case, *, group, narrow_r=0):
+    words = case["words"]
+    if narrow_r:
+        words = t_pack_narrow(words, num_bands=words.shape[1], rows_per_band=narrow_r)
+    ext = torch.cat([words, case["tie"][:, None], case["ids"][:, None]], dim=1)
+    return tscan.build_grouped_refine_rows(ext, group=group)
+
+
+def _oracle(case, top_groups, *, group, p, k):
+    """The exact (hamming asc, id asc) top-k of the selected groups' alive
+    slots, in NumPy."""
+    words = case["words"].numpy().view(np.uint32)
+    q_words = case["qwords"].numpy().view(np.uint32)
+    tie, ids = case["tie"].numpy(), case["ids"].numpy()
+    out_h = np.full((len(q_words), k), p + 1)
+    out_i = np.full((len(q_words), k), -1)
+    for i, groups in enumerate(top_groups.numpy()):
+        slots = (groups[:, None] * group + np.arange(group)).ravel()
+        slots = slots[tie[slots] >= 0]
+        dist = np.unpackbits((words[slots] ^ q_words[i]).view(np.uint8), axis=1).sum(1)
+        order = np.lexsort((ids[slots], dist))[:k]
+        out_h[i, : order.size] = dist[order]
+        out_i[i, : order.size] = ids[slots][order]
+    return out_h, out_i
+
+
+REFINE_ROUTES = {
+    # name: (bw, word_bits, narrow_r, group, ng, k, m_groups, tie_bits, table, route)
+    "narrow_r16": (16, 16, 16, 64, 40, 10, None, None, True, "kernel"),
+    "word_aligned": (8, 32, 0, 16, 40, 10, None, None, True, "kernel"),
+    "wide_keys": (16, 16, 16, 64, 40, 10, None, 23, True, "kernel"),
+    "k_past_the_groups": (8, 32, 0, 16, 4, 100, None, None, True, "kernel"),
+    "pool_at_8192": (4, 32, 0, 64, 160, 10, 128, None, True, "kernel"),
+    "no_table": (16, 16, 16, 64, 40, 10, None, None, False, "plain"),
+    "k_past_128": (8, 32, 0, 16, 40, 129, None, None, True, "plain"),
+    "pool_past_8192": (4, 32, 0, 64, 160, 10, 129, None, True, "plain"),
+    "group_8": (8, 32, 0, 8, 40, 10, None, None, True, "plain"),
+    "nw_past_64": (65, 32, 0, 16, 8, 10, None, None, True, "plain"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFINE_ROUTES))
+def test_select_refine_takes_the_fused_kernel_within_its_limits(name, rng, monkeypatch):
+    """``_select_refine`` hands a grouped table within the kernel's limits
+    to ``hamming_refine_topk`` (one ``kernel`` count, no ``lshrs.topk``)
+    and everything else to the plain tail (one ``plain`` count); both give
+    the exact (hamming asc, id asc) top-k of the selected groups, and the
+    same answer as the plain tail forced."""
+    from collections import Counter
+
+    bw, word_bits, narrow_r, group, ng, k, m_groups, tie_bits, table, route = REFINE_ROUTES[name]
+    case = _tail_case(rng, bw=bw, word_bits=word_bits, group=group, ng=ng, tie_bits=tie_bits)
+    p = bw * word_bits
+    rows = _table(case, group=group, narrow_r=narrow_r) if table else None
+    calls = []
+    real = tham.hamming_refine_topk
+    monkeypatch.setattr(tham, "hamming_refine_topk",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    kw = dict(p=p, k=k, group=group, narrow_r=narrow_r, sig_t=case["words"].T.contiguous(),
+              tie=case["tie"], ids=case["ids"], m_groups=m_groups,
+              capacity=None if tie_bits is None else 1 << tie_bits, wide_ok=tie_bits is not None)
+    routes = Counter()
+    got = tham._select_refine(case["gmax"], case["qwords"], rows, routes=routes, **kw)
+    assert routes == Counter({route: 1})
+    assert len(calls) == (route == "kernel")
+    m = tham.hamming_select_terms(ng, group, p=p, k=k, m_groups=m_groups,
+                                  capacity=kw["capacity"], wide_ok=kw["wide_ok"])[0]
+    want_h, want_i = _oracle(case, tscan.select_top_groups(case["gmax"], m), group=group, p=p, k=k)
+    np.testing.assert_array_equal(got[1].numpy(), want_i)
+    np.testing.assert_array_equal(got[0].numpy(), want_h)
+    monkeypatch.setattr(tham, "refine_kernel_fits", lambda **_: False)
+    routes = Counter()
+    plain = tham._select_refine(case["gmax"], case["qwords"], rows, routes=routes, **kw)
+    assert routes == Counter({"plain": 1})
+    assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
+
+
+@pytest.mark.parametrize("narrow_r,wide", [(16, False), (0, False), (16, True)])
+def test_fused_plain_version_equals_the_three_stage_tail(narrow_r, wide, rng):
+    """``hamming_refine_topk`` on the CPU (its ``_ref``) equals
+    ``hamming_refine_gather`` -> ``refine_hamming`` -> ``hamming_final_topk``
+    on random stores, narrow and word-aligned, int32 and int64 keys."""
+    bw, word_bits, group, ng = (16, 16, 64, 48) if narrow_r else (8, 32, 32, 48)
+    for seed in range(3):
+        case = _tail_case(np.random.default_rng(seed), bw=bw, word_bits=word_bits, group=group,
+                          ng=ng, q=20, tie_bits=23 if wide else None, dead=0.3)
+        rows = _table(case, group=group, narrow_r=narrow_r)
+        top = tscan.select_top_groups(case["gmax"], 10)
+        p = bw * word_bits
+        scale = 1 << 23 if wide else tscan.key_scale(ng * group)
+        cwords, cand_tie, cand_ids, qcmp = tham.hamming_refine_gather(
+            case["qwords"], rows, top, group=group, narrow_r=narrow_r)
+        want = tham.hamming_final_topk(tham.refine_hamming(cwords, qcmp), cand_tie, cand_ids,
+                                       p=p, k=10, scale=scale, wide=wide)
+        got = tham.hamming_refine_topk(tham.refine_query_words(case["qwords"], narrow_r), rows,
+                                       top, group=group, p=p, k=10, scale=scale)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = tham.hamming_refine_topk(case["qwords"], rows, top, group=group, p=p, k=10,
+                                       scale=scale, narrow_r=narrow_r)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert tham.hamming_refine_topk.launches == 0  # the CPU launches nothing
+
+
+def _refuses(rng):
+    case = _tail_case(rng, bw=8, word_bits=32, group=16, ng=16, q=4)
+    rows = _table(case, group=16)
+    top = tscan.select_top_groups(case["gmax"], 5)
+    kw = dict(group=16, p=256, k=10, scale=1 << 8)
+    q = case["qwords"]
+    return {
+        "qcmp_int64": ((q.long(), rows, top), kw, TypeError),
+        "top_groups_int32": ((q, rows, top.int()), kw, TypeError),
+        "rows_int64": ((q, rows.long(), top), kw, TypeError),
+        "rows_width": ((q, rows[:, :-16], top), kw, ValueError),
+        "top_groups_rows": ((q, rows, top[:2]), kw, ValueError),
+        "k_0": ((q, rows, top), {**kw, "k": 0}, ValueError),
+        "k_129": ((q, rows, top), {**kw, "k": 129}, ValueError),
+        "group_8": ((q, rows.reshape(-1, 80), top), {**kw, "group": 8}, ValueError),
+        "nw_65": ((torch.zeros((4, 65), dtype=torch.int32), torch.zeros((16, 67 * 16),
+                   dtype=torch.int32), top), kw, ValueError),
+        "pool_8208": ((q, rows, torch.zeros((4, 513), dtype=torch.int64)), kw, ValueError),
+        "p_0": ((q, rows, top), {**kw, "p": 0}, ValueError),
+        "scale_not_a_power_of_two": ((q, rows, top), {**kw, "scale": 384}, ValueError),
+    }
+
+
+@pytest.mark.parametrize("name", ["qcmp_int64", "top_groups_int32", "rows_int64", "rows_width",
+                                  "top_groups_rows", "k_0", "k_129", "group_8", "nw_65",
+                                  "pool_8208", "p_0", "scale_not_a_power_of_two"])
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(name, rng):
+    args, kw, err = _refuses(rng)[name]
+    with pytest.raises(err):
+        tham.hamming_refine_topk(*args, **kw)
+
+
+def test_refine_route_counters_count_each_selection_tail(rng, monkeypatch):
+    """``stats()["index"]`` counts one route a selection tail: the grouped
+    table's queries take the kernel, filtered queries the plain tail, a
+    blocked store one count a block, and a sharded store sums its shards."""
+    from lshrs_tpu_torch import LSHRS, IdFilter
+
+    import lshrs_tpu_torch.storage.device as device_mod
+
+    x = rng.standard_normal((3000, 16)).astype(np.float32)
+
+    def index(**kw):
+        lsh = LSHRS(dim=16, num_perm=64, num_bands=8, rows_per_band=8, engine="hamming",
+                    initial_capacity=1024, device="cpu", **kw)
+        lsh.index(np.arange(3000), x)
+        return lsh
+
+    def counts(lsh):
+        st = lsh.stats()["index"]
+        return st["refine_kernel_calls"], st["refine_plain_calls"]
+
+    lsh = index()
+    assert counts(lsh) == (0, 0)
+    serve = lsh.serving_fn(top_k=5)
+    serve(x[:20])
+    serve(x[20:40])
+    assert counts(lsh) == (2, 0)
+    lsh._storage.query_hamming(lsh._hasher.hash_batch_words(x[:20]), 5,
+                               where=IdFilter(allowed_ids=np.arange(0, 3000, 2)))
+    assert counts(lsh) == (2, 1)
+    lsh._storage.query_hamming(lsh._hasher.hash_batch_words(x[:20]), 200)  # k past 128
+    assert counts(lsh) == (2, 2)
+
+    monkeypatch.setattr(device_mod, "hamming_block_slots", lambda p: 1024)
+    blocked = index()
+    blocked.serving_fn(top_k=5)(x[:20])
+    assert counts(blocked) == (3, 0)  # 3,000 slots in three 1,024-slot blocks
+    monkeypatch.undo()
+
+    sharded = index(shards=2)
+    sharded.serving_fn(top_k=5)(x[:20])
+    assert counts(sharded) == (2, 0)

@@ -142,6 +142,7 @@ def test_a_blocked_or_sharded_store_merges_inside_the_engine(shards, monkeypatch
     merge = engine_span[3][-1]
     assert engine_span[1] <= merge[1] <= merge[2] <= engine_span[2] and not merge[3]
     assert lsh.stats()["index"]["b2_blocks"] == 2 * parts
+    assert lsh.stats()["index"]["refine_kernel_calls"] == 2 * parts
 
 
 @pytest.mark.parametrize("mode", ["asymmetric", "topp"])
