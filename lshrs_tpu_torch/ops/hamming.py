@@ -29,12 +29,13 @@ prefix of the bitplanes, refines a deep pool of groups at full width, and
 keys its refine in int64 past the int32 ceiling: it serves stores the
 single-pass engines cannot.
 
-Past that ceiling (more than 2**22 slots at 256 bits) the bitplanes rank
-exactly in blocks (:func:`hamming_topk_blocked_core`): kernel B2 and the
-selection tail run on each block of :func:`hamming_block_slots` slots,
-keyed by block-local ties that pack into int32, and one exact merge by
-``(hamming asc, id asc)`` (:func:`merge_hamming_pools`, span
-``lshrs.merge``) joins the blocks' lists.
+The bitplanes rank exactly in one block or many
+(:func:`hamming_topk_blocked_core`): kernel B2 and the selection tail run
+on each block of at most :func:`hamming_block_slots` slots (one block up
+to 2**22 slots at 256 bits), keyed by block-local ties that pack into
+int32, and past one block one exact merge by ``(hamming asc, id asc)``
+(:func:`merge_hamming_pools`, span ``lshrs.merge``) joins the blocks'
+lists.
 
 The chunked cores (:func:`hamming_topk_chunked_core` on bitplanes,
 :func:`hamming_topk_packed_chunked_core` on packed words) serve the rest
@@ -109,7 +110,7 @@ def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
 def hamming_block_slots(num_perm: int) -> int:
     """The most slots one B2 launch can key in int32: the largest power of
     two ``B`` with ``(num_perm + 2) * B < 2**31`` (2**22 at 256 bits). A
-    store past it ranks in blocks of ``B`` slots
+    store of bitplanes ranks in blocks of at most ``B`` slots
     (:func:`hamming_topk_blocked_core`)."""
     return 1 << (((2**31 - 1) // (num_perm + 2)).bit_length() - 1)
 
@@ -179,7 +180,6 @@ def hamming_topk_core(
     ids: torch.Tensor | None = None,
     live: int | None = None,
     refine_capacity: int | None = None,
-    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc), grouped bitplane path.
 
@@ -208,7 +208,6 @@ def hamming_topk_core(
             (:func:`hamming_topk_blocked_core`): the refine keys the
             table's global ties at that C's scale, in int64 past the int32
             ceiling. ``None``: the ties are ``tie``'s.
-        routes: counts the selection tail's route (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -225,7 +224,7 @@ def hamming_topk_core(
     return _select_refine(
         gmax, qwords, sig_rows, p=p, k=k, group=group, narrow_r=narrow_r,
         sig_t=sig_t, tie=tie, ids=ids, capacity=refine_capacity or c,
-        wide_ok=refine_capacity is not None, routes=routes,
+        wide_ok=refine_capacity is not None,
     )
 
 
@@ -241,7 +240,6 @@ def hamming_topk_packed_core(
     narrow_r: int = 0,
     ids: torch.Tensor | None = None,
     word_bits: int = 32,
-    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by (hamming asc, id asc) from the PACKED words only.
 
@@ -259,7 +257,6 @@ def hamming_topk_packed_core(
         word_bits: the low bits of each word that hold signature bits
             (kernel B3 multiplies ``BW * word_bits`` columns); higher bits
             must be zero on both sides.
-        routes: counts the selection tail's route (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -271,7 +268,7 @@ def hamming_topk_packed_core(
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids, routes=routes,
+        sig_t=sig_t, tie=tie, ids=ids,
     )
 
 
@@ -479,7 +476,7 @@ hamming_refine_topk.launches_by_shape = collections.Counter()
 
 def _select_refine(
     gmax, qwords, sig_rows, *, p, k, group, narrow_r=0, sig_t=None, tie=None, ids=None,
-    m_groups=None, capacity=None, wide_ok=False, routes=None,
+    m_groups=None, capacity=None, wide_ok=False,
 ):
     """Hamming selection tail: top-k groups by max, popcount-exact refine
     from the gathered packed words, exact (hamming, id) order. Its stages:
@@ -506,17 +503,12 @@ def _select_refine(
     ``capacity``: the store's C when ``gmax`` covers only its first
     slots (:func:`hamming_topk_core`'s ``live``) or one block of it
     (``refine_capacity``, with ``wide_ok``).
-
-    ``routes``: a counter that takes one count under ``"kernel"`` (the
-    kernel's wrapper) or ``"plain"`` (the plain tail).
     """
     m, scale, wide = hamming_select_terms(
         gmax.shape[1], group, p=p, k=k, m_groups=m_groups, capacity=capacity, wide_ok=wide_ok
     )
     top_groups = select_top_groups(gmax, m)
     if sig_rows is None:
-        if routes is not None:
-            routes["plain"] += 1
         with span("lshrs.refine"):
             cwords, cand_tie, cand_ids, qcmp = hamming_refine_gather(
                 qwords, None, top_groups, group=group, sig_t=sig_t, tie=tie, ids=ids,
@@ -525,8 +517,6 @@ def _select_refine(
         with span("lshrs.topk"):
             return hamming_final_topk(hamming, cand_tie, cand_ids, p=p, k=k, scale=scale, wide=wide)
     fused = refine_kernel_fits(nw=sig_rows.shape[1] // group - 2, group=group, k=k, m=m)
-    if routes is not None:
-        routes["kernel" if fused else "plain"] += 1
     tail = hamming_refine_topk if fused else hamming_refine_topk_ref
     return tail(qwords, sig_rows, top_groups, group=group, p=p, k=k, scale=scale,
                 narrow_r=narrow_r)
@@ -560,24 +550,25 @@ def hamming_topk_blocked_core(
     num_perm: int | None = None,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
-    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k by (hamming asc, id asc) past the int32 key ceiling:
-    :func:`hamming_topk_core` on each block of ``block`` slots, then one
-    merge (:func:`merge_hamming_pools`).
+    """Exact top-k by (hamming asc, id asc) on bitplanes, in one block or
+    many: :func:`hamming_topk_core` on each block of ``block`` slots, then,
+    past one block, one merge (:func:`merge_hamming_pools`).
 
     Each block's B2 key is ``scaled * key_scale(block) + block tie``, which
     packs into int32 when ``block`` is at most :func:`hamming_block_slots`;
-    the block's answer is its exact top-k. Ties of distance between blocks
-    go to the smaller id in the merge, as the global order has it; an id
-    stored twice (``dedupe=False``) keeps slot order, the blocks entering
-    the merge's stable sorts in slot order.
+    the block's answer is its exact top-k, and with one block (``block ==
+    C``) the answer. Ties of distance between blocks go to the smaller id
+    in the merge, as the global order has it; an id stored twice
+    (``dedupe=False``) keeps slot order, the blocks entering the merge's
+    stable sorts in slot order.
 
     Args:
         planes: ``(C, Pp)`` int8 store bitplanes, C a multiple of ``block``.
         block_tie: ``(C,)`` int32 block-local tie keys,
             ``key_scale(block) - 1 - rank`` of each slot's id among its
-            block's slots, -1 dead (filtered-out slots too).
+            block's slots, -1 dead (filtered-out slots too): with one
+            block, the global ties.
         qbits / qwords: as for :func:`hamming_topk_core`.
         sig_rows: the store's grouped refine table, with its global ties
             (each block refines them at C's scale, int64 past the
@@ -587,7 +578,6 @@ def hamming_topk_blocked_core(
         live: score the first ``live`` slots (a positive multiple of
             ``group``; every slot past them dead). Blocks past it are not
             launched; the last one launched scores its live part.
-        routes: counts each block's selection tail (:func:`_select_refine`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -612,7 +602,6 @@ def hamming_topk_blocked_core(
             sig_t=None if sig_t is None else sig_t[:, s:e],
             ids=None if ids is None else ids[s:e],
             live=min(live, e) - s, refine_capacity=None if sig_rows is None else c,
-            routes=routes,
         ))
     if len(parts) == 1:
         return parts[0]
@@ -663,7 +652,6 @@ def hamming_topk_cascade_core(
     narrow_r: int = 0,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
-    routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass refinement-cascade Hamming top-k.
 
@@ -689,8 +677,8 @@ def hamming_topk_cascade_core(
         tie: ``(C,)`` int32 global tie keys (-1 dead).
         qbits_prefix: ``(Q, cb)`` int8 query prefix bits (contiguous).
         qwords: ``(Q, BW)`` int32 query words (the refine's operand).
-        sig_rows / narrow_r / sig_t / ids / routes: the refine's table
-            and its route counter, as for :func:`hamming_topk_core`.
+        sig_rows / narrow_r / sig_t / ids: the refine's table, as for
+            :func:`hamming_topk_core`.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
@@ -699,7 +687,7 @@ def hamming_topk_cascade_core(
     gmax = cascade_coarse_keys(planes_prefix, tie, qbits_prefix, group=group)
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups, routes=routes,
+        sig_t=sig_t, tie=tie, ids=ids, m_groups=refine_groups,
     )
 
 

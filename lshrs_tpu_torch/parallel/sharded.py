@@ -452,11 +452,6 @@ class ShardedDeviceStore(DeviceStore):
                 s._planes.numel() for s in self._shards if s._planes is not None
             ),
             payload_bytes=sum(s.stats()["payload_bytes"] for s in self._shards),
-            b2_slots_scanned=sum(s._b2_slots_scanned for s in self._shards),
-            b2_slots_skipped=sum(s._b2_slots_skipped for s in self._shards),
-            b2_blocks=sum(s._b2_blocks for s in self._shards),
-            refine_kernel_calls=sum(s._refine_routes["kernel"] for s in self._shards),
-            refine_plain_calls=sum(s._refine_routes["plain"] for s in self._shards),
         )
         return out
 

@@ -11,9 +11,10 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         ids      (capacity,)                int32  vector id, -1 = dead
         tie      (capacity,)                int32  global id-rank key
         ranks    (capacity,)                int32  id rank within each chunk
-                                                   (chunked routes, lazy)
+                                                   (chunked cores, lazy)
         block_tie (capacity,)               int32  tie key within each B2 block
-                                                   (blocked Hamming, lazy)
+                                                   (bitplanes past one block,
+                                                   lazy)
         planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily); Pp is num_perm
@@ -41,12 +42,12 @@ engine on kernel B1). Collision counting and top-p take multi-probe query
 words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
 every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
 the kernels read the filtered tie column, refinement gathers per slot).
-Past the int32 key ceiling of one B2 launch (more than 2**22 slots at 256
-bits) Hamming ranking on the bitplanes runs in blocks
+Hamming ranking on the bitplanes runs in blocks of at most one B2
+launch's int32 key (2**22 slots at 256 bits), one block or many
 (`lshrs_tpu_torch.ops.hamming.hamming_topk_blocked_core`): kernel B2
-and the selection tail once per block of live slots, keyed by
-block-local ties (``block_tie``, computed on first use), and one exact
-merge. The other stores the grouped engines cannot take — packed words,
+and the selection tail once per block of live slots; past one block
+they key by block-local ties (``block_tie``, computed on first use) and
+one exact merge joins the blocks. The other stores the grouped engines cannot take — packed words,
 asymmetric ranking or a collision key past int32, more than 64 bands, a
 capacity below the group — rank through the chunked fallbacks, as the
 reference's do (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the
@@ -68,7 +69,6 @@ capacity sets the key scale and the engine switch of
 
 from __future__ import annotations
 
-import collections
 import threading
 from collections.abc import Iterable, Sequence
 
@@ -101,7 +101,6 @@ from lshrs_tpu_torch.ops.hamming import (
     hamming_topk_blocked_core,
     hamming_topk_cascade_core,
     hamming_topk_chunked_core,
-    hamming_topk_core,
     hamming_topk_packed_chunked_core,
     hamming_topk_packed_core,
     plane_width,
@@ -312,15 +311,6 @@ class DeviceStore(BaseStorage):
         self._alloc(self._capacity)
         self._size = 0  # high-water mark of used slots (tombstones included)
         self._tombstones = 0
-        # Slots kernel B2 scored and left out (past the high-water mark) on
-        # the grouped bitplane path, and its launches there (one per block),
-        # over the store's life: host integers.
-        self._b2_slots_scanned = 0
-        self._b2_slots_skipped = 0
-        self._b2_blocks = 0
-        # The Hamming tail's routes over the store's life, one count a
-        # selection tail: "kernel" (hamming_refine_topk) and "plain".
-        self._refine_routes = collections.Counter()
         self._slot_of: dict[int, int] | None = {} if dedupe else None
         # Bumped on every mutation; snapshot_query_fn closures check it
         # (writes land in place, so a stale closure would see new data).
@@ -339,10 +329,10 @@ class DeviceStore(BaseStorage):
         self._sig_rows = torch.zeros((cap, self.words), dtype=torch.int32, device=dev)
         self._ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
         self._tie = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-        # Id ranks within each chunk: only the chunked routes read them.
+        # Id ranks within each chunk: only the chunked cores read them.
         self._ranks: torch.Tensor | None = None
-        # (block, tie keys within each block of that many slots): only the
-        # blocked Hamming route reads them.
+        # (block, tie keys within each block of that many slots): only
+        # bitplanes past one block read them.
         self._block_tie: tuple[int, torch.Tensor] | None = None
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
         # Sorted per-band bucket index (query_mode="bucket"), lazy.
@@ -464,7 +454,7 @@ class DeviceStore(BaseStorage):
             self._ranks_dirty = False
 
     def _chunk_ranks(self) -> torch.Tensor:
-        """The chunked routes' id ranks within each chunk, computed on first
+        """The chunked cores' id ranks within each chunk, computed on first
         use after a mutation (call under the lock). Under ``where=`` they go
         in with the filtered ids, as the reference's do: a filtered-out
         slot scores 0 whatever its rank."""
@@ -473,10 +463,10 @@ class DeviceStore(BaseStorage):
         return self._ranks
 
     def _block_ties(self, block: int) -> torch.Tensor:
-        """The blocked Hamming route's tie keys, ``key_scale(block) - 1 -
-        rank`` of each slot's id within its block of ``block`` slots (-1
-        dead), computed on first use after a mutation (call under the lock;
-        span ``lshrs.store.ranks``)."""
+        """The tie keys of bitplanes ranked in more than one block,
+        ``key_scale(block) - 1 - rank`` of each slot's id within its block
+        of ``block`` slots (-1 dead), computed on first use after a mutation
+        (call under the lock; span ``lshrs.store.ranks``)."""
         if self._block_tie is None or self._block_tie[0] != block:
             with span("lshrs.store.ranks"):
                 ranks = compute_chunk_ranks(self._ids, chunk=block)
@@ -982,8 +972,7 @@ class DeviceStore(BaseStorage):
             )
 
     def _query_hamming_dev(self, qw: torch.Tensor, k: int, where=None):
-        """Device-resident Hamming top-k (call under the lock), its selection
-        tails' routes counted in ``stats()["index"]``."""
+        """Device-resident Hamming top-k (call under the lock)."""
         p = self.num_bands * self.rows_per_band
         aligned = self._capacity % self.group == 0
         if self.hamming_cascade and aligned:
@@ -994,10 +983,10 @@ class DeviceStore(BaseStorage):
         ids_x, tie_x = self._filtered_ids_tie(where)
         k_eff = max(1, min(k, self._capacity))
         planes = self.hamming_storage == "planes" and not self.hamming_cascade
-        # Bitplanes past one B2 launch's int32 key rank in blocks.
-        block = hamming_block_slots(p)
-        blocked = planes and aligned and self._capacity > block
-        if not (blocked or (aligned and supports_hamming_grouped(p, self._capacity))):
+        # Bitplanes rank in blocks of at most one B2 launch's int32 key,
+        # packed words in one launch.
+        block = min(hamming_block_slots(p), self._capacity) if planes else self._capacity
+        if not (aligned and supports_hamming_grouped(p, block)):
             # The chunked fallbacks. A cascade store's planes are a prefix
             # only, so it ranks on the packed words, as the reference's does.
             if not planes:
@@ -1011,30 +1000,21 @@ class DeviceStore(BaseStorage):
                 k=k_eff, chunk=self.chunk, num_perm=p,
             )
         rows = self._refine_rows() if where is None else None
-        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x,
-                  routes=self._refine_routes)
+        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
         if not planes:
             return hamming_topk_packed_core(
                 self._sig_t, tie_x, qw, rows, num_perm=p,
                 word_bits=self._packed_word_bits(), **kw
             )
         self._ensure_planes()
-        live = self._live_slots()
-        self._b2_slots_scanned += live
-        self._b2_slots_skipped += self._capacity - live
-        if not blocked:
-            self._b2_blocks += 1
-            return hamming_topk_core(
-                self._planes, tie_x, self._planes_rows(qw), qw, rows,
-                num_perm=p, sig_t=self._sig_t, live=live, **kw
-            )
-        self._b2_blocks += -(-live // block)
-        btie = self._block_ties(block)
-        if where is not None:  # the filter's dead slots, as in tie_x
-            btie = torch.where(tie_x >= 0, btie, -1)
+        btie = tie_x  # one block: its ties are the global ones
+        if block < self._capacity:
+            btie = self._block_ties(block)
+            if where is not None:  # the filter's dead slots, as in tie_x
+                btie = torch.where(tie_x >= 0, btie, -1)
         return hamming_topk_blocked_core(
             self._planes, btie, self._planes_rows(qw), qw, rows,
-            block=block, live=live, num_perm=p, sig_t=self._sig_t, **kw
+            block=block, live=self._live_slots(), num_perm=p, sig_t=self._sig_t, **kw
         )
 
     def _query_cascade_dev(self, qw: torch.Tensor, k: int, where=None):
@@ -1060,7 +1040,6 @@ class DeviceStore(BaseStorage):
             narrow_r=self._refine_narrow_r if where is None else 0,
             sig_t=self._sig_t,
             ids=ids_x,
-            routes=self._refine_routes,
         )
         parts = [
             hamming_topk_cascade_core(
@@ -1864,11 +1843,6 @@ class DeviceStore(BaseStorage):
                 else None
             ),
             "rerank_truncations": self._rerank_truncations,
-            "b2_slots_scanned": self._b2_slots_scanned,
-            "b2_slots_skipped": self._b2_slots_skipped,
-            "b2_blocks": self._b2_blocks,
-            "refine_kernel_calls": self._refine_routes["kernel"],
-            "refine_plain_calls": self._refine_routes["plain"],
         }
 
     def state_arrays(self) -> dict[str, np.ndarray]:

@@ -30,6 +30,13 @@ P = NB * R
 BLOCK, CHUNK = 1024, 512
 
 
+@pytest.fixture
+def rng() -> np.random.Generator:
+    """The suite's seed, here too: the card runs this file without the
+    suite's ``conftest.py`` (it imports JAX)."""
+    return np.random.default_rng(12345)
+
+
 def _blocks(monkeypatch, block: int = BLOCK) -> None:
     monkeypatch.setattr(device_mod, "hamming_block_slots", lambda p: block)
 
@@ -39,6 +46,19 @@ def _chunked(monkeypatch) -> None:
     single launch refused."""
     monkeypatch.setattr(device_mod, "hamming_block_slots", lambda p: 1 << 40)
     monkeypatch.setattr(device_mod, "supports_hamming_grouped", lambda *a: False)
+
+
+def _spy(monkeypatch, name: str) -> list:
+    """The calls of ``lshrs_tpu_torch.ops.hamming.<name>`` as the Hamming
+    cores make them: the first argument's row count, one entry a call."""
+    calls, real = [], getattr(tham, name)
+
+    def spy(first, *a, **kw):
+        calls.append(first.shape[0])
+        return real(first, *a, **kw)
+
+    monkeypatch.setattr(tham, name, spy)
+    return calls
 
 
 def _spans(prof) -> list[str]:
@@ -105,12 +125,12 @@ def test_blocked_store_equals_its_chunked_route_bit_for_bit(k, rng, monkeypatch)
     allow = IdFilter(allowed_ids=ids[(np.arange(n) % 3) != 1])
     with monkeypatch.context() as mp:
         _blocks(mp)
-        before = store.stats()["b2_blocks"]
+        scored = _spy(mp, "hamming_group_max_keys")
         cases["all"] = _answers(store, qw, k)
         cases["where"] = _answers(store, qw, k, where=allow)
         live = store._live_slots()
         assert live == n + (-n % 64) and -(-live // BLOCK) == 4
-        assert store.stats()["b2_blocks"] - before == 8
+        assert scored == ([BLOCK] * 3 + [live - 3 * BLOCK]) * 2
         assert store._block_tie is not None and store._block_tie[0] == BLOCK
     with monkeypatch.context() as mp:
         _chunked(mp)
@@ -180,10 +200,11 @@ def test_blocked_route_matches_the_float64_reference(monkeypatch):
     lsh = LSHRS(**index, initial_capacity=1024, device="cpu")
     lsh.index(np.arange(n), train)
     _blocks(monkeypatch)
+    scored = _spy(monkeypatch, "hamming_group_max_keys")
     served = lsh.serving_fn(top_k=10)(test)
     store = lsh._storage
     assert store._capacity == 4096 and -(-store._live_slots() // BLOCK) == 3
-    assert store.stats()["b2_blocks"] == 3
+    assert scored == [BLOCK, BLOCK, store._live_slots() - 2 * BLOCK]
     truth = reference.answers(index, train, test, ranking="hamming", k=10,
                               precision="float64", device="cpu")
     np.testing.assert_array_equal(served, truth)
@@ -197,25 +218,34 @@ def test_blocked_route_matches_the_float64_reference(monkeypatch):
     np.testing.assert_array_equal(hamming, want)
 
 
-def test_a_store_under_the_ceiling_launches_b2_once_and_merges_nothing(rng, monkeypatch):
-    """The same store: one B2 launch and no ``lshrs.merge`` at the real
-    block size; three launches and one merge in blocks."""
-    store, words, _ = _store(rng, 2 * BLOCK + 100)
+@pytest.mark.parametrize("filtered", [False, True])
+def test_a_store_under_the_ceiling_launches_b2_once_and_merges_nothing(
+    filtered, rng, monkeypatch
+):
+    """The same store, unfiltered and under ``where=``: one B2 launch over
+    the live slots, no block ties and no ``lshrs.merge`` at the real block
+    size; three launches and one merge in blocks, with the same ids and
+    distances. Every selection tail takes the kernel's wrapper unfiltered
+    and the plain tail under the filter."""
+    store, words, ids = _store(rng, 2 * BLOCK + 100)
     qw = _queries(rng, words, 8)
-    store.query_hamming(qw, 5)  # the lazy tables
+    where = IdFilter(allowed_ids=ids[::3]) if filtered else None
+    scored = _spy(monkeypatch, "hamming_group_max_keys")
+    tails = _spy(monkeypatch, "select_top_groups")
+    fused = _spy(monkeypatch, "hamming_refine_topk")
+    store.query_hamming(qw, 5, where=where)  # the lazy tables
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        one = store.query_hamming(qw, 5)
+        one = store.query_hamming(qw, 5, where=where)
     assert _spans(prof) == ["lshrs.b2", "lshrs.select", "lshrs.refine", "lshrs.topk"]
-    assert store.stats()["b2_blocks"] == 2
+    assert scored == [store._live_slots()] * 2 and store._block_tie is None
     _blocks(monkeypatch)
-    store.query_hamming(qw, 5)
+    store.query_hamming(qw, 5, where=where)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        three = store.query_hamming(qw, 5)
+        three = store.query_hamming(qw, 5, where=where)
     assert _spans(prof) == ["lshrs.b2", "lshrs.select", "lshrs.refine", "lshrs.topk"] * 3 + [
         "lshrs.merge"]
-    assert store.stats()["b2_blocks"] == 2 + 6
-    st = store.stats()
-    assert (st["refine_kernel_calls"], st["refine_plain_calls"]) == (2 + 6, 0)
+    assert len(scored) == 2 + 6 and store._block_tie[0] == BLOCK
+    assert (len(fused), len(tails) - len(fused)) == ((0, 2 + 6) if filtered else (2 + 6, 0))
     np.testing.assert_array_equal(one[0], three[0])
     np.testing.assert_array_equal(one[1], three[1])
 

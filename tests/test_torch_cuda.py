@@ -776,6 +776,7 @@ def test_b2_over_the_live_prefix_on_the_gpu(dev, rng, monkeypatch):
     256-slot tile) at Q=10,000: B2's group maxima over the prefix are the
     full launch's first columns bit for bit, and the store's ids and
     distances equal its full-capacity path's."""
+    from lshrs_tpu_torch.ops import hamming as th
     from lshrs_tpu_torch.storage.device import DeviceStore
 
     n, q, cap = 590_000, 10_000, 1 << 20
@@ -786,11 +787,14 @@ def test_b2_over_the_live_prefix_on_the_gpu(dev, rng, monkeypatch):
     store.remove_indices(store.state_arrays()["ids"][::97].tolist())
     qw = words[rng.integers(0, n, q)] ^ rng.integers(0, 1 << 16, (q, 16), dtype=np.uint32) & 0x0101
 
-    hamming, ids = store.query_hamming(qw, 10)
+    scored, b2 = [], th.hamming_group_max_keys
+    with monkeypatch.context() as mp:
+        mp.setattr(th, "hamming_group_max_keys",
+                   lambda planes, *a, **kw: scored.append(planes.shape[0]) or b2(planes, *a, **kw))
+        hamming, ids = store.query_hamming(qw, 10)
     live, group = store._live_slots(), store._group()
     assert store._capacity == cap and live == 590_016 and live % 256
-    st = store.stats()
-    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (live, cap - live)
+    assert scored == [live]  # one launch over the live prefix: cap - live slots skipped
 
     qbits = store._planes_rows(torch.from_numpy(qw.view(np.int32)).to(dev))
     kw = dict(group=group, scale=gm.key_scale(cap), num_perm=256)
@@ -831,8 +835,7 @@ def test_blocked_hamming_past_the_key_ceiling_on_the_gpu(dev, rng, monkeypatch):
     before = gm.hamming_group_max_keys.launches
     got = [store.query_hamming(qw, 10), store.query_hamming(qw, 10, where=allow)]
     assert gm.hamming_group_max_keys.launches - before == 4
-    st = store.stats()
-    assert store._capacity == 1 << 23 and st["b2_blocks"] == 4 and store._ranks is None
+    assert store._capacity == 1 << 23 and store._ranks is None
     assert store._live_slots() - (1 << 22) == 305_728
     with monkeypatch.context() as mp:
         mp.setattr(device_mod, "hamming_block_slots", lambda p: 1 << 40)

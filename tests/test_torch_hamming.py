@@ -321,32 +321,44 @@ def test_hamming_core_refuses_a_live_extent_off_the_groups(rng):
                                    sig_t=qw.new_zeros((1, 256)), ids=tie, live=live)
 
 
-def test_b2_slot_counters(rng):
-    """``stats()`` counts the slots B2 scored and skipped per launch of the
-    grouped bitplane path: the dead tail is skipped, a full store skips
-    none, and ``LSHRS.serving_fn(mode="hamming")`` reports them too."""
+def _spy(monkeypatch, name: str) -> list[int]:
+    """The calls of ``lshrs_tpu_torch.ops.hamming.<name>`` as the Hamming
+    cores make them: the first argument's row count, one entry a call."""
+    calls, real = [], getattr(tham, name)
+
+    def spy(first, *a, **kw):
+        calls.append(first.shape[0])
+        return real(first, *a, **kw)
+
+    monkeypatch.setattr(tham, name, spy)
+    return calls
+
+
+def test_b2_slot_counters(rng, monkeypatch):
+    """B2 scores the live prefix of the grouped bitplane path and skips
+    the rest, once a query: the dead tail is skipped, a full store skips
+    none, and ``LSHRS.serving_fn(mode="hamming")`` does the same."""
     from lshrs_tpu import LSHRS as JaxLSHRS
     from lshrs_tpu_torch import LSHRS as TorchLSHRS
     from lshrs_tpu_torch.storage.device import DeviceStore as TorchStore
 
+    scored = _spy(monkeypatch, "hamming_group_max_keys")
     hasher = LSHHasher(num_bands=8, rows_per_band=8, dim=LIVE_KW["dim"], seed=5)
     ts = TorchStore(device="cpu", **LIVE_KW)
-    st = ts.stats()
-    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (0, 0)
     _, X = _fill([ts], hasher, rng, 576)
+    assert scored == []
     qw = hasher.hash_batch_words_host(X[:5])
     ts.query_hamming(qw, 4)
     ts.snapshot_query_fn(4, mode="hamming")(qw)
-    st = ts.stats()
-    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (2 * 576, 2 * 448)
-    ts.query_topk(qw, 4)  # collision ranking: B1, not counted
-    assert ts.stats()["b2_slots_scanned"] == 2 * 576
+    assert ts._capacity == 576 + 448 and scored == [576, 576]
+    ts.query_topk(qw, 4)  # collision ranking: B1, not B2
+    assert scored == [576, 576]
     full = TorchStore(device="cpu", **LIVE_KW)
     _fill([full], hasher, rng, 1024)
+    scored.clear()
     full.query_hamming(qw, 4)
     full.snapshot_query_fn(4, mode="hamming")(qw)
-    st = full.stats()
-    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (2 * 1024, 0)
+    assert full._capacity == 1024 and scored == [1024, 1024]
 
     kw = dict(dim=24, num_perm=64, num_bands=8, rows_per_band=8, hash_mode="host", seed=13,
               engine="hamming", initial_capacity=4096)
@@ -354,10 +366,10 @@ def test_b2_slot_counters(rng):
     Y = rng.standard_normal((1500, 24)).astype(np.float32)
     jl.index(list(range(1500)), Y)
     tl.index(list(range(1500)), Y)
+    scored.clear()
     got = tl.serving_fn(top_k=10, mode="hamming")(Y[:30])
     np.testing.assert_array_equal(got, np.asarray(jl.serving_fn(top_k=10, mode="hamming")(Y[:30])))
-    st = tl.stats()["index"]
-    assert (st["b2_slots_scanned"], st["b2_slots_skipped"]) == (1536, 4096 - 1536)
+    assert tl.stats()["index"]["capacity"] == 4096 and scored == [1536]
 
 
 # --- The fused refine + top-k (kernel hamming_refine_topk; its plain version here) ---
@@ -426,12 +438,10 @@ REFINE_ROUTES = {
 @pytest.mark.parametrize("name", sorted(REFINE_ROUTES))
 def test_select_refine_takes_the_fused_kernel_within_its_limits(name, rng, monkeypatch):
     """``_select_refine`` hands a grouped table within the kernel's limits
-    to ``hamming_refine_topk`` (one ``kernel`` count, no ``lshrs.topk``)
-    and everything else to the plain tail (one ``plain`` count); both give
-    the exact (hamming asc, id asc) top-k of the selected groups, and the
-    same answer as the plain tail forced."""
-    from collections import Counter
-
+    to ``hamming_refine_topk`` (one call, no ``lshrs.topk``) and everything
+    else to the plain tail (no call of the kernel's wrapper); both give the
+    exact (hamming asc, id asc) top-k of the selected groups, and the same
+    answer as the plain tail forced."""
     bw, word_bits, narrow_r, group, ng, k, m_groups, tie_bits, table, route = REFINE_ROUTES[name]
     case = _tail_case(rng, bw=bw, word_bits=word_bits, group=group, ng=ng, tie_bits=tie_bits)
     p = bw * word_bits
@@ -443,9 +453,7 @@ def test_select_refine_takes_the_fused_kernel_within_its_limits(name, rng, monke
     kw = dict(p=p, k=k, group=group, narrow_r=narrow_r, sig_t=case["words"].T.contiguous(),
               tie=case["tie"], ids=case["ids"], m_groups=m_groups,
               capacity=None if tie_bits is None else 1 << tie_bits, wide_ok=tie_bits is not None)
-    routes = Counter()
-    got = tham._select_refine(case["gmax"], case["qwords"], rows, routes=routes, **kw)
-    assert routes == Counter({route: 1})
+    got = tham._select_refine(case["gmax"], case["qwords"], rows, **kw)
     assert len(calls) == (route == "kernel")
     m = tham.hamming_select_terms(ng, group, p=p, k=k, m_groups=m_groups,
                                   capacity=kw["capacity"], wide_ok=kw["wide_ok"])[0]
@@ -453,9 +461,8 @@ def test_select_refine_takes_the_fused_kernel_within_its_limits(name, rng, monke
     np.testing.assert_array_equal(got[1].numpy(), want_i)
     np.testing.assert_array_equal(got[0].numpy(), want_h)
     monkeypatch.setattr(tham, "refine_kernel_fits", lambda **_: False)
-    routes = Counter()
-    plain = tham._select_refine(case["gmax"], case["qwords"], rows, routes=routes, **kw)
-    assert routes == Counter({"plain": 1})
+    plain = tham._select_refine(case["gmax"], case["qwords"], rows, **kw)
+    assert len(calls) == (route == "kernel")  # the plain tail: no new call
     assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
 
 
@@ -518,14 +525,24 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(name, rng):
 
 
 def test_refine_route_counters_count_each_selection_tail(rng, monkeypatch):
-    """``stats()["index"]`` counts one route a selection tail: the grouped
-    table's queries take the kernel, filtered queries the plain tail, a
-    blocked store one count a block, and a sharded store sums its shards."""
+    """One route a selection tail: the grouped table's queries take the
+    kernel's wrapper, filtered queries the plain tail, a blocked store one
+    tail a block, and a sharded store one a shard."""
     from lshrs_tpu_torch import LSHRS, IdFilter
 
     import lshrs_tpu_torch.storage.device as device_mod
 
     x = rng.standard_normal((3000, 16)).astype(np.float32)
+    tails = _spy(monkeypatch, "select_top_groups")
+    fused = _spy(monkeypatch, "hamming_refine_topk")
+
+    def counts():
+        """(kernel, plain) selection tails since the last call: the
+        wrapper's calls, and the other group selections."""
+        kernel, plain = len(fused), len(tails) - len(fused)
+        tails.clear()
+        fused.clear()
+        return kernel, plain
 
     def index(**kw):
         lsh = LSHRS(dim=16, num_perm=64, num_bands=8, rows_per_band=8, engine="hamming",
@@ -533,28 +550,24 @@ def test_refine_route_counters_count_each_selection_tail(rng, monkeypatch):
         lsh.index(np.arange(3000), x)
         return lsh
 
-    def counts(lsh):
-        st = lsh.stats()["index"]
-        return st["refine_kernel_calls"], st["refine_plain_calls"]
-
     lsh = index()
-    assert counts(lsh) == (0, 0)
+    assert counts() == (0, 0)
     serve = lsh.serving_fn(top_k=5)
     serve(x[:20])
     serve(x[20:40])
-    assert counts(lsh) == (2, 0)
+    assert counts() == (2, 0)
     lsh._storage.query_hamming(lsh._hasher.hash_batch_words(x[:20]), 5,
                                where=IdFilter(allowed_ids=np.arange(0, 3000, 2)))
-    assert counts(lsh) == (2, 1)
+    assert counts() == (0, 1)
     lsh._storage.query_hamming(lsh._hasher.hash_batch_words(x[:20]), 200)  # k past 128
-    assert counts(lsh) == (2, 2)
+    assert counts() == (0, 1)
 
-    monkeypatch.setattr(device_mod, "hamming_block_slots", lambda p: 1024)
-    blocked = index()
-    blocked.serving_fn(top_k=5)(x[:20])
-    assert counts(blocked) == (3, 0)  # 3,000 slots in three 1,024-slot blocks
-    monkeypatch.undo()
+    with monkeypatch.context() as mp:
+        mp.setattr(device_mod, "hamming_block_slots", lambda p: 1024)
+        blocked = index()
+        blocked.serving_fn(top_k=5)(x[:20])
+    assert counts() == (3, 0)  # 3,000 slots in three 1,024-slot blocks
 
     sharded = index(shards=2)
     sharded.serving_fn(top_k=5)(x[:20])
-    assert counts(sharded) == (2, 0)
+    assert counts() == (2, 0)

@@ -149,7 +149,8 @@ def test_lshrs_past_2_22_slots_takes_the_kernel(dev, rng, monkeypatch):
     """``LSHRS`` at 4,300,000 vectors (2^23 slots, two 2^22-slot blocks):
     each batch takes the kernel once a block and its ids and distances
     equal the same store's plain tail; filtered queries take the plain
-    tail."""
+    tail. The plain tails are the group selections the kernel's launches
+    do not follow."""
     from lshrs_tpu_torch import LSHRS
     from lshrs_tpu_torch.storage.filter import IdFilter
 
@@ -163,22 +164,25 @@ def test_lshrs_past_2_22_slots_takes_the_kernel(dev, rng, monkeypatch):
     qx = x[rng.integers(0, n, q)] + 0.3 * rng.standard_normal((q, dim), dtype=np.float32)
     qw = lsh._hasher.hash_batch_words(qx)
 
+    tails, select = [], th.select_top_groups
+    monkeypatch.setattr(th, "select_top_groups",
+                        lambda *a, **kw: tails.append(a[1]) or select(*a, **kw))
+
+    def counts():
+        kernel = th.hamming_refine_topk.launches - before
+        return kernel, len(tails) - kernel
+
     before = th.hamming_refine_topk.launches
     got = store.query_hamming(qw, 10)
-    assert th.hamming_refine_topk.launches - before == 2
-    st = lsh.stats()["index"]
-    assert (st["refine_kernel_calls"], st["refine_plain_calls"]) == (2, 0)
+    assert counts() == (2, 0)
     with monkeypatch.context() as mp:
         mp.setattr(th, "refine_kernel_fits", lambda **kw: False)
         want = store.query_hamming(qw, 10)
-    assert th.hamming_refine_topk.launches - before == 2
-    st = lsh.stats()["index"]
-    assert (st["refine_kernel_calls"], st["refine_plain_calls"]) == (2, 2)
+    assert counts() == (2, 2)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert (got[1][:, 0] >= 0).all()
 
     store.query_hamming(qw[:64], 10, where=IdFilter(allowed_ids=np.arange(0, n, 3)))
-    st = lsh.stats()["index"]
-    assert (st["refine_kernel_calls"], st["refine_plain_calls"]) == (2, 4)
+    assert counts() == (2, 4)
     lsh.close()
