@@ -25,7 +25,11 @@ then runs these phases and prints JSON lines as it goes:
    2**23-scale ties (int64 keys), at k=1, 100 and 128 (padded), the
    8,192-candidate limit, groups 16 to 128 and 1 to 64 words; the
    plain references of later phases take the plain tail (their paths
-   launch the kernel);
+   launch the kernel); and the group selection's kernel (group_select:
+   the m largest group maxima a row) against ``torch.topk``, its keys bit
+   for bit and its indices distinct, at both benchmark cells' widths
+   (Q=10,000 over 18,493, 65,536 and 34,464 groups), the cascade's
+   128-group pool, m at its limit of 256, Q=1 and 3 and a width below 4;
 3. the 100k slice: ``LSHRS(dim=768, num_perm=256, num_bands=16,
    rows_per_band=16)`` indexes 100,000 seeded gaussian vectors and serves
    them through ``serving_fn(top_k=10)`` (collision engine, kernel B1):
@@ -393,6 +397,22 @@ REFINE_TIMED = {
     (2_048, 64, 128, 8, 128, 1 << 21, 21): f"{REFINE}@limit",
     (10_000, 10, 64, 16, 10, 1 << 21, 21): f"{REFINE}@aligned",
 }
+# The group selection's kernel (lshrs_tpu_torch.ops.scan.group_select,
+# counted on select_top_groups): the m largest of a row's group maxima.
+SELECT = "group_select"
+# Its timed cases (Q, groups, m), each a line of the kernels record and
+# held to torch.topk: glove100.batch's selection and wiki6m4.batch's two
+# blocks'.
+SELECT_TIMED = {
+    (10_000, 18_493, 10): SELECT,
+    (10_000, 65_536, 10): f"{SELECT}@wiki_block0",
+    (10_000, 34_464, 10): f"{SELECT}@wiki_block1",
+}
+# Checked, not timed: the cascade's 128-group pool at 2**22 slots, m at
+# the limit over a ragged last tile, single rows (Q=1 and 3), and a width
+# below one 16-byte load.
+SELECT_CHECKED = [(2_048, 65_536, 128), (1_000, 3 * 4096 + 5, 256), (1, 65_536, 10),
+                  (3, 18_493, 10), (7, 3, 3)]
 # Checked, not timed: the 1M serving batch, the cascade's 128-group pool
 # at 2**23 slots (int64 keys), k past the candidates (padding), k=1,
 # groups of 16 and 32, one word, the widest 64 words, a ragged Q.
@@ -565,6 +585,11 @@ def kernel_bound(name: str, shape: dict) -> tuple[float, str]:
         m, group, nw, k = shape["m"], shape["group"], shape["nw"], shape["k"]
         ops, rate = q * m * group * nw, H100_INT32_OPS / 4
         nbytes = q * (4 * m * group * (nw + 1) + 8 * m + 4 * nw + 12 * k)
+    elif name.startswith(SELECT):
+        # One compare a key; each key read once, the indices written once
+        # ("C" is the row's groups here).
+        ops, rate = q * c, H100_INT32_OPS
+        nbytes = 4 * q * c + 8 * q * shape["m"]
     elif name.startswith("hamming_group_max_keys"):  # B2: int8 multiply-adds
         from lshrs_tpu_torch.ops.hamming import plane_width
 
@@ -909,20 +934,57 @@ def check_refine(gen, dev, err: dict, timed: dict) -> None:
         del args, got, want
 
 
+def check_select(gen, dev, err: dict, timed: dict) -> None:
+    """Phase 2's checks of kernel group_select against ``torch.topk`` at
+    :data:`SELECT_TIMED` and :data:`SELECT_CHECKED`, on B2-shaped keys
+    (``scaled * 2**21 + tie``): the keys bit for bit, the indices distinct;
+    adds to ``err`` and ``timed`` as :func:`phase_kernels` does."""
+    from lshrs_tpu_torch.ops.scan import group_select
+
+    for q, ng, m in [*SELECT_TIMED, *SELECT_CHECKED]:
+        scaled = torch.randint(100, 160, (q, ng), dtype=torch.int32, device=dev, generator=gen)
+        tie = torch.randint(0, 1 << 21, (q, ng), dtype=torch.int32, device=dev, generator=gen)
+        keys = (scaled << 21) + tie
+        got = group_select(keys, m)
+        torch.cuda.synchronize()
+        want = torch.topk(keys, m, dim=1).values
+        picked = keys.gather(1, got)
+        diff = int((picked.long() - want.long()).abs().max())
+        srt = got.sort(dim=1).values
+        ok = torch.equal(picked, want) and bool((srt[:, 1:] != srt[:, :-1]).all())
+        err[SELECT] = max(err[SELECT], diff)
+        emit("kernel_check", kernel=SELECT, Q=q, groups=ng, m=m, equal=ok, max_abs_err=diff)
+        if not ok:
+            raise AssertionError(f"{SELECT} kernel != torch.topk at {(q, ng, m)}")
+        if (q, ng, m) in SELECT_TIMED:
+            timed[SELECT_TIMED[q, ng, m]] = (
+                lambda keys=keys, m=m: group_select(keys, m),
+                lambda keys=keys, m=m: torch.topk(keys, m, dim=1),
+                dict(C=ng, Q=q, m=m), lambda keys=keys, m=m: torch.topk(keys, m, dim=1),
+            )
+        del scaled, tie, got, want, picked
+
+
 @contextlib.contextmanager
 def plain_refine():
-    """Inside the block the Hamming tail takes its plain stages on the card
-    (kernel hamming_refine_topk's limits refuse every call), and must not
-    launch the kernel."""
+    """Inside the block the grouped tail takes its plain stages on the card:
+    the selection ``torch.topk`` (kernel group_select's limits refuse every
+    call) and the Hamming refine's plain stages (likewise
+    hamming_refine_topk's); neither kernel may launch, so a comparison
+    counts no launch of the path."""
     from lshrs_tpu_torch.ops import hamming as hamming_mod
+    from lshrs_tpu_torch.ops import scan as scan_mod
 
-    real, before = hamming_mod.refine_kernel_fits, hamming_mod.hamming_refine_topk.launches
+    real = hamming_mod.refine_kernel_fits, scan_mod.select_kernel_fits
+    before = hamming_mod.hamming_refine_topk.launches, scan_mod.select_top_groups.launches
     hamming_mod.refine_kernel_fits = lambda **_: False
+    scan_mod.select_kernel_fits = lambda m, ng: False
     try:
         yield
     finally:
-        hamming_mod.refine_kernel_fits = real
-    assert hamming_mod.hamming_refine_topk.launches == before, "the plain tail launched the kernel"
+        hamming_mod.refine_kernel_fits, scan_mod.select_kernel_fits = real
+    after = hamming_mod.hamming_refine_topk.launches, scan_mod.select_top_groups.launches
+    assert after == before, f"the plain tail launched a kernel: {before} -> {after}"
 
 
 def check_b3(sig_t, tie, qw, kw, err: dict) -> float:
@@ -1013,7 +1075,7 @@ def phase_kernels(rng, dev) -> dict:
         key_scale,
     )
 
-    err = {name: 0 for name in (*KERNELS, REFINE)}
+    err = {name: 0 for name in (*KERNELS, REFINE, SELECT)}
     timed = {}
     b1_cases = [  # (num_bands, words, C, Q, probes)
         (16, 1, 131072, 1024, 1),
@@ -1161,6 +1223,7 @@ def phase_kernels(rng, dev) -> dict:
     check_b2_packings(gen, dev, err, timed)
     check_b2_shards(gen, dev, err, timed)
     check_refine(gen, dev, err, timed)
+    check_select(gen, dev, err, timed)
 
     # B3 on random full 32-bit words (word_bits 32, K = 512 at BW = 16),
     # drawn on the host with NumPy.
@@ -3935,10 +3998,11 @@ def main() -> int:
     kern = phase_kernels(np.random.default_rng(args.seed), dev)
 
     # Each path of the main path: counters from zero, read right after.
-    from lshrs_tpu_torch.ops import group_max, hamming
+    from lshrs_tpu_torch.ops import group_max, hamming, scan
 
     wrappers = {name: getattr(group_max, name) for name in KERNELS}
     wrappers[REFINE] = hamming.hamming_refine_topk
+    wrappers[SELECT] = scan.select_top_groups
     launches = {name: 0 for name in wrappers}
 
     b1_by_shape = {}
@@ -4004,7 +4068,7 @@ def main() -> int:
     s100 = drive("100k", "group_max_keys", lambda: phase_100k(args.seed))
     # The Hamming paths' tails launch hamming_refine_topk: the 1M serving
     # batch (the benchmark cells' shape), the packed store and the cascade.
-    s1m = drive("1m", (B2, REFINE), lambda: phase_1m(args.seed))
+    s1m = drive("1m", (B2, SELECT, REFINE), lambda: phase_1m(args.seed))
     ref1m = s1m["answers"]
     s4m = drive("packed_4m", (B3, REFINE), lambda: phase_packed_4m(args.seed),
                 b2_packings=[packings["symmetric"]])
@@ -4023,6 +4087,7 @@ def main() -> int:
                        "library_ms": median_ms(library) if library else None,
                        "bound_ms": bound_ms, "bound_by": bound_by, **shape}
         emit("kernel_time", card=label, kernel=name, **times[name])
+    kern["timed"].clear()  # the timed operands (group_select's are 4.8 GB)
     qps_100k = serving_qps(s100["serve"], s100["queries"])
     emit("serving", card=label, rows=N_100K, batch=QPS_BATCH_100K, engine="collision",
          qps=qps_100k)
@@ -4200,6 +4265,8 @@ def main() -> int:
                                           "lshrs_tpu/ops/pallas_scan.py:267"),
         # the reference's tail is plain XLA (no Pallas kernel): _select_refine
         REFINE: ("lshrs_tpu_torch/csrc/hamming_refine_topk.cu", "lshrs_tpu/ops/hamming.py:202"),
+        # nor is the reference's selection (lax.top_k): select_top_groups
+        SELECT: ("lshrs_tpu_torch/csrc/group_select.cu", "lshrs_tpu/ops/scan.py:408"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4287,6 +4354,16 @@ def main() -> int:
             kernels.append(
                 {"name": variant, "route": "cuda", "source": src, "replaces": rep,
                  "launches": n, "max_abs_err": kern["max_abs_err"][REFINE],
+                 **{key: times[variant][key] for key in
+                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # group_select once more at each wiki6m4.batch block's width: its
+    # launches on the whole main path (the wrapper counts no shapes).
+    src, rep = sources[SELECT]
+    for variant in SELECT_TIMED.values():
+        if variant != SELECT:
+            kernels.append(
+                {"name": variant, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": launches[SELECT], "max_abs_err": kern["max_abs_err"][SELECT],
                  **{key: times[variant][key] for key in
                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit("done", script_s=time.perf_counter() - start)

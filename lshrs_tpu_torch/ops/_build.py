@@ -32,6 +32,7 @@ _SOURCES = (
     "hamming_group_max.cu",
     "hamming_packed_group_max.cu",
     "hamming_refine_topk.cu",
+    "group_select.cu",
 )
 # Included by the sources above (B2 and B3 share its pipeline): part of the
 # library's hash, so an edited header rebuilds too.
@@ -58,6 +59,8 @@ _SIGNATURES = {
     # rows, groups, qwords, out_h, out_ids, q, m, nw, group, k, p,
     # tie_bits, stream
     "lshrs_hamming_refine_topk": [_P] * 5 + [_I] * 7 + [_P],
+    # keys, out, q, ng, m, stream
+    "lshrs_group_select": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

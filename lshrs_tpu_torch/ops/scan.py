@@ -10,9 +10,10 @@ alive keys are globally distinct and plain top-k selection is exact:
    + key + contiguous group max into ``(Q, C / group)``.
 2. Top-``k`` groups by max. Alive keys are distinct, so these groups
    provably hold every true top-k slot; ties exist only among groups with
-   no alive slot of count > 0, whose slots can only yield id -1, so a
-   flat ``torch.topk`` returns exactly what the reference's blockwise
-   selector does.
+   no alive slot of count > 0, whose slots can only yield id -1, so one
+   flat selection (kernel :func:`group_select` on the card, ``torch.topk``
+   on the CPU) returns exactly what the reference's blockwise selector
+   does.
 3. One gather of each selected group's wide row from the grouped refine
    table, a recount of its slots against the query, and an exact top-k
    over the ``k * group`` candidates. Under a ``where=`` filter the table
@@ -46,6 +47,8 @@ import torch
 
 from lshrs_tpu_torch.ops.bitpack import narrow_words_count, pack_words_narrow
 from lshrs_tpu_torch.ops.group_max import (
+    _device,
+    _launch,
     band_counts_t,
     group_max_keys,
     key_scale,
@@ -70,9 +73,11 @@ __all__ = [
     "gather_refine_group_rows",
     "gather_refine_slots",
     "global_tie_core",
+    "group_select",
     "key_scale",
     "merge_topk_pools",
     "refine_counts_vs_query",
+    "select_kernel_fits",
     "select_top_groups",
     "supports_fast_path",
 ]
@@ -387,12 +392,70 @@ def collision_topk_grouped_core(
         return collision_final_topk(counts, cand_tie, cand_ids, k=k, scale=scale)
 
 
-def select_top_groups(gmax: torch.Tensor, m: int) -> torch.Tensor:
-    """The ``m`` groups of largest key per query, ``(Q, m)`` int64: one flat
-    ``torch.topk`` over the ``(Q, C / group)`` group maxes (the selection
-    stage of the grouped collision and Hamming cores; span ``lshrs.select``)."""
-    with span("lshrs.select"):
+# Limit of kernel group_select (csrc/group_select.cu): the groups it keeps
+# a row in its list in shared memory.
+_SELECT_KERNEL_M = 256
+
+
+def select_kernel_fits(m: int, ng: int) -> bool:
+    """True when kernel :func:`group_select` takes the top ``m`` of ``ng``
+    group maxima a query: every single-pass core's ``k`` and the cascade's
+    pools up to 256 groups."""
+    return 0 < m <= min(_SELECT_KERNEL_M, ng)
+
+
+def group_select(gmax: torch.Tensor, m: int) -> torch.Tensor:
+    """The group indices of the ``m`` largest keys of each row of ``gmax``
+    in one pass over the row — kernel ``group_select`` (CUDA source
+    ``csrc/group_select.cu``), one block a row; each launch counts in
+    ``select_top_groups.launches``.
+
+    Args:
+        gmax: ``(Q, ng)`` int32 row-major group maxima (kernels B1, B2, B3).
+        m: groups a row, within :func:`select_kernel_fits`.
+
+    Returns:
+        ``(Q, m)`` int64 in descending key order. The keys are
+        ``torch.topk``'s bit for bit; among equal keys the kernel takes the
+        lowest indices. CPU tensors take the plain version,
+        ``torch.topk(gmax, m, dim=1).indices``.
+    """
+    if gmax.dtype != torch.int32:
+        raise TypeError(f"gmax must be torch.int32; got {gmax.dtype}")
+    if gmax.dim() != 2:
+        raise ValueError(f"gmax must be (Q, ng); got shape {tuple(gmax.shape)}")
+    q, ng = gmax.shape
+    if not select_kernel_fits(m, ng):
+        raise ValueError(
+            f"the selection kernel takes 0 < m <= min({_SELECT_KERNEL_M}, ng); got m={m}, ng={ng}"
+        )
+    if not gmax.is_contiguous():
+        raise ValueError("group_select: gmax must be contiguous")
+    dev = _device(gmax)
+    if dev.type == "cpu":
         return torch.topk(gmax, m, dim=1).indices
+    out = torch.empty((q, m), dtype=torch.int64, device=dev)
+    if q:
+        _launch("lshrs_group_select", dev, gmax.data_ptr(), out.data_ptr(), q, ng, m)
+        select_top_groups.launches += 1
+    return out
+
+
+def select_top_groups(gmax: torch.Tensor, m: int) -> torch.Tensor:
+    """The ``m`` groups of largest key per query, ``(Q, m)`` int64, over the
+    ``(Q, C / group)`` group maxima (the selection stage of the grouped
+    collision and Hamming cores; span ``lshrs.select``): :func:`group_select`
+    within :func:`select_kernel_fits`, else one flat ``torch.topk``.
+    ``launches`` counts the kernel's launches. Alive keys are distinct and
+    tied groups yield id -1 (the module docstring, step 2), so the order
+    among equal keys never changes an answer."""
+    with span("lshrs.select"):
+        if select_kernel_fits(m, gmax.shape[1]):
+            return group_select(gmax, m)
+        return torch.topk(gmax, m, dim=1).indices
+
+
+select_top_groups.launches = 0
 
 
 def collision_final_topk(
