@@ -17,7 +17,9 @@ then runs these phases and prints JSON lines as it goes:
    words and on the store's words at ``word_bits`` = rows_per_band, 16 x
    16 and 32 x 8, at Q=1, 17 and 512, streamed at BW=32 and 64, and at
    the packed_4m batch, Q=8192 over 2**22 slots, where it must also equal
-   B2 on the same words' planes), ragged query counts, dead slots and
+   B2 on the same words' planes, and on views of a 2**23-slot store's
+   words, rows 2**23 apart: a whole 2**22-slot block and the live prefix
+   of the second at 6,400,000 vectors), ragged query counts, dead slots and
    every template instantiation; and the Hamming tail's kernel
    (hamming_refine_topk: gather, popcount and top-k of the selected
    groups) in hamming and ids, at the benchmark cells' shape (Q=10,000,
@@ -234,14 +236,15 @@ then runs these phases and prints JSON lines as it goes:
     - exact_8m, right after sharded_16m: cascade_8m's 2**23 words (taken
       before its delete) through ``add_signature_batch`` into
       ``LSHRS(engine="auto")`` on planes (B2 in two 2**22-slot blocks,
-      merged) and a ``hamming_storage="packed"`` twin (chunked), past the
+      merged) and a ``hamming_storage="packed"`` twin (B3 on the words'
+      views in two blocks, merged), past the
       int32 key ceiling: self-match 1.0; planes == packed ==
       a two-shard copy (2**22-row shards ranked by B2 / B3, merged exactly)
       on 1,024 planted queries; the chunked cores called on the 1M store's
       tensors == its grouped B2 engine bit for bit; planted recall@10
       beside cascade_8m's and cascade_8m's agreement@10 with exact ranking;
       QPS at Q=8192 in turns with cascade_8m (B2 launched on planes only,
-      B3 never); a profile per storage; a 1% delete (no deleted id returned);
+      B3 on packed only); a profile per storage; a 1% delete (no deleted id returned);
       memory;
     - bands128_100k, after topp_lifecycle_100k: that index rehashed to
       128 x 2 = 256 bits (the chunked collision core at 131,072 slots):
@@ -511,6 +514,12 @@ B2_SHARDED_16M = "hamming_group_max_keys@sharded_16m"
 # 512), and B2 on the same store words' planes as B3's timed cases.
 B3_PACKED_4M = "hamming_packed_group_max_keys@packed_4m"
 B3_FULL_WORDS = "hamming_packed_group_max_keys@full_words_k512"
+# B3 on views of a 2**23-slot store's words, rows 2**23 apart, as the
+# blocked packed route launches it: a whole 2**22-slot block, and the
+# second block's live prefix at wiki6m4packed.batch's 6,400,000 vectors
+# (timed at Q=512: the kernels line's row).
+B3_BLOCK = "hamming_packed_group_max_keys@wiki_block"
+N_WIKI = 6_400_000
 B2_B3_WORDS = {N_1M: "hamming_group_max_keys@b3_words_1m",
                N_4M: "hamming_group_max_keys@b3_words_4m"}
 # B2 at the key packings of phase 10, timed at Q=512: (C, P, qmax or None
@@ -1265,6 +1274,23 @@ def phase_kernels(rng, dev) -> dict:
             time_b3(B3_PACKED_4M, sig_t, tie, qw, kw, timed, b2_name=B2_B3_WORDS[N_4M],
                     plain_ms=plain_ms)
         del sig_t, tie, qw
+    # B3 on strided views: each block's ties are its own, at its scale.
+    from lshrs_tpu_torch.ops.group_max import hamming_packed_group_max_keys
+    from lshrs_tpu_torch.ops.scan import global_tie_core
+
+    sig_t, _, qw = b3_words_on_card(gen, bw=NUM_BANDS, word_bits=ROWS, c=N_8M, q=512, dev=dev)
+    ids = torch.randperm(N_8M, generator=gen, device=dev).to(torch.int32)
+    ids[torch.rand(N_8M, generator=gen, device=dev) < 0.1] = -1
+    tie = torch.cat([global_tie_core(ids[s : s + N_4M]) for s in (0, N_4M)])
+    kw = dict(num_perm=NUM_PERM, group=64, scale=key_scale(N_4M), word_bits=ROWS)
+    for s, e in ((0, N_4M), (N_4M, N_WIKI + (-N_WIKI % 64))):
+        view, vtie = sig_t[:, s:e], tie[s:e]
+        assert not view.is_contiguous()
+        plain_ms = check_b3(view, vtie, qw, kw, err)
+    timed[B3_BLOCK] = (
+        lambda a=(view, vtie, qw), kw=kw: hamming_packed_group_max_keys(*a, **kw), plain_ms,
+        dict(C=e - s, Q=qw.shape[0], BW=NUM_BANDS, group=64, word_bits=ROWS), None,
+    )
     return {"max_abs_err": err, "timed": timed}
 
 
@@ -3323,9 +3349,9 @@ def chunked_equals_grouped_1m(s1m: dict, qx: np.ndarray) -> tuple[bool, int]:
 def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
     """cascade_8m's 2**23 words (taken before its delete) in an
     ``engine="auto"`` planes index and a packed twin: past the int32 key
-    ceiling the planes rank exactly by B2 in two blocks and the packed
-    words through the chunked fallback (no kernel), held to a two-shard
-    copy whose 2**22-row shards rank by B2 / B3."""
+    ceiling the planes rank exactly by B2 and the packed words by B3, each
+    in two blocks, held to a two-shard copy whose 2**22-row shards rank by
+    B2 / B3."""
     from lshrs_tpu_torch.ops.group_max import hamming_group_max_keys, hamming_packed_group_max_keys
     from lshrs_tpu_torch.ops.hamming import supports_hamming_grouped
     from lshrs_tpu_torch.parallel import ShardedDeviceStore, make_mesh
@@ -3379,9 +3405,8 @@ def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
     quality = planted_quality(exact_ids, c8m["planted"])
     agree = agreement_at_10(c8m["planted_ids"], exact_ids)
 
-    # QPS at Q=8192 in turns with cascade_8m (two trials of one batch: a
-    # chunked batch takes seconds); B2 / B3 launches over the timed serving
-    # of the blocked and the chunked route.
+    # QPS at Q=8192 in turns with cascade_8m (two trials of one batch); B2
+    # / B3 launches over the timed serving of the two blocked routes.
     queries = c8m["queries"][:1]
     qps, timed = {}, {}
     for name in ("planes", "packed", "cascade_8m", "cascade_8m", "packed", "planes"):
@@ -3414,11 +3439,12 @@ def phase_exact_8m(c8m: dict, s1m: dict, seed: int, label: str) -> dict:
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     for name, prof in profiles.items():
         emit("profile", card=label, rows=N_8M, batch=QPS_BATCH_1M, engine="hamming",
-             hamming_storage=name, route="blocked" if name == "planes" else "chunked", **prof)
+             hamming_storage=name, route="blocked", **prof)
     assert sm == {"planes": 1.0, "packed": 1.0}, sm
     assert planes_eq_packed and grouped_eq and grouped_b2 > 0, (planes_eq_packed, grouped_eq)
     assert all(o["equal"] and o["kernel_launches"] > 0 for o in oracle.values()), oracle
-    assert timed["planes"][0] > 0 and timed["planes"][1] == 0 and timed["packed"] == [0, 0], timed
+    assert timed["planes"][0] > 0 and timed["planes"][1] == 0, timed
+    assert timed["packed"][0] == 0 and timed["packed"][1] > 0, timed
     for name, a in after.items():
         assert a["deleted_ids_returned"] == 0 and a["survivor_self_match"] == 1.0, (name, a)
         assert a["tombstones"] == deleted.size, (name, a)
@@ -4306,6 +4332,14 @@ def main() -> int:
          "launches": b3_by_shape["packed_4m"][NUM_BANDS, ROWS],
          "max_abs_err": kern["max_abs_err"][B3],
          **{key: times[B3_PACKED_4M][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # B3 once more on a strided block: its launches on exact_8m's packed
+    # store, which ranks 2**23 slots in two such blocks.
+    kernels.append(
+        {"name": B3_BLOCK, "route": "cuda", "source": src, "replaces": rep,
+         "launches": b3_by_shape["exact_8m"].get((NUM_BANDS, ROWS), 0),
+         "max_abs_err": kern["max_abs_err"][B3],
+         **{key: times[B3_BLOCK][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     src, rep = sources[B2]
     for variant in B2_B3_WORDS.values():

@@ -59,11 +59,11 @@ messages, ``(-collision_count, id)`` ordering, ``(cosine desc, id asc)``
 rerank ordering, the ``engine="auto"`` switch to Hamming ranking at
 ``_AUTO_HAMMING_CAPACITY`` slots (pinned and persisted), and
 buffer-restore-on-failed-flush semantics. Past one kernel launch's int32
-key ceiling (more than 2**22 slots at 256 bits) Hamming ranking on the
-bitplanes runs kernel B2 block by block and merges the blocks exactly;
-the other stores the grouped engines cannot take (packed words or
-asymmetric ranking past the ceiling, more than 64 bands, below the group
-size) rank through the chunked fallbacks, as the reference's do.
+key ceiling (more than 2**22 slots at 256 bits) Hamming ranking runs
+kernel B2 on the bitplanes, or B3 on the packed words, block by block and
+merges the blocks exactly; the other stores the grouped engines cannot
+take (asymmetric ranking past the ceiling, more than 64 bands, below the
+group size) rank through the chunked fallbacks, as the reference's do.
 """
 
 from __future__ import annotations
@@ -144,6 +144,11 @@ class LSHRS:
             top-p formulation (``"full"``, ``"gather"`` or ``"auto"``) and
             the gather engine's per-query candidate budget; see
             `DeviceStore`.
+        device_budget_bytes: the most bytes the device store may hold on
+            its card (``stats()["index"]["device_bytes"]``); a growth or a
+            lazy table past it raises ``MemoryError``. ``None`` (default)
+            is no limit; device backend only, unsharded, and not saved
+            with a checkpoint (see `DeviceStore`).
         seed: projection seed (the reference package's seeded draw).
         initial_capacity / chunk_size / group_size / dedupe: device store
             sizing and engine knobs, see `DeviceStore`.
@@ -246,6 +251,7 @@ class LSHRS:
         payload_dtype: str = "float32",
         rerank_engine: str = "auto",
         rerank_candidates: int = 1024,
+        device_budget_bytes: Optional[int] = None,
         engine: str = "auto",
         multiprobe: int = 1,
         similarity: str = "cosine",
@@ -306,6 +312,11 @@ class LSHRS:
             hamming_storage = "planes"
         if hamming_storage not in ("planes", "packed"):
             raise ValueError("hamming_storage must be 'planes' or 'packed'")
+        if device_budget_bytes is not None and (backend != "device" or storage is not None):
+            raise ValueError(
+                "device_budget_bytes applies to the device backend's own store "
+                "(give a store its budget with DeviceStore(device_budget_bytes=...))"
+            )
         if hamming_cascade:
             if backend != "device" or storage is not None:
                 raise ValueError("hamming_cascade applies to the device backend only")
@@ -377,6 +388,7 @@ class LSHRS:
                 payload_dtype=payload_dtype,
                 rerank_engine=rerank_engine,
                 rerank_candidates=rerank_candidates,
+                device_budget_bytes=device_budget_bytes,
             )
             if shards is not None and shards > 1:
                 from lshrs_tpu_torch.parallel import ShardedDeviceStore, available_devices, make_mesh

@@ -45,13 +45,14 @@ namespace {
 
 constexpr int kMaxBW = 64;  // words per slot the wrapper accepts
 
-// The (bw, c) int32 words as 256-slot x bw TMA boxes; slots past c read as
-// zero (their keys are dead and masked on store).
-bool make_words_map(CUtensorMap* map, const void* ptr, int bw, int c) {
+// The (bw, c) int32 words, rows ld int32 apart, as 256-slot x bw TMA
+// boxes; slots past c read as zero (their keys are dead and masked on
+// store), though the row runs on to ld.
+bool make_words_map(CUtensorMap* map, const void* ptr, int bw, int c, int ld) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(bw)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * 4};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBN), static_cast<cuuint32_t>(bw)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(ptr), dims, strides, box,
@@ -61,20 +62,24 @@ bool make_words_map(CUtensorMap* map, const void* ptr, int bw, int c) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launched kernel. `qop` is the (q, kp) +-1
-// int8 query operand, kp = ceil(bw * word_bits / 32) * 32 columns. The
-// caller validates shapes; an argument this kernel cannot take (more than
-// 64 words, word_bits outside 1..32, another kp, group outside {16, 32,
-// 64, 128}, C not a multiple of group, a pointer not 16-byte aligned)
-// returns cudaErrorInvalidValue without launching.
+// Returns a cudaError_t: 0 on a launched kernel. `sig_t` is the (bw, c)
+// words with rows ld >= c int32 apart: a store's whole (bw, C) words at
+// ld = c, or one block or live prefix of them at ld = C. `qop` is the
+// (q, kp) +-1 int8 query operand, kp = ceil(bw * word_bits / 32) * 32
+// columns. The caller validates shapes; an argument this kernel cannot take
+// (more than 64 words, word_bits outside 1..32, another kp, group outside
+// {16, 32, 64, 128}, C not a multiple of group, ld below c or not a
+// multiple of 4 (the TMA row stride is a multiple of 16 bytes), a pointer
+// not 16-byte aligned) returns cudaErrorInvalidValue without launching.
 extern "C" int lshrs_hamming_packed_group_max(const void* sig_t, const void* tie, const void* qop,
-                                              void* out, int q, int c, int bw, int word_bits,
-                                              int kp, int group, int scale, int num_perm,
-                                              void* stream) {
+                                              void* out, int q, int c, int ld, int bw,
+                                              int word_bits, int kp, int group, int scale,
+                                              int num_perm, void* stream) {
   const int nbits = bw * word_bits;
   if (q <= 0 || c <= 0 || bw <= 0 || bw > kMaxBW || word_bits <= 0 || word_bits > 32 ||
       num_perm <= 0 || kp != (nbits + 31) / 32 * 32 ||
       (group != 16 && group != 32 && group != 64 && group != 128) || c % group != 0 ||
+      ld < c || ld % 4 != 0 ||
       reinterpret_cast<uintptr_t>(sig_t) % 16 != 0 || reinterpret_cast<uintptr_t>(qop) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -92,6 +97,7 @@ extern "C" int lshrs_hamming_packed_group_max(const void* sig_t, const void* tie
   prm.shift = 1;
   prm.dead_bias = -num_perm * scale;
   prm.words = static_cast<const int32_t*>(sig_t);
+  prm.ld = ld;
   prm.bw = bw;
   prm.wb = word_bits;
   prm.nbits = nbits;
@@ -99,7 +105,7 @@ extern "C" int lshrs_hamming_packed_group_max(const void* sig_t, const void* tie
   const int smem = plan_smem(prm, true);
 
   CUtensorMap qmap, wmap;
-  if (!make_map(&qmap, qop, q, kp, kBM) || !make_words_map(&wmap, sig_t, bw, c)) {
+  if (!make_map(&qmap, qop, q, kp, kBM) || !make_words_map(&wmap, sig_t, bw, c, ld)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_group<true>(group, qmap, wmap, prm, smem, static_cast<cudaStream_t>(stream));

@@ -7,7 +7,8 @@
 // +-1 operand comes from (the template argument kPacked):
 //
 //   B2 (kPacked = false): the store's bitplanes (C, pp), loaded by TMA;
-//   B3 (kPacked = true):  the store's packed words (BW, C) int32. Two slot
+//   B3 (kPacked = true):  the store's packed words (BW, C) int32, rows ld
+//     int32 apart (a block or live prefix of a wider store). Two slot
 //     producer warps load a tile's BW x 256 words by TMA into a staging
 //     buffer, expand column j = w * word_bits + b of each slot to +1 where
 //     bit b of word w is set and -1 where it is clear (zero past
@@ -52,11 +53,11 @@ struct Params {
   int nb;           // resident slot-tile buffers: 0 (streamed), 1 or 2
   int scale, offset, shift, dead_bias;
   uint32_t stage_bytes, stages_off, bias_off, bar_off;
-  // B3 only: the (bw, c) packed words, the low bits used of each word,
-  // nbits = bw * wb expanded columns, and where a resident slot tile's
-  // words are staged in shared memory.
+  // B3 only: the (bw, c) packed words, rows ld >= c int32 apart, the low
+  // bits used of each word, nbits = bw * wb expanded columns, and where a
+  // resident slot tile's words are staged in shared memory.
   const int32_t* words;
-  int bw, wb, nbits;
+  int ld, bw, wb, nbits;
   uint32_t words_off;
 };
 
@@ -408,7 +409,7 @@ __global__ void __launch_bounds__(kPacked ? kPackedThreads : kThreads, 1) hammin
             auto word = [&](int r, int w) -> uint32_t {
               const int slot = slot0 + r;
               return slot < prm.c ? static_cast<uint32_t>(
-                                        __ldg(prm.words + static_cast<size_t>(w) * prm.c + slot))
+                                        __ldg(prm.words + static_cast<size_t>(w) * prm.ld + slot))
                                   : 0u;
             };
             for (int kb = 0; kb < nkb; ++kb) {

@@ -53,9 +53,9 @@ _SIGNATURES = {
     # planes, tie, qbits, out, q, c, p, group, scale, offset, shift,
     # dead_bias, stream
     "lshrs_hamming_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    # sig_t, tie, qop, out, q, c, bw, word_bits, kp, group, scale,
+    # sig_t, tie, qop, out, q, c, ld, bw, word_bits, kp, group, scale,
     # num_perm, stream
-    "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "lshrs_hamming_packed_group_max": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     # rows, groups, qwords, out_h, out_ids, q, m, nw, group, k, p,
     # tie_bits, stream
     "lshrs_hamming_refine_topk": [_P] * 5 + [_I] * 7 + [_P],

@@ -22,7 +22,8 @@ exactly (`lshrs_tpu_torch.ops.scan`, `lshrs_tpu_torch.ops.hamming`).
   ``csrc/hamming_packed_group_max.cu``: B2's pipeline, the store's words
   expanded to +-1 tiles in shared memory and the queries by
   :func:`packed_operand`, so ``dot = n - 2 * ham`` over ``n = BW *
-  word_bits`` columns.
+  word_bits`` columns. It reads a block or the live prefix of a store's
+  words in place, rows a store's C apart (:func:`packed_words_stride`).
 
 Each public wrapper takes its plain PyTorch version (``*_ref``) only for
 tensors on the CPU, launches its hand-written kernel for CUDA tensors,
@@ -64,6 +65,7 @@ __all__ = [
     "key_scale",
     "packed_operand",
     "packed_width",
+    "packed_words_stride",
     "supports_fast_path",
 ]
 
@@ -446,6 +448,30 @@ hamming_group_max_keys.launches = 0
 hamming_group_max_keys.launches_by_packing = collections.Counter()
 
 
+def packed_words_stride(sig_t: torch.Tensor) -> int:
+    """The row stride ``ld`` (in words) at which kernel B3 reads ``sig_t``.
+
+    ``sig_t`` is ``(BW, L)`` int32 with contiguous slots and rows ``ld >=
+    L`` words apart: a store's whole words (``ld = L``), or one block or
+    the live prefix of them, ``words[:, s:e]`` (``ld`` = the store's C).
+    The kernel's TMA needs the base and ``4 * ld`` at multiples of 16
+    bytes. Raises ``ValueError`` for any other layout or alignment.
+    """
+    bw, n = sig_t.shape
+    ld = sig_t.stride(0) if bw > 1 else n
+    if sig_t.stride(1) != 1 or ld < n:
+        raise ValueError(
+            "hamming_packed_group_max_keys: sig_t must have contiguous slots and rows "
+            f"ld >= L apart; got shape {tuple(sig_t.shape)}, strides {sig_t.stride()}"
+        )
+    if sig_t.data_ptr() % 16 or ld % 4:
+        raise ValueError(
+            "hamming_packed_group_max_keys: sig_t must be 16-byte aligned, at its base and "
+            f"in its row stride; got base % 16 = {sig_t.data_ptr() % 16}, ld = {ld}"
+        )
+    return ld
+
+
 def hamming_packed_group_max_keys_ref(
     sig_t: torch.Tensor,
     tie: torch.Tensor,
@@ -495,8 +521,11 @@ def hamming_packed_group_max_keys(
 
     Args:
         sig_t: ``(BW, C)`` int32 transposed packed signatures (the
-            collision store's own words; no bitplanes).
-        tie: ``(C,)`` int32 tie keys (-1 dead).
+            collision store's own words; no bitplanes). On the card it may
+            be a view whose rows lie further apart than C words, as a block
+            or live prefix ``words[:, s:e]`` of a wider store is: the kernel
+            reads it in place (:func:`packed_words_stride`).
+        tie: ``(C,)`` int32 tie keys (-1 dead), contiguous.
         qwords: ``(Q, BW)`` int32 query words.
         num_perm: signature bits P (the words hold at most P set bits).
         group: slots per group, a power of two dividing C (16, 32, 64 or
@@ -529,10 +558,11 @@ def hamming_packed_group_max_keys(
                 sig_t, tie, qwords, num_perm=num_perm, group=group, scale=scale,
                 word_bits=word_bits,
             )
-    if not (sig_t.is_contiguous() and tie.is_contiguous() and qwords.is_contiguous()):
-        raise ValueError("hamming_packed_group_max_keys: CUDA inputs must be contiguous")
-    if sig_t.data_ptr() % 16 or tie.data_ptr() % 16:
-        raise ValueError("hamming_packed_group_max_keys: sig_t and tie must be 16-byte aligned")
+    if not (tie.is_contiguous() and qwords.is_contiguous()):
+        raise ValueError("hamming_packed_group_max_keys: CUDA tie and qwords must be contiguous")
+    ld = packed_words_stride(sig_t)
+    if tie.data_ptr() % 16:
+        raise ValueError("hamming_packed_group_max_keys: tie must be 16-byte aligned")
     if group not in (16, 32, 64, 128) or bw > 64:
         raise ValueError(
             f"the CUDA kernel needs group in (16, 32, 64, 128) and BW <= 64; "
@@ -549,7 +579,7 @@ def hamming_packed_group_max_keys(
         _launch(
             "lshrs_hamming_packed_group_max", dev,
             sig_t.data_ptr(), tie.data_ptr(), qop.data_ptr(), out.data_ptr(),
-            q, c, bw, word_bits, kp, group, scale, num_perm,
+            q, c, ld, bw, word_bits, kp, group, scale, num_perm,
         )
     hamming_packed_group_max_keys.launches += 1
     hamming_packed_group_max_keys.launches_by_shape[bw, word_bits] += 1

@@ -29,18 +29,19 @@ prefix of the bitplanes, refines a deep pool of groups at full width, and
 keys its refine in int64 past the int32 ceiling: it serves stores the
 single-pass engines cannot.
 
-The bitplanes rank exactly in one block or many
-(:func:`hamming_topk_blocked_core`): kernel B2 and the selection tail run
-on each block of at most :func:`hamming_block_slots` slots (one block up
-to 2**22 slots at 256 bits), keyed by block-local ties that pack into
-int32, and past one block one exact merge by ``(hamming asc, id asc)``
+Both storages rank exactly in one block or many
+(:func:`hamming_topk_blocked_core`): kernel B2 on the bitplanes, or B3 on
+the packed words read in place, and the selection tail run on each block
+of at most :func:`hamming_block_slots` slots (one block up to 2**22 slots
+at 256 bits), keyed by block-local ties that pack into int32, and past
+one block one exact merge by ``(hamming asc, id asc)``
 (:func:`merge_hamming_pools`, span ``lshrs.merge``) joins the blocks'
 lists.
 
 The chunked cores (:func:`hamming_topk_chunked_core` on bitplanes,
 :func:`hamming_topk_packed_chunked_core` on packed words) serve the rest
-of those stores exactly: packed words past the int32 ceiling, and stores
-below the group. Their keys embed each slot's id rank within its chunk
+of those stores exactly: stores below the group. Their keys embed each
+slot's id rank within its chunk
 (`lshrs_tpu_torch.ops.scan.chunked_topk_scan`); the dots are one exact
 int8 product per step (:func:`int8_dots`, ``torch._int_mm``). The packed
 core unpacks each step's words to +-1 planes over all ``32 * BW`` bits,
@@ -108,10 +109,10 @@ def supports_hamming_grouped(num_perm: int, capacity: int) -> bool:
 
 
 def hamming_block_slots(num_perm: int) -> int:
-    """The most slots one B2 launch can key in int32: the largest power of
-    two ``B`` with ``(num_perm + 2) * B < 2**31`` (2**22 at 256 bits). A
-    store of bitplanes ranks in blocks of at most ``B`` slots
-    (:func:`hamming_topk_blocked_core`)."""
+    """The most slots one B2 or B3 launch can key in int32: the largest
+    power of two ``B`` with ``(num_perm + 2) * B < 2**31`` (2**22 at 256
+    bits). A store ranks by Hamming distance in blocks of at most ``B``
+    slots (:func:`hamming_topk_blocked_core`)."""
     return 1 << (((2**31 - 1) // (num_perm + 2)).bit_length() - 1)
 
 
@@ -215,9 +216,7 @@ def hamming_topk_core(
     """
     c, p = planes.shape
     p = p if num_perm is None else num_perm
-    n = c if live is None else live
-    if n <= 0 or n > c or n % group:
-        raise ValueError(f"live={live} must be a positive multiple of group={group} up to C={c}")
+    n = _live_prefix(c, live, group)
     gmax = hamming_group_max_keys(
         planes[:n], tie[:n], qbits, group=group, scale=key_scale(c), num_perm=p
     )
@@ -240,36 +239,55 @@ def hamming_topk_packed_core(
     narrow_r: int = 0,
     ids: torch.Tensor | None = None,
     word_bits: int = 32,
+    live: int | None = None,
+    refine_capacity: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k by (hamming asc, id asc) from the PACKED words only.
+    """Exact top-k by (hamming asc, id asc) from the PACKED words only: the
+    one-block case of :func:`hamming_topk_blocked_core` on packed words, as
+    :func:`hamming_topk_core` is on bitplanes.
 
-    No bitplane array: kernel B3 scores every slot from the same
-    ``(BW, C)`` store the collision scan uses. Results equal
+    No bitplane array: kernel B3 scores the slots from the same ``(BW, C)``
+    store the collision scan uses, read in place. Results equal
     :func:`hamming_topk_core`'s bit for bit.
 
     Args:
         sig_t: ``(BW, C)`` int32 transposed signatures (dead slots
-            arbitrary).
-        tie: ``(C,)`` int32 global tie keys (-1 dead).
+            arbitrary), or the view ``words[:, s:e]`` of one block of a
+            wider store's words.
+        tie: ``(C,)`` int32 tie keys (-1 dead).
         qwords: ``(Q, BW)`` int32 query words.
         sig_rows: grouped refine table, as for :func:`hamming_topk_core`
             (``None``: per-slot refinement, which needs ``ids``).
         word_bits: the low bits of each word that hold signature bits
             (kernel B3 multiplies ``BW * word_bits`` columns); higher bits
             must be zero on both sides.
+        live / refine_capacity: as for :func:`hamming_topk_core`: B3 scores
+            the view ``sig_t[:, :live]`` at C's key scale.
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
         id -1 and hamming P+1.
     """
+    c = sig_t.shape[1]
+    n = _live_prefix(c, live, group)
     gmax = hamming_packed_group_max_keys(
-        sig_t, tie, qwords, num_perm=num_perm, group=group,
-        scale=key_scale(sig_t.shape[1]), word_bits=word_bits,
+        sig_t[:, :n], tie[:n], qwords, num_perm=num_perm, group=group,
+        scale=key_scale(c), word_bits=word_bits,
     )
     return _select_refine(
         gmax, qwords, sig_rows, p=num_perm, k=k, group=group, narrow_r=narrow_r,
-        sig_t=sig_t, tie=tie, ids=ids,
+        sig_t=sig_t, tie=tie, ids=ids, capacity=refine_capacity or c,
+        wide_ok=refine_capacity is not None,
     )
+
+
+def _live_prefix(c: int, live: int | None, group: int) -> int:
+    """The slots a single-pass core scores: ``live`` (C when ``None``), a
+    positive multiple of ``group`` up to C."""
+    n = c if live is None else live
+    if n <= 0 or n > c or n % group:
+        raise ValueError(f"live={live} must be a positive multiple of group={group} up to C={c}")
+    return n
 
 
 def hamming_select_terms(
@@ -288,8 +306,7 @@ def hamming_select_terms(
     if wide and m_groups is None and not wide_ok:
         raise NotImplementedError(
             "the single-pass Hamming engines' keys are int32: past the "
-            "ceiling rank in blocks (hamming_topk_blocked_core) or with "
-            "hamming_topk_packed_chunked_core"
+            "ceiling rank in blocks (hamming_topk_blocked_core)"
         )
     return min(k if m_groups is None else max(k, m_groups), ng), scale, wide
 
@@ -536,9 +553,9 @@ def merge_hamming_pools(
 
 
 def hamming_topk_blocked_core(
-    planes: torch.Tensor,
+    planes: torch.Tensor | None,
     block_tie: torch.Tensor,
-    qbits: torch.Tensor,
+    qbits: torch.Tensor | None,
     qwords: torch.Tensor,
     sig_rows: torch.Tensor | None,
     *,
@@ -550,12 +567,16 @@ def hamming_topk_blocked_core(
     num_perm: int | None = None,
     sig_t: torch.Tensor | None = None,
     ids: torch.Tensor | None = None,
+    word_bits: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k by (hamming asc, id asc) on bitplanes, in one block or
-    many: :func:`hamming_topk_core` on each block of ``block`` slots, then,
-    past one block, one merge (:func:`merge_hamming_pools`).
+    """Exact top-k by (hamming asc, id asc), in one block or many, on
+    bitplanes or on the packed words: each block of ``block`` slots goes
+    through :func:`hamming_topk_core` (kernel B2 on ``planes[s:e]``) or,
+    with ``planes=None``, :func:`hamming_topk_packed_core` (kernel B3 on
+    the words ``sig_t[:, s:e]``, read in place), then, past one block, one
+    merge (:func:`merge_hamming_pools`).
 
-    Each block's B2 key is ``scaled * key_scale(block) + block tie``, which
+    Each block's key is ``scaled * key_scale(block) + block tie``, which
     packs into int32 when ``block`` is at most :func:`hamming_block_slots`;
     the block's answer is its exact top-k, and with one block (``block ==
     C``) the answer. Ties of distance between blocks go to the smaller id
@@ -564,12 +585,15 @@ def hamming_topk_blocked_core(
     stable sorts in slot order.
 
     Args:
-        planes: ``(C, Pp)`` int8 store bitplanes, C a multiple of ``block``.
+        planes: ``(C, Pp)`` int8 store bitplanes, C a multiple of ``block``;
+            ``None`` ranks on the packed words ``sig_t`` (``num_perm`` is
+            then required).
         block_tie: ``(C,)`` int32 block-local tie keys,
             ``key_scale(block) - 1 - rank`` of each slot's id among its
             block's slots, -1 dead (filtered-out slots too): with one
             block, the global ties.
-        qbits / qwords: as for :func:`hamming_topk_core`.
+        qbits / qwords: as for :func:`hamming_topk_core` (``qbits`` unused
+            on packed words).
         sig_rows: the store's grouped refine table, with its global ties
             (each block refines them at C's scale, int64 past the
             ceiling); ``None`` refines slot by slot from ``sig_t``,
@@ -578,13 +602,20 @@ def hamming_topk_blocked_core(
         live: score the first ``live`` slots (a positive multiple of
             ``group``; every slot past them dead). Blocks past it are not
             launched; the last one launched scores its live part.
+        sig_t: ``(BW, C)`` int32 packed words: what ``planes=None`` ranks,
+            and what the slot-by-slot refine gathers.
+        word_bits: the low bits of each word that B3 expands (packed words
+            only; see :func:`hamming_topk_packed_core`).
 
     Returns:
         ``(hamming (Q, k), ids (Q, k))`` int32; empty tail entries carry
         id -1 and hamming P+1.
     """
-    c, p = planes.shape
-    p = p if num_perm is None else num_perm
+    packed = planes is None
+    if packed and (sig_t is None or num_perm is None):
+        raise ValueError("ranking the packed words (planes=None) needs sig_t and num_perm")
+    c = sig_t.shape[1] if packed else planes.shape[0]
+    p = planes.shape[1] if num_perm is None else num_perm
     if block % group or c % block or not 0 < live <= c or live % group:
         raise ValueError(
             f"block={block} must be a multiple of group={group} dividing C={c}, and "
@@ -595,14 +626,20 @@ def hamming_topk_blocked_core(
     parts = []
     for s in range(0, live, block):
         e = s + block
-        parts.append(hamming_topk_core(
-            planes[s:e], block_tie[s:e], qbits, qwords,
-            None if sig_rows is None else sig_rows[s // group : e // group],
-            k=k, group=group, narrow_r=narrow_r, num_perm=p,
-            sig_t=None if sig_t is None else sig_t[:, s:e],
-            ids=None if ids is None else ids[s:e],
+        words = None if sig_t is None else sig_t[:, s:e]
+        kw = dict(
+            k=k, group=group, narrow_r=narrow_r, ids=None if ids is None else ids[s:e],
             live=min(live, e) - s, refine_capacity=None if sig_rows is None else c,
-        ))
+        )
+        rows = None if sig_rows is None else sig_rows[s // group : e // group]
+        if packed:
+            parts.append(hamming_topk_packed_core(
+                words, block_tie[s:e], qwords, rows, num_perm=p, word_bits=word_bits, **kw
+            ))
+        else:
+            parts.append(hamming_topk_core(
+                planes[s:e], block_tie[s:e], qbits, qwords, rows, num_perm=p, sig_t=words, **kw
+            ))
     if len(parts) == 1:
         return parts[0]
     return merge_hamming_pools(

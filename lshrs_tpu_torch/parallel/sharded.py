@@ -77,6 +77,8 @@ class ShardedDeviceStore(DeviceStore):
             raise ValueError("ShardedDeviceStore requires a power-of-two device count")
         if kwargs.pop("device", None) is not None:
             raise ValueError("a sharded store lives on its mesh: leave device= out")
+        if kwargs.get("device_budget_bytes") is not None:
+            raise ValueError("device_budget_bytes applies to an unsharded DeviceStore")
         self.mesh = mesh
         self.axis = mesh.axis_name
         self.n_shards = n
@@ -110,6 +112,9 @@ class ShardedDeviceStore(DeviceStore):
         )
         assert shard._capacity == rows, (shard._capacity, rows)
         return shard
+
+    def _resident_tensors(self) -> list[torch.Tensor]:
+        return [t for shard in self._shards for t in shard._resident_tensors()]
 
     def _local_rows(self) -> int:
         return self._capacity // self.n_shards

@@ -12,9 +12,9 @@ queries run as fused scans (`lshrs_tpu_torch.ops.scan`,
         tie      (capacity,)                int32  global id-rank key
         ranks    (capacity,)                int32  id rank within each chunk
                                                    (chunked cores, lazy)
-        block_tie (capacity,)               int32  tie key within each B2 block
-                                                   (bitplanes past one block,
-                                                   lazy)
+        block_tie (capacity,)               int32  tie key within each B2 / B3
+                                                   block (Hamming past one
+                                                   block, lazy)
         planes   (capacity, Pp)             int8   +-1 bitplanes (Hamming with
                                                    hamming_storage="planes",
                                                    built lazily); Pp is num_perm
@@ -42,13 +42,14 @@ engine on kernel B1). Collision counting and top-p take multi-probe query
 words ``(Q, T, BW)`` (kernel B1 counts a band that matches any probe), and
 every query takes a ``where=`` id filter (`lshrs_tpu_torch.storage.filter`:
 the kernels read the filtered tie column, refinement gathers per slot).
-Hamming ranking on the bitplanes runs in blocks of at most one B2
-launch's int32 key (2**22 slots at 256 bits), one block or many
-(`lshrs_tpu_torch.ops.hamming.hamming_topk_blocked_core`): kernel B2
-and the selection tail once per block of live slots; past one block
-they key by block-local ties (``block_tie``, computed on first use) and
-one exact merge joins the blocks. The other stores the grouped engines cannot take — packed words,
-asymmetric ranking or a collision key past int32, more than 64 bands, a
+Hamming ranking runs in blocks of at most one B2 or B3 launch's int32
+key (2**22 slots at 256 bits), one block or many
+(`lshrs_tpu_torch.ops.hamming.hamming_topk_blocked_core`): kernel B2 on
+the bitplanes, or B3 on the packed words read in place, and the selection
+tail once per block of live slots; past one block they key by
+block-local ties (``block_tie``, computed on first use) and one exact
+merge joins the blocks. The other stores the grouped engines cannot take
+— asymmetric ranking or a collision key past int32, more than 64 bands, a
 capacity below the group — rank through the chunked fallbacks, as the
 reference's do (`lshrs_tpu_torch.ops.scan.collision_topk_core` and the
 Hamming and asymmetric chunked cores: keys embed each slot's id rank
@@ -102,7 +103,6 @@ from lshrs_tpu_torch.ops.hamming import (
     hamming_topk_cascade_core,
     hamming_topk_chunked_core,
     hamming_topk_packed_chunked_core,
-    hamming_topk_packed_core,
     plane_width,
     supports_hamming_grouped,
     unpack_bitplanes,
@@ -221,6 +221,14 @@ class DeviceStore(BaseStorage):
         bucket_cap: the bucketed engine's window per (query, band); longer
             bucket runs are truncated and counted
             (``stats()["bucket_overflows"]``).
+        device_budget_bytes: the most bytes the store may hold on its
+            device (``stats()["device_bytes"]``), or ``None`` (default) for
+            no limit. What would take it past the budget raises
+            ``MemoryError``: a growth or a rehash before anything is
+            written, the first use of a lazy table (bitplanes, refine
+            table, ranks, block ties, bucket index) with the table dropped
+            again. A property of the running store: checkpoints do not
+            keep it.
         device: where the store's tensors live (``"cuda"`` by default; the
             CPU runs the kernels' plain PyTorch versions).
     """
@@ -247,8 +255,11 @@ class DeviceStore(BaseStorage):
         payload_dtype: str = "float32",
         rerank_engine: str = "auto",
         rerank_candidates: int = 1024,
+        device_budget_bytes: int | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
+        if device_budget_bytes is not None and device_budget_bytes <= 0:
+            raise ValueError("device_budget_bytes must be greater than zero")
         if chunk_size <= 0 or chunk_size > 1 << 14:
             raise ValueError("chunk_size must be in (0, 16384]")
         if payload_dtype not in _PAYLOAD_DTYPES:
@@ -306,9 +317,11 @@ class DeviceStore(BaseStorage):
         self.rerank_candidates = rerank_candidates
         self._rerank_truncations = 0
         self.device = torch.device(device)
+        self.device_budget_bytes = device_budget_bytes
 
         self._capacity = _next_pow2(max(chunk_size, initial_capacity))
         self._alloc(self._capacity)
+        self._within_budget()
         self._size = 0  # high-water mark of used slots (tombstones included)
         self._tombstones = 0
         self._slot_of: dict[int, int] | None = {} if dedupe else None
@@ -332,7 +345,7 @@ class DeviceStore(BaseStorage):
         # Id ranks within each chunk: only the chunked cores read them.
         self._ranks: torch.Tensor | None = None
         # (block, tie keys within each block of that many slots): only
-        # bitplanes past one block read them.
+        # Hamming ranking past one block reads them.
         self._block_tie: tuple[int, torch.Tensor] | None = None
         self._refine: torch.Tensor | None = None  # grouped refine table, lazy
         # Sorted per-band bucket index (query_mode="bucket"), lazy.
@@ -360,7 +373,7 @@ class DeviceStore(BaseStorage):
         return min(self.group, self._capacity)
 
     def _live_slots(self) -> int:
-        """Slots kernel B2 scores on the grouped bitplane path: the
+        """Slots kernel B2 or B3 scores on the grouped Hamming path: the
         high-water mark rounded up to whole groups (at least one). Every
         slot past it is dead; tombstoned and filtered-out slots inside it
         are scored and masked."""
@@ -460,10 +473,11 @@ class DeviceStore(BaseStorage):
         slot scores 0 whatever its rank."""
         if self._ranks is None:
             self._ranks = compute_chunk_ranks(self._ids, chunk=self.chunk)
+            self._within_budget("_ranks")
         return self._ranks
 
     def _block_ties(self, block: int) -> torch.Tensor:
-        """The tie keys of bitplanes ranked in more than one block,
+        """The tie keys of Hamming ranking in more than one block,
         ``key_scale(block) - 1 - rank`` of each slot's id within its block
         of ``block`` slots (-1 dead), computed on first use after a mutation
         (call under the lock; span ``lshrs.store.ranks``)."""
@@ -472,6 +486,7 @@ class DeviceStore(BaseStorage):
                 ranks = compute_chunk_ranks(self._ids, chunk=block)
                 tie = torch.where(self._ids >= 0, key_scale(block) - 1 - ranks, -1)
                 self._block_tie = (block, tie.to(torch.int32))
+            self._within_budget("_block_tie")
         return self._block_tie[1]
 
     def _ensure_planes(self) -> None:
@@ -486,6 +501,7 @@ class DeviceStore(BaseStorage):
             return
         with span("lshrs.store.planes"):
             self._planes = self._materialize_planes()
+        self._within_budget("_planes")
 
     # Bound the unpack intermediates to ~1 GB per step.
     _PLANES_MATERIALIZE_STEP = 1 << 17
@@ -544,6 +560,7 @@ class DeviceStore(BaseStorage):
                     )
                 ext = torch.cat([words, self._tie[:, None], self._ids[:, None]], dim=1)
                 self._refine = build_grouped_refine_rows(ext, group=self._group())
+            self._within_budget("_refine")
         return self._refine
 
     # ------------------------------------------------------------------
@@ -783,6 +800,9 @@ class DeviceStore(BaseStorage):
         cap = self._capacity
         old = (self._sig_t, self._sig_rows, self._ids, self._payload, self._pnorm, self._pscale)
         planes = self._planes
+        # Every tensor a grown store holds has a row or a column per slot.
+        kept = (*old, self._tie, planes)
+        self._within_budget(held=sum(t.nbytes for t in kept if t is not None) // cap * new_cap)
         self._alloc(new_cap)
         for new, prev in zip(
             (self._sig_t.T, self._sig_rows, self._ids, self._payload, self._pnorm, self._pscale),
@@ -902,6 +922,7 @@ class DeviceStore(BaseStorage):
                 self._bucket_index = build_bucket_index(
                     self._sig_t, self._ids, num_bands=self.num_bands
                 )
+                self._within_budget("_bucket_index")
             counts, ids, overflows = bucketed_topk(
                 self._sig_t, self._ids, self._tie, *self._bucket_index, qw,
                 num_bands=self.num_bands,
@@ -983,9 +1004,8 @@ class DeviceStore(BaseStorage):
         ids_x, tie_x = self._filtered_ids_tie(where)
         k_eff = max(1, min(k, self._capacity))
         planes = self.hamming_storage == "planes" and not self.hamming_cascade
-        # Bitplanes rank in blocks of at most one B2 launch's int32 key,
-        # packed words in one launch.
-        block = min(hamming_block_slots(p), self._capacity) if planes else self._capacity
+        # Both storages rank in blocks of at most one launch's int32 key.
+        block = min(hamming_block_slots(p), self._capacity)
         if not (aligned and supports_hamming_grouped(p, block)):
             # The chunked fallbacks. A cascade store's planes are a prefix
             # only, so it ranks on the packed words, as the reference's does.
@@ -1000,21 +1020,18 @@ class DeviceStore(BaseStorage):
                 k=k_eff, chunk=self.chunk, num_perm=p,
             )
         rows = self._refine_rows() if where is None else None
-        kw = dict(k=k_eff, group=self._group(), narrow_r=self._refine_narrow_r, ids=ids_x)
-        if not planes:
-            return hamming_topk_packed_core(
-                self._sig_t, tie_x, qw, rows, num_perm=p,
-                word_bits=self._packed_word_bits(), **kw
-            )
-        self._ensure_planes()
         btie = tie_x  # one block: its ties are the global ones
         if block < self._capacity:
             btie = self._block_ties(block)
             if where is not None:  # the filter's dead slots, as in tie_x
                 btie = torch.where(tie_x >= 0, btie, -1)
+        if planes:
+            self._ensure_planes()
         return hamming_topk_blocked_core(
-            self._planes, btie, self._planes_rows(qw), qw, rows,
-            block=block, live=self._live_slots(), num_perm=p, sig_t=self._sig_t, **kw
+            self._planes if planes else None, btie, self._planes_rows(qw) if planes else None,
+            qw, rows, k=k_eff, group=self._group(), block=block, live=self._live_slots(),
+            narrow_r=self._refine_narrow_r, num_perm=p, sig_t=self._sig_t, ids=ids_x,
+            word_bits=self._packed_word_bits(),
         )
 
     def _query_cascade_dev(self, qw: torch.Tensor, k: int, where=None):
@@ -1688,6 +1705,7 @@ class DeviceStore(BaseStorage):
     def clear(self) -> None:
         with self._lock:
             self._alloc(self._capacity)
+            self._within_budget()  # a new banding may widen the words
             self._size = 0
             self._tombstones = 0
             self._generation += 1
@@ -1765,6 +1783,11 @@ class DeviceStore(BaseStorage):
                 proj_t, num_bands=num_bands, rows_per_band=rows_per_band,
                 hash_family=hash_family, block_slots=block_slots,
             )
+            # The words and their row twin replaced; the lazy tables dropped.
+            kept = (self._ids, self._tie, self._payload, self._pnorm, self._pscale)
+            self._within_budget(
+                held=2 * sig_rows.nbytes + sum(t.nbytes for t in kept if t is not None)
+            )
             self._set_banding(num_bands, rows_per_band)
             self._finish_rehash(sig_rows)
 
@@ -1807,6 +1830,33 @@ class DeviceStore(BaseStorage):
     def __len__(self) -> int:
         return self._size - self._tombstones
 
+    def _resident_tensors(self) -> list[torch.Tensor]:
+        """Every tensor the store holds on its device: the words, ids and
+        ties, the payload, and each lazy table once built."""
+        held = (self._sig_t, self._sig_rows, self._ids, self._tie, self._ranks,
+                self._block_tie and self._block_tie[1], self._refine, self._planes,
+                *(self._bucket_index or ()), self._payload, self._pnorm, self._pscale)
+        return [t for t in held if t is not None]
+
+    def _within_budget(self, lazy: str | None = None, *, held: int | None = None) -> None:
+        """Raise ``MemoryError`` when the store holds more than
+        ``device_budget_bytes`` on its device: ``held`` bytes (what a
+        growth would leave it holding) or, by default, what it holds now.
+        ``lazy`` names the table just built, dropped before raising so the
+        store stays within the budget."""
+        budget = self.device_budget_bytes
+        if budget is None:
+            return
+        if held is None:
+            held = sum(t.nbytes for t in self._resident_tensors())
+        if held > budget:
+            if lazy is not None:
+                setattr(self, lazy, None)
+            raise MemoryError(
+                f"the store would hold {held} bytes on {self.device}, past its "
+                f"device_budget_bytes={budget}"
+            )
+
     def stats(self) -> dict:
         return {
             "backend": "device",
@@ -1824,6 +1874,8 @@ class DeviceStore(BaseStorage):
             "bucket_overflows": self._bucket_overflows,
             "fast_path": self._use_grouped(),
             "signature_bytes": self._capacity * self.words * 4,
+            # What the index holds on its device, lazy tables once built.
+            "device_bytes": sum(t.nbytes for t in self._resident_tensors()),
             # Payload rows plus, for int8, the 4-byte per-row scale.
             "payload_bytes": (
                 self._capacity * self.dim * self._payload.element_size()

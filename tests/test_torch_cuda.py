@@ -706,8 +706,10 @@ def test_sharded_store_on_one_card_matches_unsharded(storage, dev, rng):
 
 def test_kernels_refuse_a_strided_shard_view(dev, rng):
     """A shard taken as a column slice of one global (BW, C) tensor is a
-    strided view: the CUDA wrappers raise (the plain versions would not),
-    which is why each shard owns contiguous tensors."""
+    strided view: B1 and B2 raise (the plain versions would not), which is
+    why each shard owns contiguous tensors. B3 reads such a block in place
+    (the blocked packed route's views), == its plain version on the copy,
+    and raises where the slots are not contiguous."""
     c, bw = 8192, 16
     sig_t = torch.from_numpy(rng.integers(0, 4, (bw, c), dtype=np.int32)).to(dev)
     tie = _tie(rng, c // 4, dev)
@@ -717,8 +719,11 @@ def test_kernels_refuse_a_strided_shard_view(dev, rng):
     kw = dict(group=64, scale=gm.key_scale(c // 4))
     with pytest.raises(ValueError, match="contiguous"):
         gm.group_max_keys(view, tie, qw, num_bands=bw, words=1, **kw)
+    b3kw = dict(num_perm=32 * bw, **kw)
+    assert torch.equal(gm.hamming_packed_group_max_keys(view, tie, qw, **b3kw),
+                       gm.hamming_packed_group_max_keys_ref(view.contiguous(), tie, qw, **b3kw))
     with pytest.raises(ValueError, match="contiguous"):
-        gm.hamming_packed_group_max_keys(view, tie, qw, num_perm=32 * bw, **kw)
+        gm.hamming_packed_group_max_keys(sig_t[:, ::4], tie, qw, **b3kw)
     planes = torch.ones((c, 512), dtype=torch.int8, device=dev)[:, :256]
     with pytest.raises(ValueError, match="contiguous"):
         gm.hamming_group_max_keys(planes[: c // 4], tie, planes[:8].contiguous(), num_perm=256, **kw)
@@ -845,4 +850,58 @@ def test_blocked_hamming_past_the_key_ceiling_on_the_gpu(dev, rng, monkeypatch):
     for (gh, gi), (wh, wi) in zip(got, want):
         np.testing.assert_array_equal(gh, wh)
         np.testing.assert_array_equal(gi, wi)
+    store.close()
+
+
+def test_blocked_packed_hamming_past_the_key_ceiling_on_the_gpu(dev, rng, monkeypatch):
+    """The packed twin of the test above: 4,500,000 random signatures in
+    2^23 slots on packed words. B3 runs once per 2^22-slot block on the
+    view of the store's words (twice a query, the second block's live
+    prefix 305,728 slots), no B2 and no chunked core; each block's keys
+    equal the plain version's on the block's copy; the ids and distances
+    equal the chunked route's, unfiltered and under ``where=``."""
+    import lshrs_tpu_torch.storage.device as device_mod
+    from lshrs_tpu_torch.ops import hamming as th
+    from lshrs_tpu_torch.storage.device import DeviceStore
+    from lshrs_tpu_torch.storage.filter import IdFilter
+
+    n, q, block = 4_500_000, 256, 1 << 22
+    store = DeviceStore(num_bands=16, rows_per_band=16, initial_capacity=1 << 23,
+                        enable_hamming=True, hamming_storage="packed", device=dev)
+    words = rng.integers(0, 1 << 16, (n, 16), dtype=np.uint32)
+    ids = rng.permutation(2 * n)[:n]
+    store.add_signature_batch(ids, words)
+    store.remove_indices(ids[::101].tolist())
+    qw = words[rng.integers(0, n, q)] ^ rng.integers(0, 1 << 16, (q, 16), dtype=np.uint32) & 0x0101
+    allow = IdFilter(allowed_ids=ids[::3])
+
+    views, b3 = [], th.hamming_packed_group_max_keys
+    before = gm.hamming_group_max_keys.launches, gm.hamming_packed_group_max_keys.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(th, "hamming_packed_group_max_keys",
+                   lambda w, *a, **kw: views.append((w.shape[1], w.stride(0))) or b3(w, *a, **kw))
+        got = [store.query_hamming(qw, 10), store.query_hamming(qw, 10, where=allow)]
+    live = store._live_slots()
+    assert (gm.hamming_group_max_keys.launches - before[0],
+            gm.hamming_packed_group_max_keys.launches - before[1]) == (0, 4)
+    assert views == [(block, 1 << 23), (live - block, 1 << 23)] * 2
+    assert live - block == 305_728 and store._ranks is None and store._planes is None
+
+    qd = torch.from_numpy(qw.view(np.int32)).to(dev)
+    btie = store._block_ties(block)
+    kw = dict(num_perm=256, group=64, scale=gm.key_scale(block), word_bits=16)
+    for s, e in ((0, block), (block, live)):
+        view = store._sig_t[:, s:e]
+        assert not view.is_contiguous()
+        keys = gm.hamming_packed_group_max_keys(view, btie[s:e], qd, **kw)
+        assert torch.equal(keys, gm.hamming_packed_group_max_keys_ref(
+            view.contiguous(), btie[s:e].contiguous(), qd, **kw))
+    with monkeypatch.context() as mp:
+        mp.setattr(device_mod, "hamming_block_slots", lambda p: 1 << 40)
+        mp.setattr(device_mod, "supports_hamming_grouped", lambda *a: False)
+        want = [store.query_hamming(qw, 10), store.query_hamming(qw, 10, where=allow)]
+    for (gh, gi), (wh, wi) in zip(got, want):
+        np.testing.assert_array_equal(gh, wh)
+        np.testing.assert_array_equal(gi, wi)
+    assert store.stats()["device_bytes"] == sum(t.nbytes for t in store._resident_tensors())
     store.close()

@@ -175,13 +175,14 @@ def test_stats_keys_match_the_reference(hasher, rng):
     """Both packages report the same statistics, bucketed engine and
     bucket backends included. Kept apart on purpose: the port's kernels
     are CUDA, not Pallas (no ``pallas`` key), the port names its torch
-    device and its hash family."""
+    device and its hash family, and its store counts its resident bytes
+    (``device_bytes``)."""
     from lshrs_tpu import LSHRS as JaxLSHRS
     from lshrs_tpu_torch import LSHRS as TorchLSHRS
 
     js, ts = _pair(enable_hamming=True)
     jk, tk = set(js.stats()), set(ts.stats())
-    assert jk - tk == {"pallas"} and tk - jk == {"device"}
+    assert jk - tk == {"pallas"} and tk - jk == {"device", "device_bytes"}
     kw = dict(dim=DIM, num_perm=NB * R, num_bands=NB, rows_per_band=R, query_mode="bucket")
     jl, tl = JaxLSHRS(**kw), TorchLSHRS(device="cpu", **kw)
     X = rng.standard_normal((40, DIM)).astype(np.float32)
@@ -198,6 +199,6 @@ def test_stats_keys_match_the_reference(hasher, rng):
     for key in ("backend", "redis_prefix", "ranking", "buffered_operations"):
         assert tm.stats()[key] == jm.stats()[key], key
     ji, ti = jl.stats()["index"], tl.stats()["index"]
-    assert set(ji) - set(ti) == {"pallas"} and set(ti) - set(ji) == {"device"}
+    assert set(ji) - set(ti) == {"pallas"} and set(ti) - set(ji) == {"device", "device_bytes"}
     for key in ("query_mode", "bucket_overflows", "size", "alive", "capacity", "fast_path"):
         assert ti[key] == ji[key], key

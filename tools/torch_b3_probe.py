@@ -134,7 +134,7 @@ def main() -> int:
 
         def kernel_only():  # the launch alone, on a query operand built before
             gm._launch("lshrs_hamming_packed_group_max", dev, sig_t.data_ptr(), tie.data_ptr(),
-                       qop.data_ptr(), out.data_ptr(), q, c, bw, wb, kp, 64, kw["scale"],
+                       qop.data_ptr(), out.data_ptr(), q, c, c, bw, wb, kp, 64, kw["scale"],
                        kw["num_perm"])
 
         runs = {"b3": lambda: gm.hamming_packed_group_max_keys(sig_t, tie, qw, **kw),
